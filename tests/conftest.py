@@ -9,6 +9,7 @@ SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration tests")
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA GPU; skipped without one")
 
 
 @pytest.fixture
