@@ -7,10 +7,14 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds the CUDA kernels from the sources in the checkout, holds each
 against its plain PyTorch version on the card, drives ``run_scenario`` at
-the paper's size (card against CPU) and at full size (100 M requests over a
-1 M-key metadata store on the card), and times each kernel. Every phase
-raises on a mismatch; the script exits non-zero without a CUDA device or
-outside a checkout. The last line of its output is the JSON device record.
+the paper's size (card against CPU, telemetry on) and at full size (100 M
+requests over a 1 M-key metadata store on the card): first without
+telemetry (phase 4), then with ``TelemetryConfig()`` for Redynis and static
+remote and with the M/M/1 contention model for Redynis (phase 5), each
+full-size run held against the same run through the plain versions on the
+card. It times each kernel. Every phase raises on a mismatch; the script
+exits non-zero without a CUDA device or outside a checkout. The last line
+of its output is the JSON device record.
 """
 
 from __future__ import annotations
@@ -75,6 +79,35 @@ def _check_replay(got, want, ctx: str) -> float:
     return max(float((got[0] - want[0]).abs().max()), float((got[1] - want[1]).abs()))
 
 
+def _check_trace(a, b, ctx: str, load_rtol: float = 0.0) -> float:
+    """Hold two ``SimTrace``s of one trace: histograms, per-chunk P99 and
+    the per-chunk counters exact; per-chunk mean latency and occupancy to
+    rtol 1e-5 (f32 sums in another order); the load factor to
+    ``load_rtol``. Returns the largest relative difference of the f32
+    series."""
+    for f in ("hist_group", "chunk_hist", "p99_latency_ms", "hit_rate", "requests",
+              "moves", "drops", "evictions"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f"{ctx} {f}")
+    rel = 0.0
+    for f, rtol in (("mean_latency_ms", 1e-5), ("occupancy_bytes", 1e-5), ("load_factor", load_rtol)):
+        x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
+        np.testing.assert_allclose(x, y, rtol=rtol, atol=0, err_msg=f"{ctx} {f}")
+        rel = max(rel, float(np.max(np.abs(x - y) / np.maximum(np.abs(y), 1e-30))))
+    return rel
+
+
+def _plain_histogram(lat, group, weight, *, rows_per_chunk=None, **kw):
+    """``latency_histogram``'s plain version with the wrapper's signature."""
+    from repro_torch.kernels.latency_histogram.ref import (
+        latency_histogram_chunks_ref,
+        latency_histogram_ref,
+    )
+
+    if rows_per_chunk is None:
+        return latency_histogram_ref(lat, group, weight, **kw)
+    return latency_histogram_chunks_ref(lat, group, weight, rows_per_chunk=rows_per_chunk, **kw)
+
+
 def _check_result(a, b, ctx: str) -> float:
     """Hold two ``SimResult``s of one trace to the engine tolerances: move
     counts and hit rate exact, the f32 aggregates to rtol 1e-5. Returns the
@@ -95,24 +128,28 @@ def _plain_versions():
     card), the yardstick for a whole run."""
     import repro_torch.core.policy as policy_mod
     import repro_torch.kvsim.simulate as sim_mod
+    import repro_torch.kvsim.telemetry as telemetry_mod
     from repro_torch.kernels.chunk_replay.ref import chunk_replay_ref
     from repro_torch.kernels.ownership_sweep.ref import sweep_ref
 
-    saved = sim_mod.chunk_replay, policy_mod.ownership_sweep
+    saved = sim_mod.chunk_replay, policy_mod.ownership_sweep, telemetry_mod.latency_histogram
     sim_mod.chunk_replay, policy_mod.ownership_sweep = chunk_replay_ref, sweep_ref
+    telemetry_mod.latency_histogram = _plain_histogram
     try:
         yield
     finally:
-        sim_mod.chunk_replay, policy_mod.ownership_sweep = saved
+        sim_mod.chunk_replay, policy_mod.ownership_sweep, telemetry_mod.latency_histogram = saved
 
 
 def _profile_window(torch, trace, wl, cl, policy, run_scenario, out_dir,
-                    unprofiled_chunk_ms: float, chunks: int = 200) -> dict:
+                    unprofiled_chunk_ms: float, label: str = "phase 4", telemetry=None,
+                    chunks: int = 200) -> dict:
     """Where a full-size Redynis chunk's time goes: ``torch.profiler`` over
     the first ``chunks`` chunks of the full-size trace against the full
     1 M-key store. Prints the device time per chunk, its share of the
     unprofiled wall time per chunk, the host launches per chunk, and the
     top kernels by device time and operations by host time."""
+    kw = {} if telemetry is None else dict(telemetry=telemetry)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -120,13 +157,13 @@ def _profile_window(torch, trace, wl, cl, policy, run_scenario, out_dir,
     sub = trace._replace(keys=trace.keys[:sub_r], nodes=trace.nodes[:sub_r],
                          is_read=trace.is_read[:sub_r])
     sub_wl = wl._replace(num_requests=sub_r)
-    run_scenario(sub_wl, cl, policy, daemon_interval=FULL_INTERVAL, trace=sub)
+    run_scenario(sub_wl, cl, policy, daemon_interval=FULL_INTERVAL, trace=sub, **kw)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run_scenario(sub_wl, cl, policy, daemon_interval=FULL_INTERVAL, trace=sub)
+        run_scenario(sub_wl, cl, policy, daemon_interval=FULL_INTERVAL, trace=sub, **kw)
         torch.cuda.synchronize()
     events = prof.key_averages()
-    (out_dir / "profile.txt").write_text(
+    (out_dir / f"profile_{label.replace(' ', '_')}.txt").write_text(
         events.table(sort_by="self_cpu_time_total", row_limit=40) + "\n"
         + events.table(sort_by="self_device_time_total", row_limit=25)
     )
@@ -138,12 +175,12 @@ def _profile_window(torch, trace, wl, cl, policy, run_scenario, out_dir,
     top_dev = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:8]
     top_cpu = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
     busy = device_chunk_ms / unprofiled_chunk_ms
-    print(f"phase 4 profile ({chunks} chunks): device {device_chunk_ms:.4f} ms per chunk, "
+    print(f"{label} profile ({chunks} chunks): device {device_chunk_ms:.4f} ms per chunk, "
           f"{busy:.4f} of the unprofiled {unprofiled_chunk_ms:.4f} ms per chunk, "
           f"{launches:.1f} kernel launches per chunk")
-    print("phase 4 profile top device: " + "; ".join(
+    print(f"{label} profile top device: " + "; ".join(
         f"{e.key[:50]} {e.self_device_time_total / 1e3 / chunks:.4f} ms/chunk" for e in top_dev))
-    print("phase 4 profile top host: " + "; ".join(
+    print(f"{label} profile top host: " + "; ".join(
         f"{e.key[:40]} {e.self_cpu_time_total / 1e3 / chunks:.4f} ms/chunk" for e in top_cpu))
     return dict(
         chunks=chunks, device_ms_per_chunk=device_chunk_ms,
@@ -167,12 +204,16 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.chunk_replay.ops import chunk_replay
     from repro_torch.kernels.chunk_replay.ref import chunk_replay_ref
+    from repro_torch.kernels.latency_histogram.ops import latency_histogram
+    from repro_torch.kernels.latency_histogram.ref import bin_index
     from repro_torch.kernels.ownership_sweep.ops import ownership_sweep
     from repro_torch.kernels.ownership_sweep.ref import sweep_ref
     from repro_torch.kvsim import (
         ClusterConfig,
         RedynisPolicy,
+        ServiceConfig,
         StaticPolicy,
+        TelemetryConfig,
         WorkloadConfig,
         generate_trace,
         run_scenario,
@@ -224,12 +265,18 @@ def main() -> int:
                     kw = dict(service_ms=10.0, master=1, xfer_read_ms=2.0,
                               xfer_write_ms=3.0, read_mode=mode, num_bins=bins,
                               extra_ms=extra if with_extra else None)
-                    got = chunk_replay(*args, **kw)
-                    want = chunk_replay_ref(*args, **kw)
+                    # The per-request outputs, where passed, must be equal.
+                    outs = [(torch.empty(b, device=dev), torch.empty(b, dtype=torch.bool, device=dev))
+                            for _ in range(2)] if with_extra else [(None, None)] * 2
+                    got = chunk_replay(*args, **kw, lat_out=outs[0][0], hit_out=outs[0][1])
+                    want = chunk_replay_ref(*args, **kw, lat_out=outs[1][0], hit_out=outs[1][1])
                     ctx = f"chunk_replay {topo} {mode} bins={bins} extra={with_extra}"
                     err_replay = max(err_replay, _check_replay(got, want, ctx))
                     if not with_extra:  # whole-ms latencies, sums < 2**24: exact
                         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), ctx
+                    else:
+                        assert torch.equal(outs[0][0], outs[1][0]), ctx
+                        assert torch.equal(outs[0][1], outs[1][1]), ctx
                     cases += 1
     # Decade-edge latencies: 1, 10, 100, 1000 ms must land in bins 1, 32, 64, 95.
     edge = [cuda_t(np.zeros((1, 5), bool)), cuda_t(np.zeros(4, np.int32)),
@@ -259,31 +306,67 @@ def main() -> int:
         err_sweep = max(err_sweep, float((got[4] - want[4]).abs().max()))
     print(f"phase 2 ownership_sweep ok: 3 cases, max_abs_err {err_sweep}")
 
+    # latency_histogram: log-uniform latencies over [0.1, 1e5] ms with the
+    # decade edges first, G up to 128, flat and per-chunk forms (a short
+    # last chunk), 0/1 weights exact and real weights to rtol 1e-5.
+    err_hist = 0.0
+    hcases = 0
+    for g in (6, 10, 128):
+        r = 1_000_003
+        lat = np.exp(rng.uniform(np.log(0.1), np.log(1e5), r)).astype(np.float32)
+        lat[:4] = [1.0, 10.0, 100.0, 1000.0]
+        hargs = [cuda_t(lat), cuda_t(rng.integers(0, g, r).astype(np.int32)),
+                 cuda_t((rng.random(r) < 0.8).astype(np.float32))]
+        hkw = dict(num_groups=g, num_bins=128, lo=1.0, hi=10_000.0)
+        for rpc in (None, 10_000, 997):
+            got = latency_histogram(*hargs, rows_per_chunk=rpc, **hkw)
+            want = _plain_histogram(*hargs, rows_per_chunk=rpc, **hkw)
+            assert torch.equal(got, want), (g, rpc)
+            hcases += 1
+        real = torch.rand(r, device=dev, generator=torch.Generator(device=dev).manual_seed(g))
+        got = latency_histogram(hargs[0], hargs[1], real, **hkw)
+        want = _plain_histogram(hargs[0], hargs[1], real, **hkw)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+        err_hist = max(err_hist, float((got - want).abs().max()))
+        hcases += 1
+    one = torch.ones(4, dtype=torch.int32, device=dev)
+    edge_hist = latency_histogram(cuda_t(np.asarray([1.0, 10.0, 100.0, 1000.0], np.float32)), one,
+                                  torch.ones(4, device=dev), num_groups=2, num_bins=128)
+    edge_bins = edge_hist[1].nonzero().flatten().tolist()
+    assert edge_bins == [1, 32, 64, 95], edge_bins
+    print(f"phase 2 latency_histogram ok: {hcases} cases, max_abs_err {err_hist} "
+          f"(real weights; 0/1 weights exact), decade-edge bins {edge_bins}")
+
     # ---- phase 3: paper size, card against CPU on the same trace --------
     baselines = {
         "local": StaticPolicy("local"), "optimized": RedynisPolicy(),
         "remote": StaticPolicy("remote"), "replicated": StaticPolicy("replicated"),
     }
+    tcfg = TelemetryConfig()
     record["paper"] = {}
     for skewed in (False, True):
         wl = WorkloadConfig(num_requests=100_000, num_keys=1_000, skewed=skewed)
         trace = generate_trace(wl, seed=0, device=dev)
         rows = {}
         for name, pol in baselines.items():
-            a = run_scenario(wl, ClusterConfig(), pol, trace=trace)
-            c = run_scenario(wl, ClusterConfig(), pol, trace=trace.cpu(), device="cpu")
+            a, ta = run_scenario(wl, ClusterConfig(), pol, trace=trace, telemetry=tcfg)
+            c, tc = run_scenario(wl, ClusterConfig(), pol, trace=trace.cpu(), device="cpu",
+                                 telemetry=tcfg)
             _check_result(a, c, f"phase 3 {name}")
+            _check_trace(ta, tc, f"phase 3 {name}")
             rows[name] = a
+            p = ta.tail_summary()
             print(f"phase 3 {'skewed' if skewed else 'uniform'} {name}: "
                   f"throughput {a.throughput_ops_s:.3f} ops/s, hit_rate {a.hit_rate:.4f}, "
-                  f"mean {a.mean_latency_ms:.3f} ms, moves {a.replication_moves:.0f}")
+                  f"mean {a.mean_latency_ms:.3f} ms, p50 {p['p50']:.3f} ms, "
+                  f"p99 {p['p99']:.3f} ms, moves {a.replication_moves:.0f}")
         assert rows["local"].throughput_ops_s > rows["optimized"].throughput_ops_s
         assert rows["optimized"].throughput_ops_s > rows["remote"].throughput_ops_s
         assert rows["optimized"].replication_moves > 0
         record["paper"]["skewed" if skewed else "uniform"] = {
             name: r.throughput_ops_s for name, r in rows.items()
         }
-    print("phase 3 ok: card matches CPU; local > optimized > remote")
+    print("phase 3 ok: card matches CPU (histograms exact); local > optimized > remote")
 
     # ---- phase 4: full size on the card --------------------------------
     wl = wan5_workload(num_requests=FULL_REQUESTS, num_keys=FULL_KEYS, read_fraction=0.9)
@@ -296,6 +379,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     chunk_replay.launches = 0
     ownership_sweep.launches = 0
+    latency_histogram.launches = 0
     full = {}
     for name, pol in policies.items():
         t0 = time.perf_counter()
@@ -309,7 +393,8 @@ def main() -> int:
         print(f"phase 4 {name}: wall {wall:.3f} s, {FULL_REQUESTS / wall:.0f} simulated req/s, "
               f"throughput {res.throughput_ops_s:.3f} ops/s, hit_rate {res.hit_rate:.4f}, "
               f"moves {res.replication_moves:.0f}")
-    launches = {"chunk_replay": chunk_replay.launches, "ownership_sweep": ownership_sweep.launches}
+    launches = {"chunk_replay": chunk_replay.launches, "ownership_sweep": ownership_sweep.launches,
+                "latency_histogram": latency_histogram.launches}
     chunks = -(-FULL_REQUESTS // FULL_INTERVAL)
     peak_mem = torch.cuda.max_memory_allocated()
     # The same runs through the plain versions on the card: the full-size
@@ -326,6 +411,7 @@ def main() -> int:
     # static policy replays its whole trace in one launch.
     assert launches["chunk_replay"] == chunks + 1, launches
     assert launches["ownership_sweep"] == chunks, launches
+    assert launches["latency_histogram"] == 0, launches  # telemetry is off here
     assert full["redynis"]["hit_rate"] > full["remote"]["hit_rate"]
     print(f"phase 4 launches {launches}, max_memory_allocated {peak_mem} bytes")
     record["full"] = full
@@ -392,21 +478,150 @@ def main() -> int:
     record["whole_trace_replay"] = dict(ms=whole_ms, plain_ms=whole_plain,
                                         bound_ms=whole_bytes / BW_BYTES_PER_S * 1e3)
 
-    # ---- phase 5: the kernel record ------------------------------------
+    # ---- phase 5: full size with telemetry and contention ---------------
+    # Redynis and static remote with TelemetryConfig() on phase 4's trace,
+    # and Redynis on the tail-latency contention shape (balanced regions,
+    # affinity 0.8, reads only, lognormal sizes sigma 1, 128 bytes/ms,
+    # capacity factor 1.0) on a trace of its own.
+    wl_c = wan5_workload(num_requests=FULL_REQUESTS, num_keys=FULL_KEYS, read_fraction=1.0,
+                         region_weights=(0.2,) * 5, affinity=0.8, object_bytes_sigma=1.0)
+    cl_c = wan5_cluster(service=ServiceConfig(serve_bytes_per_ms=128.0, capacity_factor=1.0))
+    trace_c = generate_trace(wl_c, seed=0, device=dev)
+    runs = {
+        "redynis": (wl, cl, trace, RedynisPolicy()),
+        "remote": (wl, cl, trace, StaticPolicy("remote")),
+        "redynis_contention": (wl_c, cl_c, trace_c, RedynisPolicy()),
+    }
+
+    def head(t, w, chunks_):  # the first chunks of a trace, for the warm-up
+        sub_r = chunks_ * FULL_INTERVAL
+        return (t._replace(keys=t.keys[:sub_r], nodes=t.nodes[:sub_r], is_read=t.is_read[:sub_r]),
+                w._replace(num_requests=sub_r))
+
+    for w, c, t, pol in runs.values():
+        sub, sub_wl = head(t, w, 50)
+        run_scenario(sub_wl, c, pol, daemon_interval=FULL_INTERVAL, trace=sub, telemetry=tcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    chunk_replay.launches = 0
+    ownership_sweep.launches = 0
+    latency_histogram.launches = 0
+    tele = {}
+    for name, (w, c, t, pol) in runs.items():
+        t0 = time.perf_counter()
+        res, tr = run_scenario(w, c, pol, daemon_interval=FULL_INTERVAL, trace=t, telemetry=tcfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tail = tr.tail_summary()
+        assert np.isfinite(res.throughput_ops_s) and tr.hist.sum() == FULL_REQUESTS, name
+        assert tr.chunk_hist.shape == (chunks, 128) and np.isfinite(tr.p99_latency_ms).all(), name
+        tele[name] = dict(wall_s=wall, sim_requests_per_s=FULL_REQUESTS / wall,
+                          throughput_ops_s=res.throughput_ops_s, hit_rate=res.hit_rate,
+                          mean_latency_ms=res.mean_latency_ms, quantiles=tail,
+                          convergence_chunk=tr.convergence_chunk(),
+                          post_convergence_moves=tr.post_convergence_moves(),
+                          max_load_factor=float(tr.load_factor.max()), result=res, trace=tr)
+        print(f"phase 5 {name}: wall {wall:.3f} s, {FULL_REQUESTS / wall:.0f} simulated req/s, "
+              f"throughput {res.throughput_ops_s:.3f} ops/s, mean {res.mean_latency_ms:.3f} ms, "
+              f"p50 {tail['p50']:.3f} ms, p99 {tail['p99']:.3f} ms, p99.9 {tail['p999']:.3f} ms, "
+              f"max rho {float(tr.load_factor.max()):.4f}")
+    tele_launches = {"chunk_replay": chunk_replay.launches,
+                     "ownership_sweep": ownership_sweep.launches,
+                     "latency_histogram": latency_histogram.launches}
+    tele_mem = torch.cuda.max_memory_allocated()
+    # Two Redynis runs replay chunk by chunk with the fused histogram and
+    # sweep every chunk; the static run is one whole-trace replay and one
+    # per-chunk histogram launch.
+    assert tele_launches == {"chunk_replay": 2 * chunks + 1, "ownership_sweep": 2 * chunks,
+                             "latency_histogram": 1}, tele_launches
+    assert tele["redynis_contention"]["max_load_factor"] > 0
+    # Telemetry's cost on the Redynis run, in turns within this call: phase
+    # 4's run (off) and the run above (on), then off, on, off, on. The loop
+    # is host-bound and the host is shared, so single runs spread widely.
+    turns = {"off": [full["redynis"]["wall_s"]], "on": [tele["redynis"]["wall_s"]]}
+    for key in ("off", "on", "off", "on"):
+        t0 = time.perf_counter()
+        run_scenario(wl, cl, RedynisPolicy(), daemon_interval=FULL_INTERVAL, trace=trace,
+                     telemetry=tcfg if key == "on" else None)
+        torch.cuda.synchronize()
+        turns[key].append(time.perf_counter() - t0)
+    print(f"phase 5 Redynis wall s in turns: telemetry off {turns['off']}, on {turns['on']}")
+    record["telemetry_turns_s"] = turns
+    for label, name in (("phase 5 telemetry", "redynis"), ("phase 5 contention", "redynis_contention")):
+        w, c, t, pol = runs[name]
+        record[label.replace(" ", "_")] = _profile_window(
+            torch, t, w, c, pol, run_scenario, out_dir,
+            unprofiled_chunk_ms=tele[name]["wall_s"] * 1e3 / chunks, label=label, telemetry=tcfg,
+        )
+    with _plain_versions():
+        for name, (w, c, t, pol) in runs.items():
+            plain, ptr = run_scenario(w, c, pol, daemon_interval=FULL_INTERVAL, trace=t, telemetry=tcfg)
+            rel = max(_check_result(tele[name]["result"], plain, f"phase 5 {name}"),
+                      _check_trace(tele[name]["trace"], ptr, f"phase 5 {name}"))
+            tele[name]["plain_max_rel_diff"] = rel
+            print(f"phase 5 {name}: matches the plain-version engine (histograms exact), "
+                  f"max rel diff {rel}")
+    for row in tele.values():
+        del row["result"], row["trace"]
+    slowdown = float(np.median(turns["on"]) / np.median(turns["off"]))
+    print(f"phase 5 launches {tele_launches}, max_memory_allocated {tele_mem} bytes; Redynis with "
+          f"telemetry takes {slowdown:.4f}x the wall time without (medians of three turns)")
+    record["telemetry"] = tele
+    record["telemetry_launches"] = tele_launches
+    record["telemetry_max_memory_allocated"] = tele_mem
+    del trace_c
+
+    # latency_histogram at the static path's full-size shape: the whole
+    # trace's 100 M latencies into [C, 2N, B] per-chunk histograms.
+    g, nb = 2 * n, tcfg.num_bins
+    lat = torch.empty(FULL_REQUESTS, device=dev)
+    chunk_replay(hosts, trace.keys, trace.nodes, trace.is_read, allv, rtt, lat_out=lat, **skw)
+    group = (trace.nodes * 2 + trace.is_read.to(torch.int32)).to(torch.int32)
+    weight = torch.ones(FULL_REQUESTS, device=dev)
+    hkw = dict(num_groups=g, num_bins=nb, lo=tcfg.lo_ms, hi=tcfg.hi_ms, rows_per_chunk=FULL_INTERVAL)
+    got = latency_histogram(lat, group, weight, **hkw)
+    want = _plain_histogram(lat, group, weight, **hkw)
+    assert torch.equal(got, want), "full-size latency_histogram"
+    del got, want
+    hist_ms = _device_ms(lambda: latency_histogram(lat, group, weight, **hkw), torch, reps=3, iters=5)
+    hist_plain = _device_ms(lambda: _plain_histogram(lat, group, weight, **hkw), torch, reps=3, iters=2)
+    # The fold alone, as one PyTorch call over a precomputed flat index: a
+    # floor for the grouped fold, not the same function (no bucketize).
+    flat = ((torch.arange(FULL_REQUESTS, device=dev) // FULL_INTERVAL) * g + group) * nb \
+        + bin_index(lat, tcfg.lo_ms, tcfg.hi_ms, nb).long()
+    fold_ms = _device_ms(lambda: torch.bincount(flat, weights=weight, minlength=chunks * g * nb),
+                         torch, reps=3, iters=5)
+    del flat
+    hist_bytes = FULL_REQUESTS * 12 + chunks * g * nb * 4
+    print(f"phase 5 latency_histogram ({FULL_REQUESTS} requests -> [{chunks}, {g}, {nb}]): "
+          f"kernel {hist_ms:.4f} ms, plain {hist_plain:.4f} ms, "
+          f"bound {hist_bytes / BW_BYTES_PER_S * 1e3:.4f} ms, bincount fold floor {fold_ms:.4f} ms")
+    record["latency_histogram_full"] = dict(ms=hist_ms, plain_ms=hist_plain, bincount_fold_ms=fold_ms,
+                                            bound_ms=hist_bytes / BW_BYTES_PER_S * 1e3)
+
+    # ---- phase 6: the kernel record ------------------------------------
+    # Launches: the telemetry path's run (phase 5), which drives all three.
     kernels = [
         dict(name="chunk_replay", route="cuda",
              source="src/repro_torch/kernels/chunk_replay/csrc/chunk_replay.cu",
              replaces="src/repro/kernels/chunk_replay/kernel.py:71",
-             launches=launches["chunk_replay"], max_abs_err=err_replay,
+             launches=tele_launches["chunk_replay"], max_abs_err=err_replay,
              ms=chunk_ms, plain_ms=chunk_plain,
              bound_ms=replay_bytes / BW_BYTES_PER_S * 1e3, bound_by="bytes",
              library_ms=None),
         dict(name="ownership_sweep", route="cuda",
              source="src/repro_torch/kernels/ownership_sweep/csrc/ownership_sweep.cu",
              replaces="src/repro/kernels/ownership_sweep/kernel.py:38",
-             launches=launches["ownership_sweep"], max_abs_err=err_sweep,
+             launches=tele_launches["ownership_sweep"], max_abs_err=err_sweep,
              ms=sweep_ms, plain_ms=sweep_plain,
              bound_ms=sweep_bytes / BW_BYTES_PER_S * 1e3, bound_by="bytes",
+             library_ms=None),
+        dict(name="latency_histogram", route="cuda",
+             source="src/repro_torch/kernels/latency_histogram/csrc/latency_histogram.cu",
+             replaces="src/repro/kernels/latency_histogram/kernel.py:38",
+             launches=tele_launches["latency_histogram"], max_abs_err=err_hist,
+             ms=hist_ms, plain_ms=hist_plain,
+             bound_ms=hist_bytes / BW_BYTES_PER_S * 1e3, bound_by="bytes",
              library_ms=None),
     ]
     record["kernels"] = kernels

@@ -12,10 +12,11 @@ import torch
 
 from repro_torch.core.metadata import MetadataStore
 from repro_torch.device import resolve_device
-from repro_torch.kvsim.cluster import ClusterConfig
+from repro_torch.kvsim.cluster import ClusterConfig, ServiceConfig
+from repro_torch.kvsim.telemetry import TelemetryConfig
 from repro_torch.kvsim.workload import Trace
 
-__all__ = ["trace_from_numpy", "store_from_numpy", "cluster_from_fields"]
+__all__ = ["trace_from_numpy", "store_from_numpy", "cluster_from_fields", "telemetry_from_fields"]
 
 
 def _t(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -49,12 +50,23 @@ def store_from_numpy(access_counts, hosts, last_access, live, home, device=None)
 
 
 def cluster_from_fields(**fields) -> ClusterConfig:
-    """A ``ClusterConfig`` from a reference config's ``_asdict()``. Fields
-    this slice does not cover (queueing, routing, failure injection, node
-    labels) must be unset."""
-    for name in ("service", "routing", "faults", "zone_of", "region_of"):
+    """A ``ClusterConfig`` from a reference config's ``_asdict()``. A
+    reference ``ServiceConfig`` carries across by its fields; the fields
+    this slice does not cover (routing, failure injection, node labels)
+    must be unset."""
+    for name in ("routing", "faults", "zone_of", "region_of"):
         if fields.get(name) is not None:
             raise NotImplementedError(
                 f"cluster_from_fields: ClusterConfig.{name} is not ported yet"
             )
+    service = fields.get("service")
+    if service is not None:
+        fields["service"] = ServiceConfig(**service._asdict())
     return ClusterConfig(**fields)
+
+
+def telemetry_from_fields(**fields) -> TelemetryConfig:
+    """A ``TelemetryConfig`` from a reference config's ``_asdict()``. The
+    attribution and flight-recorder sub-configs carry across as they are:
+    ``run_scenario`` raises while one is enabled (a later slice)."""
+    return TelemetryConfig(**fields)

@@ -1,4 +1,5 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version:
-``chunk_replay`` (one chunk's request path) and ``ownership_sweep``
-(Algorithm 3's analysis pass). ``latency_histogram`` holds only the plain
-binning helpers so far."""
+``chunk_replay`` (one chunk's request path), ``ownership_sweep``
+(Algorithm 3's analysis pass) and ``latency_histogram`` (bucketize and
+grouped fold of per-request latencies). ``csrc/log_bins.cuh`` holds the
+bin rule the two histogram folds share."""

@@ -4,9 +4,10 @@ with ``ctypes``.
 Each ``kernels/<name>/csrc/<name>.cu`` exposes a plain C interface and is
 compiled on its own into ``build/repro_torch_kernels/<name>-<hash>.so`` at
 the repository root (``build/`` is git-ignored); the hash covers the
-source and the flags, so an edited source rebuilds. Nothing is compiled or
-loaded when a module is imported: ``load`` runs inside the wrappers, on
-the first launch. ``build_all`` starts one ``nvcc`` per source at once, so
+source, the shared headers it can include (``kernels/csrc/*.cuh``, on the
+include path) and the flags, so an edited source or header rebuilds.
+Nothing is compiled or loaded when a module is imported: ``load`` runs
+inside the wrappers, on the first launch. ``build_all`` starts one ``nvcc`` per source at once, so
 a fresh checkout builds in the time of its slowest file.
 
 Flags: ``-fmad=false`` and no ``--use_fast_math`` (IEEE division stays the
@@ -31,8 +32,9 @@ _KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
 KERNEL_SOURCES = {
     name: _KERNELS_DIR / name / "csrc" / f"{name}.cu"
-    for name in ("chunk_replay", "ownership_sweep")
+    for name in ("chunk_replay", "ownership_sweep", "latency_histogram")
 }
+INCLUDE_DIR = _KERNELS_DIR / "csrc"  # headers shared between kernels
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
@@ -52,10 +54,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256(
-        KERNEL_SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256(KERNEL_SOURCES[name].read_bytes())
+    for header in sorted(INCLUDE_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
@@ -67,7 +70,8 @@ def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
     log = target.with_suffix(".log")
     proc = subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(KERNEL_SOURCES[name])],
+        [_nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", str(tmp),
+         str(KERNEL_SOURCES[name])],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     return proc, tmp, log

@@ -23,29 +23,24 @@
 //     bit for bit from run to run. hits, reads and count stay integers;
 //   * the optional [2N, num_bins] log-bin histogram uses per-block int
 //     counters in shared memory, added to the output with integer atomics
-//     (order-free). The bin's logarithm is taken in double and rounded to
-//     float, the correctly rounded f32 log, so latencies on a decade edge
-//     land in the reference's bins.
+//     (order-free). The bin rule is bin_of in ../../csrc/log_bins.cuh,
+//     shared with latency_histogram.cu;
+//   * optional per-request outputs: the latency (after extra_ms and the
+//     valid mask, the value bin_of bins) and the read-hit flag, written
+//     only when the caller passes the buffers. The static-policy path
+//     replays its whole trace in one launch and bins the latencies per
+//     chunk with latency_histogram.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "log_bins.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;  // power of two: the tree reductions need it
 constexpr int kNoLocal = 1;  // read_mode codes; 0 is "map"
 constexpr int kIdeal = 2;
-
-__device__ __forceinline__ int bin_of(float lat, float lo, float hi,
-                                      float log_span, int num_bins) {
-  if (lat < lo) return 0;
-  if (lat >= hi) return num_bins - 1;
-  const int inner = num_bins - 2;
-  const float x = fmaxf(lat, 1e-30f) / lo;
-  const float t = static_cast<float>(log(static_cast<double>(x))) / log_span;
-  const int raw = static_cast<int>(floorf(t * static_cast<float>(inner))) + 1;
-  return min(max(raw, 1), inner);
-}
 
 __global__ void chunk_replay_kernel(
     const uint8_t* __restrict__ hosts, const int* __restrict__ keys,
@@ -54,7 +49,8 @@ __global__ void chunk_replay_kernel(
     const float* __restrict__ extra, int B, int K, int N, int read_mode,
     int master, float service, float xfer_r, float xfer_w, float lo, float hi,
     int num_bins, float* __restrict__ fpart, int* __restrict__ ipart,
-    int* __restrict__ hist) {
+    int* __restrict__ hist, float* __restrict__ lat_out,
+    uint8_t* __restrict__ hit_out) {
   extern __shared__ float smem[];
   float* rtt_s = smem;                      // [N * N]
   float* acc_s = rtt_s + N * N;             // [N][kThreads] busy per thread
@@ -77,9 +73,7 @@ __global__ void chunk_replay_kernel(
   }
   __syncthreads();
 
-  const float log_span =
-      num_bins > 0 ? static_cast<float>(log(static_cast<double>(hi / lo)))
-                   : 1.f;
+  const float log_span = num_bins > 0 ? log_bin_span(lo, hi) : 1.f;
   float lat_sum = 0.f;
   int hits = 0, reads = 0, count = 0;
   const int stride = gridDim.x * kThreads;
@@ -122,6 +116,8 @@ __global__ void chunk_replay_kernel(
     }
     if (extra != nullptr) lat = lat + extra[i];
     if (!v) lat = 0.f;
+    if (lat_out != nullptr) lat_out[i] = lat;
+    if (hit_out != nullptr) hit_out[i] = (hit && rd && v) ? 1 : 0;
     lat_sum += lat;
     acc_s[x * kThreads + tid] += lat;
     hits += (hit && rd && v);
@@ -221,14 +217,16 @@ const char* chunk_replay_error_string(int code) {
 
 // fpart: [grid, N+1] f32 and ipart: [grid, 3] i32 scratch; out_f: [N+1]
 // (busy, lat_sum); out_i: [3] i64 (hits, reads, count); hist: [2N, bins]
-// i32, zeroed by the caller (unused when num_bins == 0); extra may be null.
+// i32, zeroed by the caller (unused when num_bins == 0); extra, lat_out
+// ([B] f32) and hit_out ([B] uint8) may be null.
 int chunk_replay_launch(const void* hosts, const void* keys, const void* nodes,
                         const void* is_read, const void* valid,
                         const void* rtt, const void* extra, int B, int K,
                         int N, int read_mode, int master, float service,
                         float xfer_r, float xfer_w, float lo, float hi,
                         int num_bins, void* fpart, void* ipart, void* out_f,
-                        void* out_i, void* hist, int grid, void* stream) {
+                        void* out_i, void* hist, void* lat_out,
+                        void* hit_out, int grid, void* stream) {
   const size_t smem = sizeof(float) * (static_cast<size_t>(N) * N +
                                        static_cast<size_t>(N) * kThreads) +
                       (num_bins > 0 ? sizeof(int) * 2 * N * num_bins : 0);
@@ -243,7 +241,8 @@ int chunk_replay_launch(const void* hosts, const void* keys, const void* nodes,
       static_cast<const uint8_t*>(valid), static_cast<const float*>(rtt),
       static_cast<const float*>(extra), B, K, N, read_mode, master, service,
       xfer_r, xfer_w, lo, hi, num_bins, static_cast<float*>(fpart),
-      static_cast<int*>(ipart), static_cast<int*>(hist));
+      static_cast<int*>(ipart), static_cast<int*>(hist),
+      static_cast<float*>(lat_out), static_cast<uint8_t*>(hit_out));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   chunk_replay_finalize<<<N + 4, kThreads, 0, s>>>(

@@ -23,7 +23,7 @@ MAX_GRID = 132 * 8  # blocks per launch: 8 per SM of an H100, grid-stride beyond
 _READ_MODE_CODE = {"map": 0, "no_local": 1, "ideal": 2}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P] * 7 + [_I] * 5 + [_F] * 5 + [_I] + [_P] * 5 + [_I, _P]
+_ARGTYPES = [_P] * 7 + [_I] * 5 + [_F] * 5 + [_I] + [_P] * 7 + [_I, _P]
 
 
 def chunk_replay(
@@ -43,17 +43,21 @@ def chunk_replay(
     lo: float = 1.0,
     hi: float = 10_000.0,
     extra_ms: torch.Tensor | None = None,  # [B] f32 per-request surcharge
+    lat_out: torch.Tensor | None = None,  # [B] f32, written when given
+    hit_out: torch.Tensor | None = None,  # [B] bool, written when given
 ):
     """Returns ``(busy [N] f32, lat_sum f32, hits i64, reads i64,
     count i64, hist)``; ``hist`` is the ``[2N, num_bins]`` int32 grouped
-    latency histogram, ``None`` when ``num_bins == 0``. Key and node ids
+    latency histogram, ``None`` when ``num_bins == 0``. ``lat_out`` and
+    ``hit_out``, when passed, receive each request's latency (after
+    ``extra_ms`` and the valid mask) and read-hit flag. Key and node ids
     must lie in range (the kernel clamps them, as a JAX gather does)."""
     if read_mode not in READ_MODES:
         raise ValueError(f"unknown read_mode {read_mode!r}; expected one of {READ_MODES}")
     kw = dict(
         service_ms=service_ms, master=master, xfer_read_ms=xfer_read_ms,
         xfer_write_ms=xfer_write_ms, read_mode=read_mode, num_bins=num_bins,
-        lo=lo, hi=hi, extra_ms=extra_ms,
+        lo=lo, hi=hi, extra_ms=extra_ms, lat_out=lat_out, hit_out=hit_out,
     )
     dev = rtt.device
     if dev.type == "cpu":
@@ -77,6 +81,10 @@ def chunk_replay(
     _build.check_input("chunk_replay", "rtt", rtt, torch.float32, (n, n), dev)
     if extra_ms is not None:
         _build.check_input("chunk_replay", "extra_ms", extra_ms, torch.float32, (b,), dev)
+    if lat_out is not None:
+        _build.check_input("chunk_replay", "lat_out", lat_out, torch.float32, (b,), dev)
+    if hit_out is not None:
+        _build.check_input("chunk_replay", "hit_out", hit_out, torch.bool, (b,), dev)
 
     if b == 0 or k == 0:
         raise ValueError("chunk_replay: needs at least one request and one key")
@@ -104,6 +112,8 @@ def chunk_replay(
         float(lo), float(hi), num_bins,
         fpart.data_ptr(), ipart.data_ptr(), out_f.data_ptr(), out_i.data_ptr(),
         None if hist is None else hist.data_ptr(),
+        None if lat_out is None else lat_out.data_ptr(),
+        None if hit_out is None else hit_out.data_ptr(),
         grid, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, "chunk_replay", code)

@@ -26,10 +26,24 @@ f32 add, as in the reference's traced scalars.
 ``read_mode``: ``"map"`` reads consult the replica map, ``"no_local"``
 hides the requesting node's own copy, ``"ideal"`` serves everything
 locally at pure service cost.
+
+The contention pre-pass (``contention_extra_ms_ref``, the M/M/1 model of
+``kvsim.cluster.ServiceConfig``) prices each request's queueing wait from
+the chunk's per-node demand fold and hands it to the replay as
+``extra_ms``. Its f32 expressions follow the reference as its engine
+compiles them, which is not quite as its source reads: XLA turns a division
+by a compile-time constant into a multiply by the constant's f32 reciprocal
+and contracts ``service + bytes * (1 / serve)`` into one fused
+multiply-add. The port writes both out (the fused multiply-add as an f64
+product and sum, rounded once). The demand fold is taken in f64 and rounded
+once: deterministic on the card (no float atomics) and the same bits on
+the CPU and the card wherever the f64 sum is exact; the reference's
+sequential f32 scatter differs from it by a few ulps.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.latency_histogram.ref import bin_index
@@ -41,13 +55,25 @@ __all__ = [
     "write_latency_ref",
     "chunk_latency_ref",
     "chunk_replay_ref",
+    "serving_node_ref",
+    "service_demand_ref",
+    "load_factor_ref",
+    "contention_wait_ref",
+    "contention_extra_ms_ref",
+    "contention_extra_ms_chunks_ref",
 ]
 
 READ_MODES = ("map", "no_local", "ideal")
+SLAB_ROWS = 1 << 22  # rows per slab of the whole-trace contention pre-pass
 
 
 def _f32(x, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), float(x), dtype=torch.float32, device=like.device)
+
+
+def _recip32(x) -> float:
+    """The f32 reciprocal XLA folds a constant divisor into."""
+    return float(np.float32(1.0) / np.float32(x))
 
 
 def nearest_replica_rtt_ref(
@@ -145,11 +171,16 @@ def chunk_replay_ref(
     lo: float = 1.0,
     hi: float = 10_000.0,
     extra_ms: torch.Tensor | None = None,  # [B] f32 per-request surcharge
+    lat_out: torch.Tensor | None = None,  # [B] f32, written when given
+    hit_out: torch.Tensor | None = None,  # [B] bool, written when given
 ):
     """The whole fused pass. Returns ``(busy [N] f32, lat_sum f32,
     hits i64, reads i64, count i64, hist)`` where ``hist`` is the
     ``[2N, num_bins]`` int32 grouped latency histogram, ``None`` when
-    ``num_bins == 0``."""
+    ``num_bins == 0``. When the caller passes them, ``lat_out`` receives
+    each request's latency (after ``extra_ms`` and the valid mask, the
+    value the histogram bins) and ``hit_out`` its read-hit flag (a valid
+    read whose node holds a copy)."""
     n = rtt.shape[0]
     lat, read_hits = chunk_latency_ref(
         hosts, keys, nodes, is_read, rtt,
@@ -160,6 +191,10 @@ def chunk_replay_ref(
     if extra_ms is not None:
         lat = lat + extra_ms
     lat = torch.where(valid, lat, _f32(0.0, rtt))
+    if lat_out is not None:
+        lat_out.copy_(lat)
+    if hit_out is not None:
+        hit_out.copy_(read_hits & valid)
     # Sums run in f64 and round once to f32. Where an f32 sum is exact
     # (whole-ms latencies, totals below 2**24) this gives its bits; over a
     # whole 10**8-request trace it stays the correctly rounded total, where
@@ -179,3 +214,137 @@ def chunk_replay_ref(
         (group * num_bins + idx,), valid.to(torch.int32), accumulate=True
     )
     return busy, lat_sum, hits, reads, count, hist.reshape(2 * n, num_bins)
+
+
+# ---------------------------------------------------------------------------
+# Queueing-aware contention (kvsim.cluster.ServiceConfig). The pre-pass needs
+# the whole chunk's per-node demand fold before any request's wait is known,
+# so it runs ahead of the replay and hands it a per-request ``extra_ms``.
+# Every function takes one chunk ``[B]`` or a batch of chunks ``[C, B]``.
+# ---------------------------------------------------------------------------
+
+
+def serving_node_ref(
+    replicas: torch.Tensor,  # [..., B, N] bool
+    nodes: torch.Tensor,  # [..., B] int
+    is_read: torch.Tensor,  # [..., B] bool
+    rtt: torch.Tensor,  # [N, N] f32
+    *,
+    read_mode: str,
+) -> torch.Tensor:
+    """Per-request serving node (int64): reads are served by the nearest
+    visible replica (the first on an RTT tie; the requesting node itself
+    when none is visible, as it fetches from the backing store), writes by
+    the requesting node."""
+    nodes_l = nodes.long()
+    if read_mode == "ideal":
+        return nodes_l
+    visible = replicas
+    if read_mode == "no_local":
+        own = torch.arange(rtt.shape[0], device=rtt.device) == nodes_l[..., None]
+        visible = replicas & ~own
+    masked = torch.where(visible, rtt[nodes_l], _f32(float("inf"), rtt))
+    nearest = masked.argmin(dim=-1)
+    read_serving = torch.where(visible.any(dim=-1), nearest, nodes_l)
+    return torch.where(is_read, read_serving, nodes_l)
+
+
+def service_demand_ref(obj_bytes: torch.Tensor, *, service_ms, serve_bytes_per_ms) -> torch.Tensor:
+    """Per-request service demand in ms, ``service + bytes / serve``, as
+    the reference's compiled program forms it: one rounding of
+    ``bytes * f32(1 / serve) + service`` (see the module docstring)."""
+    prod = obj_bytes.double() * _recip32(serve_bytes_per_ms)  # exact in f64
+    return (prod + float(np.float32(service_ms))).float()
+
+
+def load_factor_ref(
+    serving: torch.Tensor,  # [..., B] int
+    demand: torch.Tensor,  # [..., B] f32
+    valid: torch.Tensor,  # [..., B] bool
+    *,
+    num_nodes: int,
+    capacity_ms,
+    rho_max,
+) -> torch.Tensor:
+    """Per-node load factor ``rho [..., N]`` f32: the chunk's valid demand
+    folded per serving node (in f64, rounded once), over the capacity,
+    clamped below the stability bound."""
+    one_hot = serving.long()[..., None] == torch.arange(num_nodes, device=serving.device)
+    zero = torch.zeros((), dtype=torch.float64, device=demand.device)
+    contrib = torch.where(one_hot & valid[..., None], demand.double()[..., None], zero)
+    fold = contrib.sum(dim=-2).float()
+    return torch.minimum(fold * _f32(_recip32(capacity_ms), demand), _f32(rho_max, demand))
+
+
+def contention_wait_ref(demand: torch.Tensor, rho: torch.Tensor, serving: torch.Tensor) -> torch.Tensor:
+    """M/M/1 residence-time excess per request, ``d * rho / (1 - rho)`` at
+    its serving node (``rho [..., N]``, ``serving [..., B]``)."""
+    r = torch.gather(rho, -1, serving.long())
+    return demand * r / (_f32(1.0, demand) - r)
+
+
+def contention_extra_ms_ref(
+    hosts: torch.Tensor,  # [K, N] bool
+    keys: torch.Tensor,  # [..., B] int
+    nodes: torch.Tensor,  # [..., B] int
+    is_read: torch.Tensor,  # [..., B] bool
+    valid: torch.Tensor,  # [..., B] bool
+    rtt: torch.Tensor,  # [N, N] f32
+    obj_bytes: torch.Tensor,  # [K] f32 per-key object sizes
+    *,
+    read_mode: str,
+    service_ms,
+    serve_bytes_per_ms,
+    capacity_ms,
+    rho_max,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The contention pre-pass: ``(extra_ms [..., B] f32, rho [..., N] f32)``."""
+    keys_l = keys.long()
+    replicas = None if read_mode == "ideal" else hosts[keys_l]
+    serving = serving_node_ref(replicas, nodes, is_read, rtt, read_mode=read_mode)
+    demand = service_demand_ref(
+        obj_bytes[keys_l], service_ms=service_ms, serve_bytes_per_ms=serve_bytes_per_ms
+    )
+    rho = load_factor_ref(
+        serving, demand, valid, num_nodes=rtt.shape[0], capacity_ms=capacity_ms, rho_max=rho_max
+    )
+    return contention_wait_ref(demand, rho, serving), rho
+
+
+def contention_extra_ms_chunks_ref(
+    hosts: torch.Tensor,  # [K, N] bool, frozen for the whole trace
+    keys: torch.Tensor,  # [R] int
+    nodes: torch.Tensor,  # [R] int
+    is_read: torch.Tensor,  # [R] bool
+    rtt: torch.Tensor,  # [N, N] f32
+    obj_bytes: torch.Tensor,  # [K] f32
+    *,
+    chunk_size: int,
+    **kw,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pre-pass over a whole trace cut into chunks of ``chunk_size``
+    requests against one frozen map (the static path): ``(extra_ms [R],
+    rho [C, N])``, chunk ``c`` being what ``contention_extra_ms_ref`` gives
+    for requests ``[c*B, (c+1)*B)``. The last chunk is padded with masked
+    rows. Slabs of whole chunks (about ``SLAB_ROWS`` rows) bound the
+    ``[rows, N]`` temporaries."""
+    r = keys.shape[0]
+    c = -(-r // chunk_size)
+    pad = c * chunk_size - r
+
+    def padded(x):
+        return torch.cat([x, x.new_zeros(pad)]) if pad else x
+
+    pk, pn, pr = padded(keys), padded(nodes), padded(is_read)
+    pv = torch.arange(c * chunk_size, device=keys.device) < r
+    per_slab = max(1, SLAB_ROWS // chunk_size)
+    extra, rho = [], []
+    for lo in range(0, c, per_slab):
+        rows = slice(lo * chunk_size, min(lo + per_slab, c) * chunk_size)
+        e, p = contention_extra_ms_ref(
+            hosts, *(x[rows].view(-1, chunk_size) for x in (pk, pn, pr, pv)),
+            rtt, obj_bytes, **kw,
+        )
+        extra.append(e.reshape(-1))
+        rho.append(p)
+    return torch.cat(extra)[:r], torch.cat(rho)

@@ -1,2 +1,3 @@
-"""Log-bin latency histogram helpers (the plain versions; the kernel of
-this name is ported with telemetry)."""
+"""Log-bin latency histogram: ``ops.latency_histogram`` (CUDA kernel in
+``csrc/latency_histogram.cu``) beside ``ref.latency_histogram_ref`` and
+the binning helpers."""

@@ -8,8 +8,12 @@ The group id encodes (node, read/write) as ``g = node * 2 + is_read``.
 The logarithms are taken in float64 and rounded to float32: that is the
 correctly rounded f32 log, which is what puts latencies sitting exactly on
 a decade edge (10, 100 and 1000 ms at ``lo=1, hi=1e4, B=128``) into the
-same bins as the reference (32, 64 and 95). The CUDA ``chunk_replay``
-kernel computes the same expression the same way.
+same bins as the reference (32, 64 and 95). Both CUDA kernels
+(``chunk_replay`` and ``latency_histogram``) compute the same expression
+the same way (``kernels/csrc/log_bins.cuh``).
+
+Rows whose group lies outside ``[0, G)`` are dropped, as the kernel drops
+them.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["bin_index", "bin_edges", "latency_histogram_ref"]
+__all__ = ["bin_index", "bin_edges", "latency_histogram_ref", "latency_histogram_chunks_ref"]
 
 
 def _log_f32(x: torch.Tensor) -> torch.Tensor:
@@ -44,6 +48,36 @@ def bin_edges(lo: float, hi: float, num_bins: int) -> np.ndarray:
     return np.concatenate([[0.0], interior, [np.inf]])
 
 
+def latency_histogram_chunks_ref(
+    lat: torch.Tensor,  # [R] f32 per-request latency (ms)
+    group: torch.Tensor,  # [R] int group id in [0, G)
+    weight: torch.Tensor,  # [R] f32 per-request weight (0 masks padding)
+    *,
+    num_groups: int,
+    num_bins: int,
+    lo: float,
+    hi: float,
+    rows_per_chunk: int,
+) -> torch.Tensor:
+    """Per-chunk histograms ``[C, G, B]`` f32 in one flat fold over the
+    combined ``(chunk, group, bin)`` index, chunk ``c`` holding rows
+    ``[c * rows_per_chunk, (c + 1) * rows_per_chunk)`` (the last may be
+    short). The same counts as ``C`` separate ``latency_histogram_ref``
+    calls (the counterpart of ``telemetry.trace_histogram``'s bincount)."""
+    r = lat.shape[0]
+    c = -(-r // rows_per_chunk)
+    g, b = num_groups, num_bins
+    idx = bin_index(lat, lo, hi, b).long()
+    group = group.long()
+    inside = (group >= 0) & (group < g)
+    chunk = torch.arange(r, device=lat.device) // rows_per_chunk
+    flat = (chunk * g + group.clamp(0, g - 1)) * b + idx
+    w = torch.where(inside, weight.to(torch.float32), torch.zeros((), device=lat.device))
+    hist = torch.zeros(c * g * b, dtype=torch.float32, device=lat.device)
+    hist.index_put_((flat,), w, accumulate=True)
+    return hist.reshape(c, g, b)
+
+
 def latency_histogram_ref(
     lat: torch.Tensor,  # [R] f32 per-request latency (ms)
     group: torch.Tensor,  # [R] int group id in [0, G)
@@ -55,8 +89,7 @@ def latency_histogram_ref(
     hi: float,
 ) -> torch.Tensor:
     """Fused bucketize + grouped scatter-add: ``[G, B]`` f32 counts."""
-    idx = bin_index(lat, lo, hi, num_bins).long()
-    hist = torch.zeros(num_groups * num_bins, dtype=torch.float32, device=lat.device)
-    flat = group.long() * num_bins + idx
-    hist.index_put_((flat,), weight.to(torch.float32), accumulate=True)
-    return hist.reshape(num_groups, num_bins)
+    return latency_histogram_chunks_ref(
+        lat, group, weight, num_groups=num_groups, num_bins=num_bins,
+        lo=lo, hi=hi, rows_per_chunk=max(lat.shape[0], 1),
+    ).sum(dim=0)

@@ -8,9 +8,10 @@ functions themselves live in ``repro_torch.kernels.chunk_replay.ref``.
 
 ``ClusterConfig`` keeps every field of the reference, defaults included, so
 a reference config converts field by field (``interop.cluster_from_fields``).
-The queueing (``service``), routing (``routing``), failure-injection
-(``faults``, ``zone_of``, ``region_of``) and finite-capacity fields are
-accepted here but rejected by ``run_scenario`` until their slices land.
+``service`` takes a :class:`ServiceConfig` (the M/M/1 contention model); the
+routing (``routing``), failure-injection (``faults``, ``zone_of``,
+``region_of``) and finite-capacity fields are accepted here but rejected by
+``run_scenario`` until their slices land.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ from repro_torch.device import resolve_device
 
 __all__ = [
     "ClusterConfig",
+    "ServiceConfig",
+    "normalize_service",
     "flat_rtt",
     "wan5_cluster",
     "WAN5_REGIONS",
@@ -53,6 +56,48 @@ WAN5_RTT_MS: tuple[tuple[float, ...], ...] = (
 )
 
 
+class ServiceConfig(NamedTuple):
+    """Queueing-aware service-time model (M/M/1 style). Per request the
+    service demand is ``d = service_ms + object_bytes[key] /
+    serve_bytes_per_ms``, folded per serving node over each chunk (reads
+    are served by the nearest visible replica, writes by the requesting
+    node). A node's load factor is ``rho = min(fold / capacity_ms,
+    rho_max)`` with ``capacity_ms = capacity_factor * chunk_size *
+    service_ms``, and each request waits ``d * rho / (1 - rho)`` on top of
+    its RTT latency. The pre-pass is ``kernels.chunk_replay.ref
+    .contention_extra_ms_ref``."""
+
+    enabled: bool = True
+    serve_bytes_per_ms: float = 1024.0  # node service bandwidth (bytes/ms)
+    capacity_factor: float = 1.0  # node capacity per chunk, in chunks
+    rho_max: float = 0.95  # stability clamp (must stay < 1)
+
+    def validate(self) -> "ServiceConfig":
+        if not self.serve_bytes_per_ms > 0:
+            raise ValueError(
+                f"serve_bytes_per_ms must be positive, got {self.serve_bytes_per_ms}"
+            )
+        if not self.capacity_factor > 0:
+            raise ValueError(f"capacity_factor must be positive, got {self.capacity_factor}")
+        if not 0.0 < self.rho_max < 1.0:
+            raise ValueError(
+                f"rho_max must lie in (0, 1) (the M/M/1 stability bound), got {self.rho_max}"
+            )
+        return self
+
+    def capacity_ms(self, chunk_size: int, service_ms: float) -> float:
+        """Per-node service capacity for one chunk, in ms of demand."""
+        return self.capacity_factor * chunk_size * service_ms
+
+
+def normalize_service(service: ServiceConfig | None) -> ServiceConfig | None:
+    """``None`` and ``ServiceConfig(enabled=False)`` both mean no
+    contention; an enabled config is validated."""
+    if service is None or not service.enabled:
+        return None
+    return service.validate()
+
+
 class ClusterConfig(NamedTuple):
     num_nodes: int = 3  # paper: 3-node testbed
     remote_ms: float = 100.0  # paper: simulated geo-distributed RTT
@@ -67,8 +112,9 @@ class ClusterConfig(NamedTuple):
     transfer_ms_per_kb: float = 0.0
     # Per-node replica-byte budget (scalar or [N] tuple); inf = Algorithm 3.
     capacity_bytes: tuple[float, ...] | float = float("inf")
-    # Later slices: queueing model, routing tier, failure injection.
-    service: Any = None
+    # M/M/1 contention model (ServiceConfig); None = pure-RTT latency.
+    service: ServiceConfig | None = None
+    # Later slices: routing tier, failure injection.
     routing: Any = None
     zone_of: tuple[int, ...] | None = None
     region_of: tuple[int, ...] | None = None

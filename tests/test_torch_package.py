@@ -22,7 +22,9 @@ from repro_torch.interop import store_from_numpy, trace_from_numpy  # noqa: E402
 from repro_torch.kvsim import (  # noqa: E402
     ClusterConfig,
     RedynisPolicy,
+    ServiceConfig,
     StaticPolicy,
+    TelemetryConfig,
     WorkloadConfig,
     generate_trace,
     run_scenario,
@@ -44,9 +46,11 @@ MODULES = [
     "repro_torch.kvsim.cluster",
     "repro_torch.kvsim.workload",
     "repro_torch.kvsim.simulate",
+    "repro_torch.kvsim.telemetry",
     "repro_torch.kernels._build",
     "repro_torch.kernels.chunk_replay.ops",
     "repro_torch.kernels.chunk_replay.ref",
+    "repro_torch.kernels.latency_histogram.ops",
     "repro_torch.kernels.latency_histogram.ref",
     "repro_torch.kernels.ownership_sweep.ops",
     "repro_torch.kernels.ownership_sweep.ref",
@@ -131,18 +135,24 @@ def test_tensor_builders_default_to_cuda(make):
             make(None)
 
 
+class _SubConfig:
+    """Stands in for the reference's AttributionConfig/FlightRecorderConfig."""
+
+    enabled = True
+
+
 @pytest.mark.parametrize(
     "cluster,kwargs,what",
     [
-        (ClusterConfig(service=object()), {}, "service"),
         (ClusterConfig(routing=object()), {}, "routing"),
         (ClusterConfig(faults=object()), {}, "faults"),
         (ClusterConfig(capacity_bytes=4096.0), {}, "capacity_bytes"),
-        (ClusterConfig(), {"telemetry": object()}, "telemetry"),
+        (ClusterConfig(), {"telemetry": TelemetryConfig(attribution=_SubConfig())}, "attribution"),
+        (ClusterConfig(), {"telemetry": TelemetryConfig(flight=_SubConfig())}, "flight"),
         (ClusterConfig(), {"trace_mode": "streamed"}, "streamed"),
         (ClusterConfig(), {"num_shards": 2}, "num_shards"),
     ],
-    ids=["service", "routing", "faults", "capacity", "telemetry", "streamed", "shards"],
+    ids=["routing", "faults", "capacity", "attribution", "flight", "streamed", "shards"],
 )
 def test_out_of_slice_inputs_raise(cluster, kwargs, what):
     with pytest.raises(NotImplementedError, match=what):
@@ -156,6 +166,8 @@ def test_interop_rejects_uncovered_cluster_fields():
     from repro_torch.interop import cluster_from_fields
 
     assert cluster_from_fields(**ClusterConfig()._asdict()) == ClusterConfig()
+    carried = cluster_from_fields(service=ServiceConfig(serve_bytes_per_ms=128.0))
+    assert carried.service == ServiceConfig(serve_bytes_per_ms=128.0)
     with pytest.raises(NotImplementedError, match="routing"):
         cluster_from_fields(routing=object())
 
@@ -241,3 +253,88 @@ def test_run_scenario_card_matches_cpu(cuda):
         assert a.replication_moves == b.replication_moves
         assert a.hit_rate == b.hit_rate
         np.testing.assert_allclose(a.node_busy_ms, b.node_busy_ms, rtol=1e-5)
+
+
+def _histogram_inputs(seed, r, g, device):
+    """Log-uniform latencies over [0.1, 1e5] ms with the decade edges
+    1/10/100/1000 ms first, random groups, 0/1 weights."""
+    rng = np.random.default_rng(seed)
+    lat = np.exp(rng.uniform(np.log(0.1), np.log(1e5), r)).astype(np.float32)
+    lat[:4] = [1.0, 10.0, 100.0, 1000.0]
+    group = rng.integers(0, g, r).astype(np.int32)
+    weight = (rng.random(r) < 0.8).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (lat, group, weight)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,rows_per_chunk", [(6, None), (10, 10_000), (10, 997), (128, None), (128, 4_096)])
+def test_latency_histogram_kernel_matches_plain_version(cuda, g, rows_per_chunk):
+    from repro_torch.kernels.latency_histogram.ops import latency_histogram
+    from repro_torch.kernels.latency_histogram.ref import (
+        latency_histogram_chunks_ref,
+        latency_histogram_ref,
+    )
+
+    lat, group, weight = _histogram_inputs(3, 100_003, g, cuda)
+    kw = dict(num_groups=g, num_bins=128, lo=1.0, hi=10_000.0)
+    got = latency_histogram(lat, group, weight, rows_per_chunk=rows_per_chunk, **kw)
+    want = (
+        latency_histogram_ref(lat, group, weight, **kw) if rows_per_chunk is None
+        else latency_histogram_chunks_ref(lat, group, weight, rows_per_chunk=rows_per_chunk, **kw)
+    )
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)  # 0/1 weights: exact counts
+    one = torch.ones(4, dtype=torch.int32, device=cuda)
+    edge = latency_histogram(lat[:4], one, weight[:4] * 0 + 1, num_groups=2, num_bins=128)
+    assert edge[1].nonzero().flatten().tolist() == [1, 32, 64, 95]
+    real = torch.rand(lat.shape[0], device=cuda)
+    torch.testing.assert_close(
+        latency_histogram(lat, group, real, **kw), latency_histogram_ref(lat, group, real, **kw),
+        rtol=1e-5, atol=1e-3,
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["map", "no_local", "ideal"])
+def test_chunk_replay_per_request_outputs_match_plain_version(cuda, mode):
+    from repro_torch.kernels.chunk_replay.ops import chunk_replay
+    from repro_torch.kernels.chunk_replay.ref import chunk_replay_ref
+
+    rng = np.random.default_rng(5)
+    b, k, n = 100_003, 30_001, 5
+    args = [
+        torch.from_numpy(a).to(cuda)
+        for a in (
+            rng.random((k, n)) < 0.4, rng.integers(0, k, b).astype(np.int32),
+            rng.integers(0, n, b).astype(np.int32), rng.random(b) < 0.8, rng.random(b) < 0.9,
+        )
+    ]
+    rtt = wan5_cluster().rtt_matrix(cuda)
+    extra = torch.from_numpy(rng.uniform(0, 50, b).astype(np.float32)).to(cuda)
+    kw = dict(service_ms=10.0, master=0, xfer_read_ms=1.0, xfer_write_ms=2.0, read_mode=mode,
+              extra_ms=extra)
+    outs = []
+    for fn in (chunk_replay, chunk_replay_ref):
+        lat = torch.empty(b, device=cuda)
+        hit = torch.empty(b, dtype=torch.bool, device=cuda)
+        fn(*args, rtt, lat_out=lat, hit_out=hit, **kw)
+        outs.append((lat, hit))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["redynis", "remote"])
+def test_telemetry_run_card_matches_cpu(cuda, policy):
+    wl = WorkloadConfig(num_requests=30_000, num_keys=500, num_nodes=5, skewed=True,
+                        region_weights=(0.2,) * 5, affinity=0.8, object_bytes_sigma=1.0)
+    cl = wan5_cluster(service=ServiceConfig(serve_bytes_per_ms=128.0, capacity_factor=1.0))
+    pol = RedynisPolicy() if policy == "redynis" else StaticPolicy("remote")
+    trace = generate_trace(wl, 0, device=cuda)
+    a, ta = run_scenario(wl, cl, pol, trace=trace, telemetry=TelemetryConfig())
+    b, tb = run_scenario(wl, cl, pol, trace=trace.cpu(), device="cpu", telemetry=TelemetryConfig())
+    assert a.hit_rate == b.hit_rate and a.replication_moves == b.replication_moves
+    np.testing.assert_array_equal(ta.hist_group, tb.hist_group)
+    np.testing.assert_array_equal(ta.chunk_hist, tb.chunk_hist)
+    np.testing.assert_allclose(ta.load_factor, tb.load_factor, rtol=1e-6)
+    np.testing.assert_allclose(ta.mean_latency_ms, tb.mean_latency_ms, rtol=1e-5)
