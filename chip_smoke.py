@@ -12,7 +12,11 @@ requests over a 1 M-key metadata store on the card): first without
 telemetry (phase 4), then with ``TelemetryConfig()`` for Redynis and static
 remote and with the M/M/1 contention model for Redynis (phase 5), each
 full-size run held against the same run through the plain versions on the
-card. It times each kernel. Every phase raises on a mismatch; the script
+card. Phase 6 drives Redynis on ML state at deepseek-moe-16b widths: 150
+steps of 32,768 Zipf tokens through the hot-row embedding cache and 4
+full-width MoE layers, both placement daemons folded every step and swept
+every 50, held every step against the same steps through the plain
+versions. It times each kernel. Every phase raises on a mismatch; the script
 exits non-zero without a CUDA device or outside a checkout. The last line
 of its output is the JSON device record.
 """
@@ -30,9 +34,14 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 BW_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+F32_OPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores (NVIDIA data sheet)
 FULL_REQUESTS = 100_000_000
 FULL_KEYS = 1_000_000
 FULL_INTERVAL = 10_000
+ML_LAYERS = 4  # deepseek-moe-16b has 28; cut for the time limit shared with the other phases
+ML_BATCH, ML_SEQ = 16, 2048  # 32,768 tokens per step
+ML_STEPS = 150  # three sweeps at sweep_period 50
+ML_NODES = 4
 
 
 def _smi() -> str:
@@ -191,6 +200,238 @@ def _profile_window(torch, trace, wl, cl, policy, run_scenario, out_dir,
     )
 
 
+def _router_near_ties(got, want, probs, ctx: str):
+    """Hold ``moe_router``'s ``(gates, ids, counts)`` against its plain
+    version's on the same logits. A row whose ids differ must be a near tie:
+    at every differing position the two picked experts' plain probabilities
+    agree to 1e-6 relative (a few f32 ulps; the kernel's softmax sums in
+    another order). Raises on any other difference. Returns the bool ``[T]``
+    mask of near-tie rows and the largest gate difference on the other
+    rows; ids there are exact and the counts of groups without a near-tie
+    row are exact."""
+    import torch
+
+    gates, ids, counts = got
+    wgates, wids, wcounts = want
+    differ = ids != wids
+    near = differ.any(dim=-1)
+    if bool(near.any()):
+        pa = probs.gather(-1, ids.long())
+        pb = probs.gather(-1, wids.long())
+        close = (pa - pb).abs() <= 1e-6 * torch.maximum(pa, pb)
+        bad = (differ & ~close).any(dim=-1)
+        assert not bool(bad.any()), (ctx, "router ids differ beyond a near tie", int(bad.sum()))
+    keep = ~near
+    assert torch.equal(ids[keep], wids[keep]), ctx
+    torch.testing.assert_close(gates[keep], wgates[keep], rtol=1e-6, atol=0, msg=ctx)
+    group = -(-ids.shape[0] // counts.shape[0])
+    clean = torch.ones(counts.shape[0], dtype=torch.bool, device=ids.device)
+    clean[torch.arange(ids.shape[0], device=ids.device)[near] // group] = False
+    assert torch.equal(counts[clean], wcounts[clean]), ctx
+    err = float((gates[keep] - wgates[keep]).abs().max()) if bool(keep.any()) else 0.0
+    return near, err
+
+
+def _plain_probs(logits):
+    import torch
+
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    return p / p.sum(dim=-1, keepdim=True)
+
+
+@contextlib.contextmanager
+def _ml_plain_versions():
+    """Route the ML-state path (``moe_apply``, ``embed_with_cache``, the
+    expert sweep) through the kernels' plain PyTorch versions on the card."""
+    import repro_torch.core.expert_placement as ep_mod
+    import repro_torch.core.hot_embedding as he_mod
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.kernels.hot_gather.ref import hot_gather_ref
+    from repro_torch.kernels.moe_router.ref import router_ref
+    from repro_torch.kernels.ownership_sweep.ref import sweep_ref
+
+    def plain_router(logits, *, k, group):
+        return router_ref(logits, k, group)
+
+    saved = moe_mod.moe_router, he_mod.hot_gather, ep_mod.ownership_sweep
+    moe_mod.moe_router, he_mod.hot_gather, ep_mod.ownership_sweep = plain_router, hot_gather_ref, sweep_ref
+    try:
+        yield
+    finally:
+        moe_mod.moe_router, he_mod.hot_gather, ep_mod.ownership_sweep = saved
+
+
+def _ml_drive(torch, dev, cfg, *, layers: int, batch: int, seq: int, steps: int,
+              nodes: int = ML_NODES, seed: int = 0, log=print) -> dict:
+    """The Trainer's daemon step, forward only, at ``cfg``'s widths: each
+    step draws ``batch`` x ``seq`` tokens from a Zipf law (exponent 1.1) over
+    the padded vocabulary, embeds them through the hot-row cache, applies
+    ``layers`` MoE layers (each to the embedded batch, with its own weights
+    and its layer's hot set), folds the traffic into both daemons and sweeps
+    when due. The kernel run and the same steps through the plain versions
+    run in lockstep on the card and are held to each other every step:
+    rows, hits, daemon counts, ``hot_ids``, ``slot_map`` and ``moved``
+    exact; router ids and counts exact but for near-tie rows (counted); ``y``
+    to bf16 tolerance outside the groups holding a near-tie row."""
+    from repro_torch.core.expert_placement import ExpertPlacement
+    from repro_torch.core.hot_embedding import HotEmbedding, embed_with_cache
+    from repro_torch.kernels.hot_gather.ops import hot_gather
+    from repro_torch.kernels.moe_router.ops import moe_router
+    from repro_torch.kernels.moe_router.ref import router_ref
+    from repro_torch.kernels.ownership_sweep.ops import ownership_sweep
+    from repro_torch.models.moe import moe_apply, moe_specs
+    from repro_torch.models.params import ParamSpec, embed_init, init_params
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = [init_params(moe_specs(cfg), gen, dev) for _ in range(layers)]
+    # Unit-scale rows stand in for the RMS-normed hidden state a real layer
+    # routes (there is no attention or norm in this slice).
+    table = init_params(ParamSpec((cfg.padded_vocab, cfg.d_model), embed_init(1.0)), gen, dev)
+    ranks = torch.arange(1, cfg.padded_vocab + 1, device=dev, dtype=torch.float64) ** -1.1
+    zipf = (ranks / ranks.sum()).to(torch.float32)
+    dkw = dict(h=cfg.ownership_h or None, decay=cfg.traffic_decay, period=cfg.sweep_period)
+    he = HotEmbedding(cfg.padded_vocab, nodes, cfg.hot_embed_rows, **dkw)
+    ep = ExpertPlacement(layers, cfg.num_experts, nodes, cfg.hot_expert_slots, **dkw)
+    tokens_n = batch * seq
+    group = min(cfg.moe_group_size, tokens_n)
+    while tokens_n % group:
+        group -= 1
+    g = tokens_n // group
+    # The Trainer's data-major maps (src/repro/train/trainer.py _group_nodes/_token_nodes).
+    group_nodes = (torch.arange(g, device=dev) // max(g // nodes, 1)) % nodes
+    token_nodes = (torch.arange(batch, device=dev) // max(batch // nodes, 1)) % nodes
+
+    def step_fn(hs, es, tokens):
+        x, hit = embed_with_cache(table, tokens, hs)
+        outs = [moe_apply(params[i], x, cfg, None, es.hot_ids[i]) for i in range(layers)]
+        es = ep.fold(es, torch.stack([st["counts"] for _, st in outs]), group_nodes)
+        hs = he.fold(hs, tokens, token_nodes)
+        return x, hit, outs, hs, es
+
+    hk, ek = he.init_state(dev), ep.init_state(dev)
+    hp, epl = he.init_state(dev), ep.init_state(dev)
+    for fn in (moe_router, hot_gather, ownership_sweep):
+        fn.launches = 0
+    rows_log, near_total, resyncs, y_err, gate_err, peak = [], 0, 0, 0.0, 0.0, 0
+    for step in range(1, steps + 1):
+        tokens = torch.multinomial(zipf, tokens_n, replacement=True, generator=gen)
+        tokens = tokens.view(batch, seq).to(torch.int32)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        xk, hitk, outk, hk, ek = step_fn(hk, ek, tokens)
+        due = ep.due(step)
+        if due:
+            ek, hk = ep.sweep(ek), he.sweep(hk)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        with _ml_plain_versions():
+            xp, hitp, outp, hp, epl = step_fn(hp, epl, tokens)
+            if due:
+                epl, hp = ep.sweep(epl), he.sweep(hp)
+        # Rows: exact, and equal to the table's rows.
+        assert torch.equal(hitk, hitp), step
+        assert torch.equal(xk, xp) and torch.equal(xk, table[tokens.long()]), step
+        near_step = 0
+        for i in range(layers):
+            (yk, sk), (yp, sp) = outk[i], outp[i]
+            xg = xk.reshape(g, group, -1)
+            logits = torch.einsum("gsd,de->gse", xg.float(), params[i]["router"].float())
+            logits = logits.reshape(tokens_n, -1)
+            saved = moe_router.launches  # a comparison launch: not the path's
+            got = moe_router(logits, k=cfg.top_k, group=group)
+            moe_router.launches = saved
+            near, err = _router_near_ties(got, router_ref(logits, cfg.top_k, group),
+                                          _plain_probs(logits), f"step {step} layer {i}")
+            gate_err = max(gate_err, err)
+            assert torch.equal(sk["counts"], got[2]), (step, i)
+            n_near = int(near.sum())
+            near_step += n_near
+            clean = ~near.view(g, group).any(dim=-1)
+            if n_near == 0:
+                assert torch.equal(sp["counts"], sk["counts"]), (step, i)
+                for key in ("dropped", "hot_frac"):
+                    assert float(sk[key]) == float(sp[key]), (step, i, key)
+            a = yk.reshape(g, group, -1)[clean].float()
+            b = yp.reshape(g, group, -1)[clean].float()
+            torch.testing.assert_close(a, b, rtol=1.6e-2, atol=2e-2, msg=f"y step {step} layer {i}")
+            y_err = max(y_err, float((a - b).abs().max()))
+            assert bool(torch.isfinite(yk).all()), (step, i)
+        near_total += near_step
+        if near_step:  # the folded counts now differ by the near-tie picks
+            epl = type(ek)(*(t.clone() for t in ek))
+            resyncs += 1
+        assert torch.equal(ek.counts, epl.counts) and torch.equal(ek.hot_ids, epl.hot_ids), step
+        assert torch.equal(ek.moved, epl.moved) and int(ek.step) == int(epl.step) == step, step
+        assert torch.equal(hk.counts, hp.counts) and torch.equal(hk.slot_map, hp.slot_map), step
+        assert torch.equal(hk.hot_ids, hp.hot_ids), step
+        row = dict(step=step, wall_ms=wall_ms, hit_frac=float(hitk.float().mean()),
+                   hot_frac=float(sum(float(st["hot_frac"]) for _, st in outk) / layers),
+                   dropped=float(sum(float(st["dropped"]) for _, st in outk) / layers),
+                   near_tie_rows=near_step)
+        if due:
+            row["moved"] = float(ek.moved)
+            row["expert_hit_rate"] = float(ep.hit_rate(ek))
+            row["embed_hit_rate"] = float(he.hit_rate(hk))
+        rows_log.append(row)
+        log(f"ml step {step}: wall {wall_ms:.2f} ms, hit {row['hit_frac']:.4f}, hot_frac "
+            f"{row['hot_frac']:.4f}, dropped {row['dropped']:.4f}"
+            + (f", sweep moved {row['moved']:.0f}" if due else "")
+            + (f", near-tie rows {near_step}" if near_step else ""))
+    launches = {"moe_router": moe_router.launches, "hot_gather": hot_gather.launches,
+                "ownership_sweep": ownership_sweep.launches}
+
+    def kernel_step():  # one more kernel-path step on fresh tokens, for the profile
+        tokens = torch.multinomial(zipf, tokens_n, replacement=True, generator=gen)
+        step_fn(hk, ek, tokens.view(batch, seq).to(torch.int32))
+
+    return dict(rows=rows_log, launches=launches, kernel_step=kernel_step,
+                near_tie_rows=near_total, resyncs=resyncs,
+                y_max_abs_err=y_err, gate_max_abs_err=gate_err, peak_bytes=peak,
+                expert_hit_rate=float(ep.hit_rate(ek)), embed_hit_rate=float(he.hit_rate(hk)),
+                hot_ids=ek.hot_ids, table=table, params=params, tokens=tokens, embed_state=hk,
+                group=group)
+
+
+def _profile_steps(torch, step, steps: int, out_dir, label: str, unprofiled_ms: float) -> dict:
+    """Where a step's device time goes: ``torch.profiler`` over ``steps``
+    calls of ``step`` after one warm call. Prints device ms per step, its
+    share of the unprofiled step wall time, launches per step, the share of
+    matrix-product kernels and the top kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    (out_dir / f"profile_{label.replace(' ', '_')}.txt").write_text(
+        events.table(sort_by="self_device_time_total", row_limit=30))
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in dev) / 1e3 / steps
+    gemm = sum(e.self_device_time_total for e in dev
+               if any(w in e.key.lower() for w in ("gemm", "xmma", "cutlass", "wgmma", "nvjet"))
+               ) / 1e3 / steps
+    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel") / steps
+    top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    if total == 0:
+        print(f"{label} profile: the profiler recorded no device time")
+        return dict(steps=steps, device_ms_per_step=None)
+    print(f"{label} profile ({steps} steps): device {total:.4f} ms per step, "
+          f"{total / unprofiled_ms:.4f} of the unprofiled {unprofiled_ms:.4f} ms step, "
+          f"matrix products {gemm:.4f} ms ({gemm / total:.4f}), {launches:.1f} launches per step")
+    print(f"{label} profile top device: " + "; ".join(
+        f"{e.key[:60]} {e.self_device_time_total / 1e3 / steps:.4f} ms" for e in top))
+    return dict(steps=steps, device_ms_per_step=total, unprofiled_ms_per_step=unprofiled_ms,
+                device_busy_share=total / unprofiled_ms, matmul_ms_per_step=gemm,
+                launches_per_step=launches,
+                top_device=[(e.key, e.self_device_time_total / 1e3 / steps) for e in top])
+
+
 def main() -> int:
     import torch
 
@@ -203,8 +444,13 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels.chunk_replay.ops import chunk_replay
+    from repro_torch.configs import get_config
     from repro_torch.kernels.chunk_replay.ref import chunk_replay_ref
+    from repro_torch.kernels.hot_gather.ops import hot_gather
+    from repro_torch.kernels.hot_gather.ref import hot_gather_ref
     from repro_torch.kernels.latency_histogram.ops import latency_histogram
+    from repro_torch.kernels.moe_router.ops import moe_router
+    from repro_torch.kernels.moe_router.ref import router_ref
     from repro_torch.kernels.latency_histogram.ref import bin_index
     from repro_torch.kernels.ownership_sweep.ops import ownership_sweep
     from repro_torch.kernels.ownership_sweep.ref import sweep_ref
@@ -336,6 +582,52 @@ def main() -> int:
     assert edge_bins == [1, 32, 64, 95], edge_bins
     print(f"phase 2 latency_histogram ok: {hcases} cases, max_abs_err {err_hist} "
           f"(real weights; 0/1 weights exact), decade-edge bins {edge_bins}")
+
+    # hot_gather: the reference kernel test's shapes (tests/test_kernels.py),
+    # a row of 6 bytes (2-byte copy units), both table dtypes, and the
+    # deepseek-moe-16b shape (102,400-row vocabulary, 2048 hot rows of
+    # 2048 bf16, 32,768 tokens). Copies: exact.
+    gcases = 0
+    for v, r, d, t in ((5_000, 64, 256, 333), (1_024, 8, 64, 128), (300, 5, 3, 77),
+                       (102_400, 2_048, 2_048, 32_768)):
+        for dtype in ((torch.float32, torch.bfloat16) if t != 32_768 else (torch.bfloat16,)):
+            slot_map = np.full(v, -1, np.int32)
+            slot_map[rng.choice(v, r, replace=False)] = np.arange(r, dtype=np.int32)
+            gargs = (cuda_t(rng.integers(0, v, t).astype(np.int32)), cuda_t(slot_map),
+                     cuda_t(rng.standard_normal((r, d)).astype(np.float32)).to(dtype))
+            got, want = hot_gather(*gargs), hot_gather_ref(*gargs)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (v, r, d, t, dtype)
+            gcases += 1
+    err_gather = 0.0  # copies, asserted exact above and in phase 6
+    print(f"phase 2 hot_gather ok: {gcases} cases, rows and hit flags exact")
+
+    # moe_router: the reference kernel test's shapes (E 64 / k 6, E 32 / k 8,
+    # E 8 / k 2; a short last group) and the deepseek-moe-16b shape.
+    err_router, rcases, near_p2 = 0.0, 0, 0
+    for t, e, k, grp in ((512, 64, 6, 128), (300, 32, 8, 128), (1_024, 8, 2, 256), (32_768, 64, 6, 512)):
+        logits = cuda_t(rng.standard_normal((t, e)).astype(np.float32))
+        near, err = _router_near_ties(moe_router(logits, k=k, group=grp), router_ref(logits, k, grp),
+                                      _plain_probs(logits), f"moe_router {t}x{e} k={k}")
+        err_router = max(err_router, err)
+        near_p2 += int(near.sum())
+        rcases += 1
+    print(f"phase 2 moe_router ok: {rcases} cases, ids and counts exact but {near_p2} near-tie rows, "
+          f"gates max_abs_err {err_router}")
+
+    # ownership_sweep on f32 EMA traffic, the expert daemon's shape
+    # (4 layers x 64 experts, 4 ranks) and a larger one: owners exact.
+    for k, n in ((ML_LAYERS * 64, ML_NODES), (100_003, 4)):
+        traffic = (rng.integers(0, 50, (k, n)) * 0.98 ** 3).astype(np.float32)
+        traffic[rng.random(k) < 0.2] = 0
+        sargs = [cuda_t(traffic), cuda_t(np.zeros((k, n), bool)), cuda_t(np.ones(k, bool)),
+                 cuda_t(np.zeros(k, np.int32))]
+        got, want = ownership_sweep(*sargs, 0, h=1 / n), sweep_ref(*sargs, 0, h=1 / n)
+        for name, g_, w_ in zip(("owners", "add", "drop", "expired"), got, want):
+            assert torch.equal(g_, w_), (name, k, n)
+        torch.testing.assert_close(got[4], want[4], rtol=1e-6, atol=0)
+        err_sweep = max(err_sweep, float((got[4] - want[4]).abs().max()))
+    print(f"phase 2 ownership_sweep f32 traffic ok: owners exact, f max_abs_err {err_sweep}")
 
     # ---- phase 3: paper size, card against CPU on the same trace --------
     baselines = {
@@ -599,8 +891,84 @@ def main() -> int:
     record["latency_histogram_full"] = dict(ms=hist_ms, plain_ms=hist_plain, bincount_fold_ms=fold_ms,
                                             bound_ms=hist_bytes / BW_BYTES_PER_S * 1e3)
 
-    # ---- phase 6: the kernel record ------------------------------------
-    # Launches: the telemetry path's run (phase 5), which drives all three.
+    del trace, lat, group, weight, allv, hosts, multi, counts, live, last
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: Redynis on ML state at deepseek-moe-16b widths ---------
+    # The Trainer's daemon step, forward only: hot-row embedding cache
+    # (hot_gather), ML_LAYERS MoE layers at full width (moe_router), both
+    # daemons folded every step and swept every 50 (ownership_sweep on f32
+    # traffic), held every step against the same steps through the plain
+    # versions on the card.
+    cfg = get_config("deepseek-moe-16b")
+    for fn in (chunk_replay, ownership_sweep, latency_histogram):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    ml = _ml_drive(torch, dev, cfg, layers=ML_LAYERS, batch=ML_BATCH, seq=ML_SEQ, steps=ML_STEPS)
+    ml_s = time.perf_counter() - t0
+    ml_launches = ml["launches"]
+    sweeps = ML_STEPS // cfg.sweep_period
+    assert ml_launches == {"moe_router": ML_STEPS * ML_LAYERS, "hot_gather": ML_STEPS,
+                           "ownership_sweep": sweeps}, ml_launches
+    assert chunk_replay.launches == 0 and latency_histogram.launches == 0
+    rows = ml["rows"]
+    walls = [r["wall_ms"] for r in rows[1:]]  # the first step builds cuBLAS plans
+    assert rows[-1]["hit_frac"] > 0 and rows[0]["hit_frac"] == 0.0
+    assert all(np.isfinite([r["hot_frac"] for r in rows])) and rows[-1]["hot_frac"] > 0
+    assert ml["near_tie_rows"] <= ML_STEPS * ML_LAYERS * ML_BATCH * ML_SEQ * 1e-4, ml["near_tie_rows"]
+    print(f"phase 6 ok: {ML_STEPS} steps x {ML_LAYERS} layers in {ml_s:.1f} s (kernel and plain "
+          f"runs in lockstep); kernel step wall median {np.median(walls):.3f} ms, min "
+          f"{min(walls):.3f}, max {max(walls):.3f}; embed hit_rate {ml['embed_hit_rate']:.4f}, "
+          f"expert hit_rate {ml['expert_hit_rate']:.4f}; peak device memory {ml['peak_bytes']} "
+          f"bytes; near-tie router rows {ml['near_tie_rows']} (resyncs {ml['resyncs']}); "
+          f"y max_abs_err {ml['y_max_abs_err']}, gates max_abs_err {ml['gate_max_abs_err']}; "
+          f"launches {ml_launches}")
+    record["ml_profile"] = _profile_steps(torch, ml["kernel_step"], 3, out_dir, "phase 6",
+                                          unprofiled_ms=float(np.median(walls)))
+    record["ml"] = {k: v for k, v in ml.items()
+                    if k not in ("hot_ids", "table", "params", "tokens", "embed_state", "kernel_step")}
+    record["ml"]["wall_s"] = ml_s
+    record["ml"]["hot_ids"] = ml["hot_ids"].tolist()
+    err_router = max(err_router, ml["gate_max_abs_err"])
+
+    # Kernel times at the drive's shapes, on its last step's data: layer 0's
+    # router logits (32,768 x 64, k = 6, groups of 512) and the token batch
+    # through the final cache (2048 hot rows of 2048 bf16).
+    tokens = ml["tokens"].reshape(-1).contiguous()
+    hstate, table = ml["embed_state"], ml["table"]
+    hot_table = table[hstate.hot_ids.clamp(0, table.shape[0] - 1).long()]
+    xg = table[tokens.long()].float()
+    logits = (xg @ ml["params"][0]["router"].float()).contiguous()
+    t_n, e_n, k_n, grp = logits.shape[0], logits.shape[1], cfg.top_k, ml["group"]
+    router_ms = _device_ms(lambda: moe_router(logits, k=k_n, group=grp), torch)
+    router_plain = _device_ms(lambda: router_ref(logits, k_n, grp), torch, iters=20)
+    router_floor = _device_ms(lambda: torch.topk(torch.softmax(logits, dim=-1), k_n, dim=-1), torch)
+    router_bytes = t_n * e_n * 4 + t_n * k_n * 8 + (t_n // grp) * e_n * 4
+    router_ops = t_n * e_n * (4 + 2 * k_n)  # max, sub, exp, div, k rounds of compare + mask
+    router_bound = max(router_bytes / BW_BYTES_PER_S, router_ops / F32_OPS_PER_S) * 1e3
+    gslots = hstate.slot_map[tokens.long()]
+    ghit = gslots >= 0
+    gather_ms = _device_ms(lambda: hot_gather(tokens, hstate.slot_map, hot_table), torch)
+    gather_plain = _device_ms(lambda: hot_gather_ref(tokens, hstate.slot_map, hot_table), torch, iters=20)
+    safe = gslots.clamp_min(0).long()
+    gather_floor = _device_ms(lambda: torch.nn.functional.embedding(safe, hot_table), torch)
+    d_n = hot_table.shape[1]
+    gather_bytes = (t_n * 4 + int(torch.unique(tokens).numel()) * 4
+                    + int(torch.unique(gslots[ghit]).numel()) * d_n * 2 + t_n * d_n * 2 + t_n)
+    gather_bound = gather_bytes / BW_BYTES_PER_S * 1e3
+    print(f"phase 6 moe_router ({t_n} x {e_n}, k {k_n}, groups of {grp}): kernel {router_ms:.4f} ms, "
+          f"plain {router_plain:.4f} ms, bound {router_bound:.4f} ms, "
+          f"softmax+topk floor {router_floor:.4f} ms")
+    print(f"phase 6 hot_gather ({t_n} tokens, {hot_table.shape[0]} x {d_n} bf16 hot table, hit "
+          f"{float(ghit.float().mean()):.4f}): kernel {gather_ms:.4f} ms, plain {gather_plain:.4f} ms, "
+          f"bound {gather_bound:.4f} ms, F.embedding floor {gather_floor:.4f} ms")
+    record["ml_kernels"] = dict(router_floor_ms=router_floor, gather_floor_ms=gather_floor,
+                                gather_hit_frac=float(ghit.float().mean()))
+    del ml, tokens, hstate, table, hot_table, xg, logits, gslots, ghit, safe
+
+    # ---- phase 7: the kernel record ------------------------------------
+    # Launches: the telemetry path's run (phase 5) drives the first three,
+    # the ML-state run (phase 6) the other two.
     kernels = [
         dict(name="chunk_replay", route="cuda",
              source="src/repro_torch/kernels/chunk_replay/csrc/chunk_replay.cu",
@@ -623,8 +991,23 @@ def main() -> int:
              ms=hist_ms, plain_ms=hist_plain,
              bound_ms=hist_bytes / BW_BYTES_PER_S * 1e3, bound_by="bytes",
              library_ms=None),
+        dict(name="moe_router", route="cuda",
+             source="src/repro_torch/kernels/moe_router/csrc/moe_router.cu",
+             replaces="src/repro/kernels/moe_router/kernel.py:28",
+             launches=ml_launches["moe_router"], max_abs_err=err_router,
+             ms=router_ms, plain_ms=router_plain, bound_ms=router_bound,
+             bound_by="bytes" if router_bytes / BW_BYTES_PER_S >= router_ops / F32_OPS_PER_S
+             else "operations",
+             library_ms=None),
+        dict(name="hot_gather", route="cuda",
+             source="src/repro_torch/kernels/hot_gather/csrc/hot_gather.cu",
+             replaces="src/repro/kernels/hot_gather/kernel.py:34",
+             launches=ml_launches["hot_gather"], max_abs_err=err_gather,
+             ms=gather_ms, plain_ms=gather_plain, bound_ms=gather_bound, bound_by="bytes",
+             library_ms=None),
     ]
     record["kernels"] = kernels
+    record["ml_launches"] = ml_launches
     record["card"] = smi
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"kernels": kernels}))

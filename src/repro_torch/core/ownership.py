@@ -36,9 +36,15 @@ def max_coefficient(n_nodes: int) -> float:
 
 
 def ownership_fraction(counts: torch.Tensor) -> torch.Tensor:
-    """Eq. 1 in f32, with ``f = 0`` where the object was never accessed."""
+    """Eq. 1 in f32, with ``f = 0`` where the object was never accessed.
+
+    The row total is added left to right, the order of the CUDA kernel and
+    of XLA-CPU's short-row sums: with fractional (EMA) counts a reordered
+    sum moves ``f`` by an ulp and can flip ``f >= H`` at the boundary."""
     counts = counts.to(torch.float32)
-    total = counts.sum(dim=-1, keepdim=True)
+    total = counts[..., :1]
+    for j in range(1, counts.shape[-1]):
+        total = total + counts[..., j : j + 1]
     return torch.where(
         total > 0, counts / torch.clamp_min(total, 1.0), torch.zeros_like(counts)
     )

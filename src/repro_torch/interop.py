@@ -10,13 +10,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.expert_placement import ExpertPlacementState
+from repro_torch.core.hot_embedding import HotEmbeddingState
 from repro_torch.core.metadata import MetadataStore
 from repro_torch.device import resolve_device
 from repro_torch.kvsim.cluster import ClusterConfig, ServiceConfig
 from repro_torch.kvsim.telemetry import TelemetryConfig
 from repro_torch.kvsim.workload import Trace
 
-__all__ = ["trace_from_numpy", "store_from_numpy", "cluster_from_fields", "telemetry_from_fields"]
+__all__ = [
+    "trace_from_numpy",
+    "store_from_numpy",
+    "cluster_from_fields",
+    "telemetry_from_fields",
+    "params_from_numpy",
+    "expert_state_from_numpy",
+    "hot_embedding_state_from_numpy",
+]
 
 
 def _t(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -70,3 +80,45 @@ def telemetry_from_fields(**fields) -> TelemetryConfig:
     attribution and flight-recorder sub-configs carry across as they are:
     ``run_scenario`` raises while one is enabled (a later slice)."""
     return TelemetryConfig(**fields)
+
+
+def _leaf_from_numpy(a, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bf16: carry the bits as uint16
+        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def params_from_numpy(tree, device=None):
+    """A reference params tree (nested dicts of arrays, e.g.
+    ``jax.tree.map(np.asarray, params)``) as torch tensors with the same
+    keys and dtypes on ``device`` (``None`` means CUDA). bf16 leaves carry
+    across bit for bit."""
+    device = resolve_device(device)
+    if isinstance(tree, dict):
+        return {key: params_from_numpy(val, device) for key, val in tree.items()}
+    return _leaf_from_numpy(tree, device)
+
+
+def expert_state_from_numpy(counts, hot_ids, step, sweeps, moved, device=None) -> ExpertPlacementState:
+    """An ``ExpertPlacementState`` from the reference state's five arrays."""
+    device = resolve_device(device)
+    return ExpertPlacementState(
+        counts=_t(counts, torch.float32, device),
+        hot_ids=_t(hot_ids, torch.int32, device),
+        step=_t(step, torch.int32, device),
+        sweeps=_t(sweeps, torch.int32, device),
+        moved=_t(moved, torch.float32, device),
+    )
+
+
+def hot_embedding_state_from_numpy(counts, hot_ids, slot_map, sweeps, device=None) -> HotEmbeddingState:
+    """A ``HotEmbeddingState`` from the reference state's four arrays."""
+    device = resolve_device(device)
+    return HotEmbeddingState(
+        counts=_t(counts, torch.float32, device),
+        hot_ids=_t(hot_ids, torch.int32, device),
+        slot_map=_t(slot_map, torch.int32, device),
+        sweeps=_t(sweeps, torch.int32, device),
+    )

@@ -32,7 +32,9 @@ _KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
 KERNEL_SOURCES = {
     name: _KERNELS_DIR / name / "csrc" / f"{name}.cu"
-    for name in ("chunk_replay", "ownership_sweep", "latency_histogram")
+    for name in (
+        "chunk_replay", "ownership_sweep", "latency_histogram", "moe_router", "hot_gather",
+    )
 }
 INCLUDE_DIR = _KERNELS_DIR / "csrc"  # headers shared between kernels
 NVCC_FLAGS = (

@@ -4,7 +4,9 @@
 // (ownership_sweep_kernel, launched by ownership_sweep_call), which walks
 // [TK, N] tiles of the metadata store in VMEM.
 //
-// What bounds it here: bytes. Per key it reads N int32 counts, N host bytes,
+// What bounds it here: bytes. Per key it reads N counts (int32 access
+// counters for the key-value engine, f32 EMA traffic for the ML-state
+// daemons; one template serves both), N host bytes,
 // one live byte and one int32 timestamp, and writes three N-byte planes
 // (owners, add, drop), one expired byte and N f32 fractions; the arithmetic
 // (one division per count) is far below the card's rate. At K = 1e6, N = 5
@@ -28,8 +30,9 @@ namespace {
 
 constexpr int kThreads = 256;
 
+template <typename C>
 __global__ void ownership_sweep_kernel(
-    const int* __restrict__ counts, const uint8_t* __restrict__ hosts,
+    const C* __restrict__ counts, const uint8_t* __restrict__ hosts,
     const uint8_t* __restrict__ live, const int* __restrict__ last, int K,
     int N, int now, float h, int expiry, uint8_t* __restrict__ owners,
     uint8_t* __restrict__ add, uint8_t* __restrict__ drop,
@@ -37,7 +40,7 @@ __global__ void ownership_sweep_kernel(
   const int stride = gridDim.x * kThreads;
   for (int key = blockIdx.x * kThreads + threadIdx.x; key < K; key += stride) {
     const size_t base = static_cast<size_t>(key) * N;
-    const int* c = counts + base;
+    const C* c = counts + base;
     float total = 0.f;
     float best = static_cast<float>(c[0]);
     int am = 0;
@@ -73,6 +76,21 @@ __global__ void ownership_sweep_kernel(
   }
 }
 
+template <typename C>
+int launch(const void* counts, const void* hosts, const void* live,
+           const void* last, int K, int N, int now, float h, int expiry,
+           void* owners, void* add, void* drop, void* expired, void* f,
+           int grid, void* stream) {
+  ownership_sweep_kernel<C><<<grid, kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const C*>(counts), static_cast<const uint8_t*>(hosts),
+      static_cast<const uint8_t*>(live), static_cast<const int*>(last), K, N,
+      now, h, expiry, static_cast<uint8_t*>(owners),
+      static_cast<uint8_t*>(add), static_cast<uint8_t*>(drop),
+      static_cast<uint8_t*>(expired), static_cast<float*>(f));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -83,19 +101,17 @@ const char* ownership_sweep_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int ownership_sweep_launch(const void* counts, const void* hosts,
-                           const void* live, const void* last, int K, int N,
-                           int now, float h, int expiry, void* owners,
-                           void* add, void* drop, void* expired, void* f,
-                           int grid, void* stream) {
-  ownership_sweep_kernel<<<grid, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(counts), static_cast<const uint8_t*>(hosts),
-      static_cast<const uint8_t*>(live), static_cast<const int*>(last), K, N,
-      now, h, expiry, static_cast<uint8_t*>(owners),
-      static_cast<uint8_t*>(add), static_cast<uint8_t*>(drop),
-      static_cast<uint8_t*>(expired), static_cast<float*>(f));
-  return static_cast<int>(cudaGetLastError());
+// counts_f32 = 0: int32 counts; 1: f32 counts.
+int ownership_sweep_launch(const void* counts, int counts_f32,
+                           const void* hosts, const void* live,
+                           const void* last, int K, int N, int now, float h,
+                           int expiry, void* owners, void* add, void* drop,
+                           void* expired, void* f, int grid, void* stream) {
+  if (counts_f32)
+    return launch<float>(counts, hosts, live, last, K, N, now, h, expiry,
+                         owners, add, drop, expired, f, grid, stream);
+  return launch<int>(counts, hosts, live, last, K, N, now, h, expiry, owners,
+                     add, drop, expired, f, grid, stream);
 }
 
 }  // extern "C"

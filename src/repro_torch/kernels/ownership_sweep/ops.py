@@ -22,11 +22,11 @@ __all__ = ["ownership_sweep"]
 MAX_GRID = 132 * 16  # blocks per launch: 16 per SM of an H100, grid-stride beyond
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P] * 4 + [_I] * 3 + [_F, _I] + [_P] * 5 + [_I, _P]
+_ARGTYPES = [_P, _I] + [_P] * 3 + [_I] * 3 + [_F, _I] + [_P] * 5 + [_I, _P]
 
 
 def ownership_sweep(
-    counts: torch.Tensor,  # [K, N] int32 access counts
+    counts: torch.Tensor,  # [K, N] int32 access counts or f32 EMA traffic
     hosts: torch.Tensor,  # [K, N] bool current replica map
     live: torch.Tensor,  # [K] bool
     last_access: torch.Tensor,  # [K] int32 ticks
@@ -43,7 +43,9 @@ def ownership_sweep(
     if dev.type != "cuda":
         raise ValueError(f"ownership_sweep: unsupported device {dev}")
     k, n = counts.shape
-    _build.check_input("ownership_sweep", "counts", counts, torch.int32, (k, n), dev)
+    if counts.dtype not in (torch.int32, torch.float32):
+        raise TypeError(f"ownership_sweep: counts has dtype {counts.dtype}, expected int32 or float32")
+    _build.check_input("ownership_sweep", "counts", counts, counts.dtype, (k, n), dev)
     _build.check_input("ownership_sweep", "hosts", hosts, torch.bool, (k, n), dev)
     _build.check_input("ownership_sweep", "live", live, torch.bool, (k,), dev)
     _build.check_input("ownership_sweep", "last_access", last_access, torch.int32, (k,), dev)
@@ -62,7 +64,7 @@ def ownership_sweep(
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     grid = min(-(-k // lib.ownership_sweep_threads()), MAX_GRID)
     code = fn(
-        counts.data_ptr(), hosts.data_ptr(), live.data_ptr(),
+        counts.data_ptr(), int(counts.dtype == torch.float32), hosts.data_ptr(), live.data_ptr(),
         last_access.data_ptr(), k, n, int(now), float(h), int(max(expiry, 0)),
         owners.data_ptr(), add.data_ptr(), drop.data_ptr(), expired.data_ptr(),
         f.data_ptr(), grid, torch.cuda.current_stream(dev).cuda_stream,

@@ -18,7 +18,17 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import create_store  # noqa: E402
-from repro_torch.interop import store_from_numpy, trace_from_numpy  # noqa: E402
+from repro_torch.core.expert_placement import ExpertPlacement  # noqa: E402
+from repro_torch.core.hot_embedding import HotEmbedding  # noqa: E402
+from repro_torch.core.traffic import create_stats  # noqa: E402
+from repro_torch.interop import (  # noqa: E402
+    expert_state_from_numpy,
+    hot_embedding_state_from_numpy,
+    params_from_numpy,
+    store_from_numpy,
+    trace_from_numpy,
+)
+from repro_torch.models.params import ParamSpec, dense_init, init_params  # noqa: E402
 from repro_torch.kvsim import (  # noqa: E402
     ClusterConfig,
     RedynisPolicy,
@@ -54,6 +64,20 @@ MODULES = [
     "repro_torch.kernels.latency_histogram.ref",
     "repro_torch.kernels.ownership_sweep.ops",
     "repro_torch.kernels.ownership_sweep.ref",
+    "repro_torch.kernels.moe_router.ops",
+    "repro_torch.kernels.moe_router.ref",
+    "repro_torch.kernels.hot_gather.ops",
+    "repro_torch.kernels.hot_gather.ref",
+    "repro_torch.configs",
+    "repro_torch.configs.base",
+    "repro_torch.configs.deepseek_moe_16b",
+    "repro_torch.models.params",
+    "repro_torch.models.layers",
+    "repro_torch.models.moe",
+    "repro_torch.dist",
+    "repro_torch.core.traffic",
+    "repro_torch.core.expert_placement",
+    "repro_torch.core.hot_embedding",
 ]
 
 
@@ -119,8 +143,23 @@ def _trace_arrays(r=6, k=4):
         lambda device: ClusterConfig().rtt_matrix(device),
         lambda device: trace_from_numpy(*_trace_arrays(), device=device),
         lambda device: store_from_numpy(*_store_arrays(), device=device),
+        lambda device: ExpertPlacement(2, 8, 4, 2).init_state(device=device),
+        lambda device: HotEmbedding(64, 4, 8).init_state(device=device),
+        lambda device: create_stats(8, 4, device=device),
+        lambda device: list(init_params(
+            {"w": ParamSpec((4, 4), dense_init(4))},
+            torch.Generator(device=device or ("cuda" if torch.cuda.is_available() else "cpu")),
+            device=device).values()),
+        lambda device: list(params_from_numpy({"w": np.ones((2, 2), np.float32)}, device=device).values()),
+        lambda device: expert_state_from_numpy(
+            np.zeros((2, 8, 4), np.float32), np.zeros((2, 2), np.int32), 0, 0, 0.0, device=device),
+        lambda device: hot_embedding_state_from_numpy(
+            np.zeros((64, 4), np.float32), np.full(8, -1, np.int32), np.full(64, -1, np.int32), 0,
+            device=device),
     ],
-    ids=["generate_trace", "create_store", "rtt_matrix", "trace_from_numpy", "store_from_numpy"],
+    ids=["generate_trace", "create_store", "rtt_matrix", "trace_from_numpy", "store_from_numpy",
+         "expert_placement", "hot_embedding", "create_stats", "init_params", "params_from_numpy",
+         "expert_state_from_numpy", "hot_embedding_state_from_numpy"],
 )
 def test_tensor_builders_default_to_cuda(make):
     """Every public function that makes tensors puts them on the card
@@ -338,3 +377,64 @@ def test_telemetry_run_card_matches_cpu(cuda, policy):
     np.testing.assert_array_equal(ta.chunk_hist, tb.chunk_hist)
     np.testing.assert_allclose(ta.load_factor, tb.load_factor, rtol=1e-6)
     np.testing.assert_allclose(ta.mean_latency_ms, tb.mean_latency_ms, rtol=1e-5)
+
+
+def _gather_inputs(v, r, d, t, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    slot_map = np.full(v, -1, np.int32)
+    slot_map[rng.choice(v, r, replace=False)] = np.arange(r, dtype=np.int32)
+    table = torch.from_numpy(rng.standard_normal((r, d)).astype(np.float32)).to(device, dtype)
+    return (torch.from_numpy(rng.integers(0, v, t).astype(np.int32)).to(device),
+            torch.from_numpy(slot_map).to(device), table)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,r,d,t", [(5_000, 64, 256, 333), (1_024, 8, 64, 128), (300, 5, 3, 77)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hot_gather_kernel_matches_plain_version(cuda, v, r, d, t, dtype):
+    from repro_torch.kernels.hot_gather.ops import hot_gather
+    from repro_torch.kernels.hot_gather.ref import hot_gather_ref
+
+    args = _gather_inputs(v, r, d, t, dtype, cuda)
+    rows, hit = hot_gather(*args)
+    want_rows, want_hit = hot_gather_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(hit, want_hit) and torch.equal(rows, want_rows)
+    table = args[2].clone().requires_grad_(True)
+    hot_gather(args[0], args[1], table)[0].float().sum().backward()
+    counts = torch.bincount(args[1][args[0].long()][hit].long(), minlength=r).to(dtype)
+    assert torch.equal(table.grad, counts[:, None].expand(r, d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,e,k,group", [(512, 64, 6, 128), (300, 32, 8, 128), (1024, 8, 2, 256),
+                                         (32_768, 64, 6, 512)])
+def test_moe_router_kernel_matches_plain_version(cuda, t, e, k, group):
+    from repro_torch.kernels.moe_router.ops import moe_router
+    from repro_torch.kernels.moe_router.ref import router_ref
+
+    logits = torch.from_numpy(np.random.default_rng(t).standard_normal((t, e)).astype(np.float32)).to(cuda)
+    gates, ids, counts = moe_router(logits, k=k, group=group)
+    want = router_ref(logits, k, group)
+    torch.cuda.synchronize()
+    assert torch.equal(ids, want[1]) and torch.equal(counts, want[2])
+    torch.testing.assert_close(gates, want[0], rtol=1e-6, atol=0)
+    assert float(counts.sum()) == t * k
+
+
+@pytest.mark.cuda
+def test_ownership_sweep_kernel_takes_f32_traffic(cuda):
+    from repro_torch.kernels.ownership_sweep.ops import ownership_sweep
+    from repro_torch.kernels.ownership_sweep.ref import sweep_ref
+
+    rng = np.random.default_rng(3)
+    k, n = 1_792, 4
+    counts = (rng.integers(0, 50, (k, n)) * 0.98 ** 3).astype(np.float32)
+    counts[rng.random(k) < 0.2] = 0
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        counts, np.zeros((k, n), bool), np.ones(k, bool), np.zeros(k, np.int32))]
+    got = ownership_sweep(*args, 0, h=0.25)
+    want = sweep_ref(*args, 0, h=0.25)
+    for g, w in zip(got[:4], want[:4]):
+        assert torch.equal(g, w)
+    torch.testing.assert_close(got[4], want[4], rtol=1e-6, atol=0)
