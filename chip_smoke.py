@@ -16,9 +16,15 @@ card. Phase 6 drives Redynis on ML state at deepseek-moe-16b widths: 150
 steps of 32,768 Zipf tokens through the hot-row embedding cache and 4
 full-width MoE layers, both placement daemons folded every step and swept
 every 50, held every step against the same steps through the plain
-versions. It times each kernel. Every phase raises on a mismatch; the script
-exits non-zero without a CUDA device or outside a checkout. The last line
-of its output is the JSON device record.
+versions. Phase 7 serves qwen3-1.7b at full width and all 28 layers through
+``launch/serve.py``'s loop (a 16-lane ``ServeEngine`` with an 8,192-slot
+cache behind a 4-pod ``SessionRouter`` whose leader fails half-way), first
+on the kernel path alone with its launches counted, then with every
+prefill's and every 8th decode step's attention held against the plain
+versions beside a teacher-forced plain-version engine. It times each kernel
+(phase 8 prints the record). Every phase raises on a mismatch and prints
+its duration; the script exits non-zero without a CUDA device or outside a
+checkout. The last line of its output is the JSON device record.
 """
 
 from __future__ import annotations
@@ -42,6 +48,25 @@ ML_LAYERS = 4  # deepseek-moe-16b has 28; cut for the time limit shared with the
 ML_BATCH, ML_SEQ = 16, 2048  # 32,768 tokens per step
 ML_STEPS = 150  # three sweeps at sweep_period 50
 ML_NODES = 4
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
+SERVE_ARCH = "qwen3-1.7b"  # full width and all 28 layers
+SERVE_LANES, SERVE_CACHE = 16, 8192
+SERVE_REQUESTS, SERVE_SESSIONS, SERVE_PODS = 96, 32, 4
+SERVE_PROMPT = (512, 4096)  # prompt lengths, uniform, inclusive
+SERVE_MAX_NEW = 64
+SERVE_FAIL_POD = 3  # the first leader (the highest id), killed half-way
+SERVE_CHECK_EVERY = 8  # decode steps between kernel-against-plain checks
+# Kernel engine against the teacher-forced plain engine: every logit within
+# LOGIT_TOL (two runs of the sound kernels read 0.0949 over 28 bf16 layers),
+# and a greedy token may differ only where the plain top-2 margin is at most
+# LOGIT_TOL.
+LOGIT_TOL = 0.125
+SERVE_PREFILL_LENS = (512, 1024, 2048, 3001, 4096)
+# tests/test_kernels.py's attention shapes: (b, s, t, h, kh, dh, causal, window).
+ATTN_CASES = [(2, 256, 256, 4, 2, 64, True, 0), (1, 128, 128, 8, 1, 128, True, 0),
+              (2, 256, 256, 4, 4, 32, True, 64), (1, 128, 384, 4, 2, 64, False, 0),
+              (1, 192, 192, 6, 2, 64, True, 0)]
+DECODE_CASES = [(2, 1024, 8, 2, 64), (4, 512, 4, 1, 128), (2, 768, 16, 16, 32)]  # (b, t, h, kh, dh)
 
 
 def _smi() -> str:
@@ -135,19 +160,19 @@ def _check_result(a, b, ctx: str) -> float:
 def _plain_versions():
     """Route the engine through the kernels' plain PyTorch versions (on the
     card), the yardstick for a whole run."""
-    import repro_torch.core.policy as policy_mod
+    import repro_torch.kernels.ownership_sweep.ops as sweep_ops  # core/placement.py::sweep imports it per call
     import repro_torch.kvsim.simulate as sim_mod
     import repro_torch.kvsim.telemetry as telemetry_mod
     from repro_torch.kernels.chunk_replay.ref import chunk_replay_ref
     from repro_torch.kernels.ownership_sweep.ref import sweep_ref
 
-    saved = sim_mod.chunk_replay, policy_mod.ownership_sweep, telemetry_mod.latency_histogram
-    sim_mod.chunk_replay, policy_mod.ownership_sweep = chunk_replay_ref, sweep_ref
+    saved = sim_mod.chunk_replay, sweep_ops.ownership_sweep, telemetry_mod.latency_histogram
+    sim_mod.chunk_replay, sweep_ops.ownership_sweep = chunk_replay_ref, sweep_ref
     telemetry_mod.latency_histogram = _plain_histogram
     try:
         yield
     finally:
-        sim_mod.chunk_replay, policy_mod.ownership_sweep, telemetry_mod.latency_histogram = saved
+        sim_mod.chunk_replay, sweep_ops.ownership_sweep, telemetry_mod.latency_histogram = saved
 
 
 def _profile_window(torch, trace, wl, cl, policy, run_scenario, out_dir,
@@ -432,6 +457,227 @@ def _profile_steps(torch, step, steps: int, out_dir, label: str, unprofiled_ms: 
                 top_device=[(e.key, e.self_device_time_total / 1e3 / steps) for e in top])
 
 
+def _leaves(tree):
+    for val in tree.values():
+        yield from (_leaves(val) if isinstance(val, dict) else (val,))
+
+
+def _bf16_tol(dtype, torch) -> float:
+    """tests/test_kernels.py's bars: 2e-5 for f32, 2e-2 for bf16."""
+    return 2e-5 if dtype == torch.float32 else 2e-2
+
+
+def _scaled_bar(want):
+    """The bf16 bar scaled to the output: 2**-6 (two to four bf16 ulps) of
+    each element's magnitude plus the rms of its row over head_dim. At the
+    serving shapes an attention row's values are about sqrt(e / n) in size
+    (0.026 at n 4096), so the flat 2e-2 bar is about one value and cannot
+    see a kv tile or cache chunk that was skipped; this bar can."""
+    w = want.float()
+    return 2**-6 * (w.abs() + w.pow(2).mean(dim=-1, keepdim=True).sqrt())
+
+
+def _check_close(torch, got, want, dtype, ctx: str) -> tuple[float, float]:
+    """``got`` against ``want`` at tests/test_kernels.py's bar and, in bf16,
+    at ``_scaled_bar`` too. Returns the largest absolute difference and the
+    largest share of the scaled bar that a difference used (0 in f32)."""
+    tol = _bf16_tol(dtype, torch)
+    diff = (got.float() - want.float()).abs()
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol, msg=ctx)
+    use = 0.0
+    if dtype != torch.float32:
+        use = float((diff / _scaled_bar(want)).nan_to_num(nan=0.0, posinf=float("inf")).max())
+        assert use <= 1.0, f"{ctx}: a difference uses {use:.3f} of the output-scaled bf16 bar"
+    return float(diff.max()), use
+
+
+@contextlib.contextmanager
+def _attention_versions(attention, decode):
+    """Route the model's attention (``models/transformer.py``) through the
+    given functions for the duration."""
+    import repro_torch.models.transformer as tfm
+
+    saved = tfm.flash_attention, tfm.flash_decode
+    tfm.flash_attention, tfm.flash_decode = attention, decode
+    try:
+        yield
+    finally:
+        tfm.flash_attention, tfm.flash_decode = saved
+
+
+def _serve_engines(torch, dev, model, params):
+    """A ``ServeEngine`` with its ``SessionRouter`` at the serving drive's
+    sizes (the router's store on the card)."""
+    from repro_torch.serving import ServeEngine, SessionRouter
+    from repro_torch.serving.kvcache import state_bytes
+
+    engine = ServeEngine(model, params, num_lanes=SERVE_LANES, cache_len=SERVE_CACHE)
+    router = SessionRouter(num_pods=SERVE_PODS, max_sessions=2 * SERVE_SESSIONS, sweep_period=16,
+                           session_bytes=state_bytes(engine.state) / SERVE_LANES, device=dev)
+    return engine, router
+
+
+def _serve_drive(torch, dev, model, params, seed: int = 0, log=print) -> dict:
+    """``launch/serve.py``'s loop on the kernel path, at the serving
+    drive's sizes, a pod failing half-way. Each prefill and each decode
+    step is timed on the host clock; both end in a readback of the sampled
+    tokens, so the card is done when the clock stops."""
+    from repro_torch.launch.serve import serve_loop
+
+    engine, router = _serve_engines(torch, dev, model, params)
+    prefills, steps = [], []
+    admit, step = engine.admit, engine.step
+
+    def timed_admit(req):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lane = admit(req)
+        prefills.append((len(req.tokens), (time.perf_counter() - t0) * 1e3))
+        return lane
+
+    def timed_step():
+        lengths = engine.state.length.clone()
+        t0 = time.perf_counter()
+        out = step()
+        if out:
+            steps.append(((time.perf_counter() - t0) * 1e3, len(out), lengths))
+        return out
+
+    engine.admit, engine.step = timed_admit, timed_step
+    wall = serve_loop(engine, router, np.random.default_rng(seed), requests=SERVE_REQUESTS,
+                      sessions=SERVE_SESSIONS, pods=SERVE_PODS, prompt_len=SERVE_PROMPT,
+                      max_new=SERVE_MAX_NEW, vocab_size=model.cfg.vocab_size,
+                      fail_pod=SERVE_FAIL_POD, log=log)
+    return dict(engine=engine, router=router, wall_s=wall, prefills=prefills, steps=steps)
+
+
+class _LanePair:
+    """The lane tables of the two engines in lockstep: every lookup goes
+    to both (their LRU clocks must see the same calls) and must agree."""
+
+    def __init__(self, a, b):
+        self.a, self.b = a, b
+
+    def lookup(self, session):
+        lane = self.a.lookup(session)
+        assert self.b.lookup(session) == lane, session
+        return lane
+
+
+class _Lockstep:
+    """The serving drive's kernel engine and a plain-version engine on the
+    same params, driven in turns by ``serve_loop``. The plain engine is
+    teacher-forced: each of its sampling calls hands on the kernel engine's
+    tokens, so both see the same inputs. Every sampling call compares the
+    two engines' logits, which must agree within ``LOGIT_TOL``; a greedy
+    token may differ only at a near tie, where the plain logits' top-2
+    margin is at most ``LOGIT_TOL``. The kernel engine's attention is held
+    against the plain version on the same inputs in every layer of every
+    prefill and of every ``SERVE_CHECK_EVERY``-th decode step."""
+
+    def __init__(self, torch, eng, plain):
+        from repro_torch.kernels.flash_attention.ops import flash_attention
+        from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+        from repro_torch.kernels.flash_decode.ops import flash_decode
+        from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+
+        self.torch, self.eng, self.plain = torch, eng, plain
+        self.lanes = _LanePair(eng.lanes, plain.lanes)
+        self.device = eng.device
+        self.stats = dict(attn_checks=0, attn_err=0.0, attn_bar_use=0.0, decode_checks=0,
+                          decode_err=0.0, decode_bar_use=0.0, samples=0, tokens=0, near_ties=0,
+                          widest_tie=0.0, logit_err=0.0, check_decode=False)
+        self._refs = flash_attention_ref, flash_decode_ref
+        stats = self.stats
+
+        def checked_attention(q, k, v, *, causal=True, window=0):
+            out = flash_attention(q, k, v, causal=causal, window=window)
+            want = flash_attention_ref(q, k, v, causal=causal, window=window)
+            err, use = _check_close(torch, out, want, q.dtype, f"prefill attention S={q.shape[1]}")
+            stats["attn_checks"] += 1
+            stats["attn_err"] = max(stats["attn_err"], err)
+            stats["attn_bar_use"] = max(stats["attn_bar_use"], use)
+            return out
+
+        def checked_decode(q, k_cache, v_cache, lengths):
+            out = flash_decode(q, k_cache, v_cache, lengths)
+            if stats["check_decode"]:
+                want = flash_decode_ref(q, k_cache, v_cache, lengths)
+                err, use = _check_close(torch, out, want, q.dtype, "decode attention")
+                stats["decode_checks"] += 1
+                stats["decode_err"] = max(stats["decode_err"], err)
+                stats["decode_bar_use"] = max(stats["decode_bar_use"], use)
+            return out
+
+        self._checked = checked_attention, checked_decode
+        kernel_sample, plain_sample = eng._sample, plain._sample
+        pending = []
+
+        def record(logits):
+            tokens = kernel_sample(logits)
+            pending.append((logits, tokens))
+            return tokens
+
+        def forced(logits):
+            klogits, ktokens = pending.pop()
+            ptokens = plain_sample(logits)
+            diff = float((klogits - logits).abs().max())
+            top2 = torch.topk(logits, 2, dim=-1).values
+            margin = top2[:, 0] - top2[:, 1]
+            differ = ptokens != ktokens
+            assert bool(torch.isfinite(klogits).all())
+            assert diff <= LOGIT_TOL, f"logits differ by {diff}, beyond {LOGIT_TOL}"
+            widest = float(margin[differ].max()) if bool(differ.any()) else 0.0
+            assert widest <= LOGIT_TOL, f"a greedy token differs at a top-2 margin of {widest}"
+            stats["samples"] += 1
+            stats["tokens"] += int(ktokens.numel())
+            stats["near_ties"] += int(differ.sum())
+            stats["widest_tie"] = max(stats["widest_tie"], widest)
+            stats["logit_err"] = max(stats["logit_err"], diff)
+            return ktokens
+
+        eng._sample, plain._sample = record, forced
+
+    def admit(self, req):
+        with _attention_versions(*self._checked):
+            lane = self.eng.admit(req)
+        with _attention_versions(*self._refs):
+            assert self.plain.admit(req) == lane
+        return lane
+
+    def step(self):
+        self.stats["check_decode"] = self.eng.steps % SERVE_CHECK_EVERY == 0
+        with _attention_versions(*self._checked):
+            out = self.eng.step()
+        with _attention_versions(*self._refs):
+            assert self.plain.step() == out
+        return out
+
+    def run_to_completion(self):
+        while self.step():
+            pass
+        return dict(self.eng.outputs)
+
+    @property
+    def tokens_out(self) -> int:
+        return self.eng.tokens_out
+
+
+def _attention_flops_bytes(b, s, t, h, kh, dh, causal, window, elem=2):
+    """Operations and bytes of one attention call at its mask: 4 flops per
+    (q, k) pair and head element (QK^T and PV), each input read once and
+    the output written once."""
+    q = np.arange(s)[:, None]
+    k = np.arange(t)[None, :]
+    ok = np.ones((s, t), bool)
+    if causal:
+        ok &= q >= k
+    if window:
+        ok &= (q - k) < window
+    pairs = int(ok.sum())
+    return 4 * b * h * dh * pairs, elem * (2 * b * s * h * dh + 2 * b * t * kh * dh)
+
+
 def main() -> int:
     import torch
 
@@ -446,6 +692,10 @@ def main() -> int:
     from repro_torch.kernels.chunk_replay.ops import chunk_replay
     from repro_torch.configs import get_config
     from repro_torch.kernels.chunk_replay.ref import chunk_replay_ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
     from repro_torch.kernels.hot_gather.ops import hot_gather
     from repro_torch.kernels.hot_gather.ref import hot_gather_ref
     from repro_torch.kernels.latency_histogram.ops import latency_histogram
@@ -467,13 +717,21 @@ def main() -> int:
         wan5_workload,
     )
     from repro_torch.kvsim.simulate import _initial_hosts
+    from repro_torch.models.model import Model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    record: dict = {}
+    record: dict = {"phase_s": {}}
+    mark = [time.perf_counter(), time.perf_counter()]  # script start, last phase start
+
+    def lap(phase: str) -> None:
+        now = time.perf_counter()
+        record["phase_s"][phase] = now - mark[1]
+        print(f"{phase} took {now - mark[1]:.1f} s ({now - mark[0]:.1f} s since the start)")
+        mark[1] = now
 
     # ---- phase 1: device and build -------------------------------------
     smi = _smi()
@@ -487,6 +745,8 @@ def main() -> int:
     print(smi)
     print(f"phase 1 ok: {torch.cuda.get_device_name(0)}, kernels built in {build_s:.2f} s")
     record["build_s"] = build_s
+
+    lap("phase 1")
 
     # ---- phase 2: kernels against plain versions on the card -----------
     rng = np.random.default_rng(0)
@@ -629,6 +889,54 @@ def main() -> int:
         err_sweep = max(err_sweep, float((got[4] - want[4]).abs().max()))
     print(f"phase 2 ownership_sweep f32 traffic ok: owners exact, f max_abs_err {err_sweep}")
 
+    # flash_attention: the reference kernel test's shapes in both dtypes,
+    # then qwen3-1.7b prefills (16 q and 8 kv heads of 128) at S 4096 and
+    # a ragged S, in bf16.
+    err_attn = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    use_attn = 0.0
+    acases = 0
+    for case in ATTN_CASES + [(1, 4096, 4096, 16, 8, 128, True, 0), (1, 3001, 3001, 16, 8, 128, True, 0)]:
+        b, s_, t, h, kh, dh, causal, window = case
+        for dtype in ((torch.float32, torch.bfloat16) if s_ < 1000 else (torch.bfloat16,)):
+            q, k, v = (cuda_t(rng.standard_normal(sh).astype(np.float32)).to(dtype)
+                       for sh in ((b, s_, h, dh), (b, t, kh, dh), (b, t, kh, dh)))
+            got = flash_attention(q, k, v, causal=causal, window=window)
+            want = flash_attention_ref(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            err, use = _check_close(torch, got, want, dtype, f"flash_attention {case} {dtype}")
+            err_attn[dtype], use_attn = max(err_attn[dtype], err), max(use_attn, use)
+            acases += 1
+    print(f"phase 2 flash_attention ok: {acases} cases, max_abs_err f32 {err_attn[torch.float32]}, "
+          f"bf16 {err_attn[torch.bfloat16]} (scaled bar used {use_attn:.4f})")
+
+    # flash_decode: the reference kernel test's shapes in both dtypes, then
+    # the serving shape (16 lanes, an 8,192-slot cache), lengths random
+    # with 1 and one past T in every case, and 0 (every position masked:
+    # the mean of v) where there are three sequences or more.
+    err_dec = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    use_dec = 0.0
+    dcases = 0
+    for case in DECODE_CASES + [(16, SERVE_CACHE, 16, 8, 128)]:
+        b, t, h, kh, dh = case
+        for dtype in ((torch.float32, torch.bfloat16) if t < SERVE_CACHE else (torch.bfloat16,)):
+            q, k, v = (cuda_t(rng.standard_normal(sh).astype(np.float32)).to(dtype)
+                       for sh in ((b, h, dh), (b, t, kh, dh), (b, t, kh, dh)))
+            lengths = rng.integers(1, t, b).astype(np.int32)
+            lengths[0], lengths[-1] = 1, t + 7
+            if b > 2:
+                lengths[1] = 0
+            lengths = cuda_t(lengths)
+            got, want = flash_decode(q, k, v, lengths), flash_decode_ref(q, k, v, lengths)
+            torch.cuda.synchronize()
+            err, use = _check_close(torch, got, want, dtype, f"flash_decode {case} {dtype}")
+            err_dec[dtype], use_dec = max(err_dec[dtype], err), max(use_dec, use)
+            dcases += 1
+    print(f"phase 2 flash_decode ok: {dcases} cases, max_abs_err f32 {err_dec[torch.float32]}, "
+          f"bf16 {err_dec[torch.bfloat16]} (scaled bar used {use_dec:.4f})")
+    record["phase2_scaled_bar_used"] = dict(flash_attention=use_attn, flash_decode=use_dec)
+
+    lap("phase 2")
+
     # ---- phase 3: paper size, card against CPU on the same trace --------
     baselines = {
         "local": StaticPolicy("local"), "optimized": RedynisPolicy(),
@@ -659,6 +967,8 @@ def main() -> int:
             name: r.throughput_ops_s for name, r in rows.items()
         }
     print("phase 3 ok: card matches CPU (histograms exact); local > optimized > remote")
+
+    lap("phase 3")
 
     # ---- phase 4: full size on the card --------------------------------
     wl = wan5_workload(num_requests=FULL_REQUESTS, num_keys=FULL_KEYS, read_fraction=0.9)
@@ -769,6 +1079,8 @@ def main() -> int:
           f"plain {sweep_plain:.4f} ms")
     record["whole_trace_replay"] = dict(ms=whole_ms, plain_ms=whole_plain,
                                         bound_ms=whole_bytes / BW_BYTES_PER_S * 1e3)
+
+    lap("phase 4")
 
     # ---- phase 5: full size with telemetry and contention ---------------
     # Redynis and static remote with TelemetryConfig() on phase 4's trace,
@@ -894,6 +1206,8 @@ def main() -> int:
     del trace, lat, group, weight, allv, hosts, multi, counts, live, last
     torch.cuda.empty_cache()
 
+    lap("phase 5")
+
     # ---- phase 6: Redynis on ML state at deepseek-moe-16b widths ---------
     # The Trainer's daemon step, forward only: hot-row embedding cache
     # (hot_gather), ML_LAYERS MoE layers at full width (moe_router), both
@@ -966,9 +1280,187 @@ def main() -> int:
                                 gather_hit_frac=float(ghit.float().mean()))
     del ml, tokens, hstate, table, hot_table, xg, logits, gslots, ghit, safe
 
-    # ---- phase 7: the kernel record ------------------------------------
+    lap("phase 6")
+
+    # ---- phase 7: serving at qwen3-1.7b full width and depth -------------
+    # launch/serve.py's loop: a 16-lane ServeEngine (8,192-slot cache)
+    # behind a 4-pod SessionRouter, 96 requests over 32 Zipf-1.2 sessions,
+    # prompts of 512-4096 tokens, 64 new tokens each, greedy, pod 3 (the
+    # leader) failing half-way. First on the kernel path alone (the main
+    # path: launches counted, times taken), then the same stream with the
+    # kernels held against their plain versions and a teacher-forced
+    # plain-version engine beside it.
+    torch.cuda.empty_cache()
+    scfg = get_config(SERVE_ARCH)
+    smodel = Model(scfg, dev)
+    t0 = time.perf_counter()
+    sparams = smodel.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(sparams))
+    print(f"phase 7 {SERVE_ARCH}: {n_params} parameters "
+          f"({sum(t.numel() * t.element_size() for t in _leaves(sparams))} bytes), "
+          f"initialised in {time.perf_counter() - t0:.2f} s")
+    # Warm-up outside the counts: one prefill and one decode step (cuBLAS plans).
+    warm = smodel.init_state(SERVE_LANES, 1024)
+    wtok = torch.randint(0, scfg.vocab_size, (1, 600), device=dev, dtype=torch.int32)
+    smodel.prefill(sparams, {"tokens": wtok}, cache_len=1024)
+    smodel.decode_step(sparams, warm, torch.zeros(SERVE_LANES, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    del warm
+    all_kernels = {"chunk_replay": chunk_replay, "ownership_sweep": ownership_sweep,
+                   "latency_histogram": latency_histogram, "moe_router": moe_router,
+                   "hot_gather": hot_gather, "flash_attention": flash_attention,
+                   "flash_decode": flash_decode}
+    for fn in all_kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    drive = _serve_drive(torch, dev, smodel, sparams, log=lambda m: print(f"phase 7 {m}"))
+    serve_launches = {name: fn.launches for name, fn in all_kernels.items()}
+    serve_peak = torch.cuda.max_memory_allocated()
+    seng, srouter = drive["engine"], drive["router"]
+    n_prefill, n_steps = len(drive["prefills"]), seng.steps
+    sweeps = srouter.tick_count // srouter.daemon.period
+    layers = scfg.num_layers
+    assert serve_launches == {"chunk_replay": 0, "ownership_sweep": sweeps, "latency_histogram": 0,
+                              "moe_router": 0, "hot_gather": 0, "flash_attention": layers * n_prefill,
+                              "flash_decode": layers * n_steps}, serve_launches
+    assert srouter.stats["elections"] == 1 and srouter.leader != SERVE_FAIL_POD, srouter.stats
+    outs = [o for o in seng.outputs.values() if o]
+    assert outs and all(0 <= t < scfg.vocab_size for o in outs for t in o)
+    step_ms = np.asarray([m for m, _, _ in drive["steps"]])
+    decode_tokens = sum(n for _, n, _ in drive["steps"])
+    prefill_ms = np.asarray([m for _, m in drive["prefills"]])
+    prompt_tokens = sum(n for n, _ in drive["prefills"])
+    serve = dict(
+        wall_s=drive["wall_s"], tokens_out=seng.tokens_out,
+        tokens_per_s=seng.tokens_out / drive["wall_s"], prefills=drive["prefills"],
+        prompt_tokens=prompt_tokens, prefill_ms_total=float(prefill_ms.sum()),
+        decode_steps=n_steps, decode_tokens=decode_tokens,
+        decode_step_ms_median=float(np.median(step_ms)), decode_step_ms_min=float(step_ms.min()),
+        decode_step_ms_max=float(step_ms.max()), decode_ms_total=float(step_ms.sum()),
+        decode_tokens_per_s=decode_tokens / (step_ms.sum() / 1e3),
+        peak_bytes=serve_peak, cache_bytes=seng.cache_bytes(), router=dict(srouter.stats),
+        hit_rate=srouter.hit_rate(), leader=srouter.leader, sweeps=sweeps, launches=serve_launches,
+    )
+    print(f"phase 7 serve: {seng.tokens_out} tokens in {drive['wall_s']:.3f} s "
+          f"({serve['tokens_per_s']:.1f} tok/s end to end); {n_prefill} prefills of "
+          f"{prompt_tokens} prompt tokens in {serve['prefill_ms_total']:.1f} ms; {n_steps} decode "
+          f"steps, median {serve['decode_step_ms_median']:.3f} ms (min {serve['decode_step_ms_min']:.3f}, "
+          f"max {serve['decode_step_ms_max']:.3f}), {serve['decode_tokens_per_s']:.1f} decode tok/s; "
+          f"peak device memory {serve_peak} bytes (cache {serve['cache_bytes']})")
+    print(f"phase 7 router: hit_rate {srouter.hit_rate():.4f}, migrations {srouter.stats['migrations']}, "
+          f"migrated {srouter.stats['migrated_bytes']:.0f} bytes, expired {srouter.stats['expired']}, "
+          f"elections {srouter.stats['elections']}, leader {srouter.leader}, sweeps {sweeps}")
+    print("phase 7 prefill ms by prompt length: " + ", ".join(
+        f"{n}:{m:.2f}" for n, m in sorted(drive["prefills"])))
+    print(f"phase 7 launches {serve_launches}")
+    # The decode lengths of the median step, for the kernel record.
+    mid_lengths = drive["steps"][len(drive["steps"]) // 2][2]
+
+    # Prefill latency at fixed prompt lengths (median of three), and where
+    # a decode step's and a 4096-token prefill's device time goes.
+    prefill_at = {}
+    for n in SERVE_PREFILL_LENS:
+        toks = torch.randint(0, scfg.vocab_size, (1, n), device=dev, dtype=torch.int32)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            smodel.prefill(sparams, {"tokens": toks}, cache_len=SERVE_CACHE)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        prefill_at[n] = float(np.median(times))
+    print("phase 7 prefill ms at fixed lengths (median of 3): " + ", ".join(
+        f"{n}: {m:.3f}" for n, m in prefill_at.items()))
+    serve["prefill_ms_at"] = prefill_at
+    record["serve_decode_profile"] = _profile_steps(
+        torch, lambda: smodel.decode_step(sparams, seng.state, seng.last_token), 3, out_dir,
+        "phase 7 decode", unprofiled_ms=serve["decode_step_ms_median"])
+    longest = SERVE_PREFILL_LENS[-1]
+    ptoks = torch.randint(0, scfg.vocab_size, (1, longest), device=dev, dtype=torch.int32)
+    record["serve_prefill_profile"] = _profile_steps(
+        torch, lambda: smodel.prefill(sparams, {"tokens": ptoks}, cache_len=SERVE_CACHE), 2, out_dir,
+        f"phase 7 prefill {longest}", unprofiled_ms=prefill_at[longest])
+    del seng, srouter, drive
+    torch.cuda.empty_cache()
+
+    # The same stream, kernels held against their plain versions, beside a
+    # teacher-forced plain-version engine.
+    t0 = time.perf_counter()
+    keng, krouter = _serve_engines(torch, dev, smodel, sparams)
+    peng, _ = _serve_engines(torch, dev, smodel, sparams)
+    lock = _Lockstep(torch, keng, peng)
+    from repro_torch.launch.serve import serve_loop
+
+    serve_loop(lock, krouter, np.random.default_rng(0), requests=SERVE_REQUESTS,
+               sessions=SERVE_SESSIONS, pods=SERVE_PODS, prompt_len=SERVE_PROMPT,
+               max_new=SERVE_MAX_NEW, vocab_size=scfg.vocab_size, fail_pod=SERVE_FAIL_POD,
+               log=lambda m: None)
+    st = lock.stats
+    assert st["attn_checks"] == layers * n_prefill and keng.steps == n_steps, (st, keng.steps)
+    assert st["decode_checks"] == layers * len(range(0, n_steps, SERVE_CHECK_EVERY)), st
+    assert keng.outputs == peng.outputs and dict(krouter.stats) == serve["router"]
+    lock_s = time.perf_counter() - t0
+    print(f"phase 7 ok: kernels against plain versions in every layer of {n_prefill} prefills "
+          f"(max_abs_err {st['attn_err']}, scaled bar used {st['attn_bar_use']:.4f}) and of "
+          f"{st['decode_checks'] // layers} decode steps (max_abs_err {st['decode_err']}, scaled bar "
+          f"used {st['decode_bar_use']:.4f}); teacher-forced plain engine over {st['samples']} "
+          f"sampling calls, {st['tokens']} tokens: max logit difference {st['logit_err']} "
+          f"(bar {LOGIT_TOL}), near-tie tokens {st['near_ties']} (widest top-2 margin "
+          f"{st['widest_tie']}, bar {LOGIT_TOL}), no other difference ({lock_s:.1f} s)")
+    serve["check"] = {k: v for k, v in st.items() if k != "check_decode"}
+    serve["check"]["wall_s"] = lock_s
+    record["serve"] = serve
+    del lock, keng, krouter, peng
+    torch.cuda.empty_cache()
+
+    # Kernel times at the serving shapes: a 4096-token prefill layer
+    # (q [1, 4096, 16, 128], k/v [1, 4096, 8, 128] bf16) and a decode
+    # layer over the 16 x 8,192 cache at the drive's median-step lengths.
+    h_, kh_, dh_ = scfg.num_heads, scfg.num_kv_heads, scfg.resolved_head_dim
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = (torch.randn(sh, generator=gen, device=dev).to(torch.bfloat16)
+               for sh in ((1, 4096, h_, dh_), (1, 4096, kh_, dh_), (1, 4096, kh_, dh_)))
+    fa_ms = _device_ms(lambda: flash_attention(q, k, v), torch, reps=5, iters=20)
+    fa_plain = _device_ms(lambda: flash_attention_ref(q, k, v), torch, reps=3, iters=3)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fa_lib = _device_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), torch, reps=5, iters=20)
+    fa_flops, fa_bytes = _attention_flops_bytes(1, 4096, 4096, h_, kh_, dh_, True, 0)
+    fa_bound = max(fa_flops / BF16_OPS_PER_S, fa_bytes / BW_BYTES_PER_S) * 1e3
+    print(f"phase 7 flash_attention (S 4096, 16/8 heads of 128, causal): kernel {fa_ms:.4f} ms "
+          f"({fa_flops / fa_ms / 1e9:.1f} TFLOP/s), plain {fa_plain:.4f} ms, SDPA {fa_lib:.4f} ms, "
+          f"bound {fa_bound:.4f} ms")
+    del q, k, v, qt, kt, vt
+    dq = torch.randn((SERVE_LANES, h_, dh_), generator=gen, device=dev).to(torch.bfloat16)
+    kc, vc = (torch.randn((SERVE_LANES, SERVE_CACHE, kh_, dh_), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    lens = (mid_lengths + 1).to(torch.int32)  # the step's valid length
+    fd_ms = _device_ms(lambda: flash_decode(dq, kc, vc, lens), torch)
+    fd_plain = _device_ms(lambda: flash_decode_ref(dq, kc, vc, lens), torch, reps=3, iters=10)
+    kct, vct = (x.transpose(1, 2).contiguous() for x in (kc, vc))
+    mask = (torch.arange(SERVE_CACHE, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+    fd_lib = _device_ms(lambda: sdpa(dq[:, :, None], kct, vct, attn_mask=mask, enable_gqa=True), torch)
+    valid = int(torch.clamp_max(lens, SERVE_CACHE).sum())
+    fd_bytes = valid * kh_ * dh_ * 2 * 2 + 2 * SERVE_LANES * h_ * dh_ * 2 + SERVE_LANES * 4
+    fd_flops = 4 * valid * h_ * dh_
+    fd_bound = max(fd_bytes / BW_BYTES_PER_S, fd_flops / BF16_OPS_PER_S) * 1e3
+    print(f"phase 7 flash_decode (16 lanes, cache 8192, {valid} valid positions): kernel {fd_ms:.4f} ms "
+          f"({fd_bytes / fd_ms / 1e6:.1f} GB/s), plain {fd_plain:.4f} ms, masked SDPA {fd_lib:.4f} ms, "
+          f"bound {fd_bound:.4f} ms")
+    record["serve_kernels"] = dict(decode_lengths=lens.tolist(), attention_tflops=fa_flops / fa_ms / 1e9,
+                                   decode_gbs=fd_bytes / fd_ms / 1e6)
+    del dq, kc, vc, kct, vct, mask, sparams, smodel
+    torch.cuda.empty_cache()
+    err_fa = max(err_attn[torch.bfloat16], err_attn[torch.float32], st["attn_err"])
+    err_fd = max(err_dec[torch.bfloat16], err_dec[torch.float32], st["decode_err"])
+
+    lap("phase 7")
+
+    # ---- phase 8: the kernel record ------------------------------------
     # Launches: the telemetry path's run (phase 5) drives the first three,
-    # the ML-state run (phase 6) the other two.
+    # the ML-state run (phase 6) the next two, the serving drive (phase 7)
+    # the last two.
     kernels = [
         dict(name="chunk_replay", route="cuda",
              source="src/repro_torch/kernels/chunk_replay/csrc/chunk_replay.cu",
@@ -1005,10 +1497,25 @@ def main() -> int:
              launches=ml_launches["hot_gather"], max_abs_err=err_gather,
              ms=gather_ms, plain_ms=gather_plain, bound_ms=gather_bound, bound_by="bytes",
              library_ms=None),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/kernel.py:31",
+             launches=serve_launches["flash_attention"], max_abs_err=err_fa,
+             ms=fa_ms, plain_ms=fa_plain, bound_ms=fa_bound,
+             bound_by="operations" if fa_flops / BF16_OPS_PER_S >= fa_bytes / BW_BYTES_PER_S else "bytes",
+             library_ms=fa_lib),
+        dict(name="flash_decode", route="cuda",
+             source="src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
+             replaces="src/repro/kernels/flash_decode/kernel.py:29",
+             launches=serve_launches["flash_decode"], max_abs_err=err_fd,
+             ms=fd_ms, plain_ms=fd_plain, bound_ms=fd_bound,
+             bound_by="bytes" if fd_bytes / BW_BYTES_PER_S >= fd_flops / BF16_OPS_PER_S else "operations",
+             library_ms=fd_lib),
     ]
     record["kernels"] = kernels
     record["ml_launches"] = ml_launches
     record["card"] = smi
+    lap("phase 8")
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -10,7 +10,7 @@ from repro_torch.configs.base import ModelConfig
 
 __all__ = ["ARCH_IDS", "get_config"]
 
-_MODULES = {"deepseek-moe-16b": "deepseek_moe_16b"}
+_MODULES = {"deepseek-moe-16b": "deepseek_moe_16b", "qwen3-1.7b": "qwen3_1_7b"}
 
 ARCH_IDS = tuple(_MODULES)
 

@@ -1,5 +1,6 @@
 """Core Redynis engine in PyTorch: ownership math (eqs. 1-3), the metadata
-layer and placement plans. The policies (``core.policy``) run the
+layer and placement plans (the daemon's ``sweep`` and ``PlacementDaemon``
+stay in ``core.placement``). The policies (``core.policy``) run the
 ``ownership_sweep`` kernel, whose plain version imports this package, so
 they are not re-exported here; ``repro_torch.kvsim`` re-exports them."""
 

@@ -7,9 +7,10 @@
     live          [K]    bool    -- key exists
     home          [K]    int32   -- node that first stored the key
 
-Unlike the reference's immutable arrays, ``record_accesses`` folds a batch
-into the store's tensors in place (the engine owns the store, and a
-``[K, N]`` copy per chunk would double its memory traffic).
+Unlike the reference's immutable arrays, ``record_accesses`` and
+``record_new_keys`` fold a batch into the store's tensors in place (the
+engine owns the store, and a ``[K, N]`` copy per chunk would double its
+memory traffic).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["MetadataStore", "create_store", "record_accesses"]
+__all__ = ["MetadataStore", "create_store", "record_accesses", "record_new_keys"]
 
 _INT32_MIN = -(2**31)
 
@@ -83,3 +84,22 @@ def record_accesses(
     store.access_counts.view(-1).index_put_((flat,), w, accumulate=True)
     store.last_access.scatter_reduce_(0, keys, stamp, reduce="amax")
     return store
+
+
+def record_new_keys(
+    store: MetadataStore,
+    keys: torch.Tensor,  # [B] int
+    nodes: torch.Tensor,  # [B] int
+    now: int,
+) -> MetadataStore:
+    """Algorithm 1's 'metadata == null' branch, in place: a key not yet live
+    is stored on the node that received the request (its home), and the
+    access is logged. Existing keys are left untouched (masked), so a mixed
+    batch is safe. Within one batch, a new key named twice takes one of its
+    nodes as home, as the reference's scatter does."""
+    keys, nodes = keys.long(), nodes.long()
+    is_new = ~store.live[keys]
+    store.hosts[keys, nodes] = store.hosts[keys, nodes] | is_new
+    store.live[keys] = store.live[keys] | is_new
+    store.home[keys] = torch.where(is_new, nodes.to(torch.int32), store.home[keys])
+    return record_accesses(store, keys, nodes, now)

@@ -4,8 +4,8 @@ replicated, and ``RedynisPolicy`` (Algorithm 3) as "optimized".
 
 ``split_policy`` divides a policy into a hashable static key and a dict of
 its dynamic hyperparameters (H, decay), as the reference does. The Redynis
-decision runs through the ``ownership_sweep`` kernel, then the shared
-stages: live/expiry mask, plan, and the post-sweep count decay
+decision is ``core/placement.py::sweep`` (the ``ownership_sweep`` kernel,
+the live/expiry mask and the plan), then the post-sweep count decay
 ``floor(f32(count) * decay)``. Finite capacity budgets and the other
 policies come with a later slice.
 """
@@ -18,8 +18,7 @@ import torch
 
 from repro_torch.core.metadata import MetadataStore
 from repro_torch.core.ownership import validate_coefficient
-from repro_torch.core.placement import PlacementPlan, SweepStats
-from repro_torch.kernels.ownership_sweep.ops import ownership_sweep
+from repro_torch.core.placement import PlacementPlan, SweepStats, _decay_counts, sweep
 
 __all__ = [
     "DYNAMIC",
@@ -132,24 +131,10 @@ def split_policy(policy) -> tuple:
 def policy_sweep(
     policy, store: MetadataStore, now: int, ctx: PolicyContext
 ) -> tuple[PlacementPlan, MetadataStore]:
-    """One Redynis decision pass: the ``ownership_sweep`` kernel (fractions,
-    eligibility with the starvation guard, silence keeps placement, expiry
-    and live mask), then the store update and the count decay."""
-    counts, hosts, live = store.access_counts, store.hosts, store.live
-    owners, add, drop, expired, f = ownership_sweep(
-        counts, hosts, live, store.last_access, now,
-        h=ctx.params["h"], expiry=policy.expiry,
-    )
-    plan = PlacementPlan(owners=owners, to_add=add, to_drop=drop, expired=expired, f=f)
-    new_counts = torch.where(expired[:, None], torch.zeros_like(counts), counts)
-    # torch.full fills on the device; torch.tensor would copy from the host
-    # and synchronise the stream once per sweep.
-    decay = torch.full((), ctx.params["decay"], dtype=torch.float32, device=counts.device)
-    # floor(count * decay) is exact at decay == 1.0 for counts below 2**24.
-    new_counts = torch.floor(new_counts.to(torch.float32) * decay).to(torch.int32)
-    return plan, store._replace(
-        hosts=owners, live=live & ~expired, access_counts=new_counts
-    )
+    """One Redynis decision pass: ``placement.sweep`` (the ``ownership_sweep``
+    kernel, then the plan and the store update), then the count decay."""
+    plan, store = sweep(store, ctx.params["h"], now, policy.expiry)
+    return plan, _decay_counts(store, ctx.params["decay"], always=True)
 
 
 def policy_masked_step(

@@ -4,14 +4,15 @@
 The models take a ``dist`` argument as the reference's do. This port runs on
 one device, so ``dist=None`` is the only value it takes: ``constrain`` is a
 no-op and ``embed_lookup`` a plain row gather. A mesh belongs to the
-sharding slice and raises ``NotImplementedError``.
+sharding slice and raises ``NotImplementedError``. ``unembed_logits`` is
+the single-device LM head.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["check_local", "constrain", "embed_lookup"]
+__all__ = ["check_local", "constrain", "embed_lookup", "unembed_logits"]
 
 
 def check_local(dist) -> None:
@@ -30,3 +31,15 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, dist) -> torch.Tenso
     """tokens ``[B, S]`` int -> rows ``[B, S, D]`` of ``table [V, D]``."""
     check_local(dist)
     return table[tokens.long()]
+
+
+def unembed_logits(x: torch.Tensor, table: torch.Tensor, dist, vocab_size: int = 0) -> torch.Tensor:
+    """``x [..., D] @ table.T`` -> f32 logits ``[..., V]``: bf16 products
+    are exact in f32, so the product runs in f32 (the reference's
+    ``preferred_element_type``). Rows at or past ``vocab_size`` (table
+    padding) are set to -1e30 so samplers never pick them."""
+    check_local(dist)
+    logits = torch.matmul(x.float(), table.float().t())
+    if vocab_size and vocab_size < table.shape[0]:
+        logits[..., vocab_size:] = -1e30
+    return logits

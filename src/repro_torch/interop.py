@@ -17,6 +17,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kvsim.cluster import ClusterConfig, ServiceConfig
 from repro_torch.kvsim.telemetry import TelemetryConfig
 from repro_torch.kvsim.workload import Trace
+from repro_torch.models.transformer import KVCache
 
 __all__ = [
     "trace_from_numpy",
@@ -26,6 +27,7 @@ __all__ = [
     "params_from_numpy",
     "expert_state_from_numpy",
     "hot_embedding_state_from_numpy",
+    "kv_cache_from_numpy",
 ]
 
 
@@ -122,3 +124,11 @@ def hot_embedding_state_from_numpy(counts, hot_ids, slot_map, sweeps, device=Non
         slot_map=_t(slot_map, torch.int32, device),
         sweeps=_t(sweeps, torch.int32, device),
     )
+
+
+def kv_cache_from_numpy(k, v, length, device=None) -> KVCache:
+    """A ``KVCache`` from a reference decode state's three arrays (k and v
+    ``[L, B, T, KH, Dh]``, bf16 bit for bit; length ``[B]`` int32)."""
+    device = resolve_device(device)
+    return KVCache(k=_leaf_from_numpy(k, device), v=_leaf_from_numpy(v, device),
+                   length=_t(length, torch.int32, device))

@@ -2,6 +2,7 @@
 ``chunk_replay`` (one chunk's request path), ``ownership_sweep``
 (Algorithm 3's analysis pass), ``latency_histogram`` (bucketize and
 grouped fold of per-request latencies), ``moe_router`` (softmax, top-k and
-per-group expert counts) and ``hot_gather`` (hot-row embedding cache
-lookup). ``csrc/log_bins.cuh`` holds the bin rule the two histogram folds
-share."""
+per-group expert counts), ``hot_gather`` (hot-row embedding cache
+lookup), ``flash_attention`` (prefill attention) and ``flash_decode``
+(one-token attention over a KV cache). ``csrc/log_bins.cuh`` holds the bin
+rule the two histogram folds share."""

@@ -34,6 +34,7 @@ KERNEL_SOURCES = {
     name: _KERNELS_DIR / name / "csrc" / f"{name}.cu"
     for name in (
         "chunk_replay", "ownership_sweep", "latency_histogram", "moe_router", "hot_gather",
+        "flash_attention", "flash_decode",
     )
 }
 INCLUDE_DIR = _KERNELS_DIR / "csrc"  # headers shared between kernels

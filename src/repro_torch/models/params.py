@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["ParamSpec", "dense_init", "embed_init", "init_params"]
+__all__ = ["ParamSpec", "dense_init", "embed_init", "zeros_init", "ones_init", "init_params"]
 
 Init = Callable[[torch.Generator, tuple, torch.dtype, torch.device], torch.Tensor]
 
@@ -49,6 +49,14 @@ def embed_init(scale: float = 1.0) -> Init:
         return (w * scale).to(dtype)
 
     return f
+
+
+def zeros_init(gen, shape, dtype, device):
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def ones_init(gen, shape, dtype, device):
+    return torch.ones(shape, dtype=dtype, device=device)
 
 
 def _leaves(specs, prefix=()):

@@ -1,0 +1,268 @@
+"""Decoder-only transformer blocks, dense or MoE FFN, GQA (counterpart of
+``src/repro/models/transformer.py``), in two run modes:
+
+  * prefill — full-sequence attention through the ``flash_attention``
+    kernel (where the reference calls ``blockwise_attention``); returns the
+    per-layer KV cache.
+  * decode  — one new token per sequence against the cache through the
+    ``flash_decode`` kernel (where the reference calls
+    ``decode_attention``).
+
+Parameters are declared once with a leading ``layers`` dim
+(``stacked_block_specs``) and the reference's ``lax.scan`` over layers is a
+Python loop. Unlike the reference's immutable arrays, the decode step
+writes each layer's new k/v row into the ``[L, B, T, KH, Dh]`` cache in
+place. The reference's ``.at[].set`` drops a write whose slot is past the
+cache (``slot == T`` once an idle lane's length outgrows it); here that row
+writes back the value already there, which is the same result without a
+host sync. ``cross_attn``, ``gelu_mlp`` and remat wait for their families;
+the training mode waits for the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.dist import constrain
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_decode.ops import flash_decode
+from repro_torch.models import moe as moe_lib
+from repro_torch.models.layers import apply_norm, norm_specs, rope, swiglu, swiglu_specs
+from repro_torch.models.params import ParamSpec, dense_init, ones_init
+
+__all__ = [
+    "KVCache",
+    "attn_specs",
+    "mlp_specs",
+    "stacked_block_specs",
+    "attn_full",
+    "attn_decode",
+    "mlp_apply",
+    "run_decoder",
+    "run_decode_step",
+]
+
+
+class KVCache(NamedTuple):
+    """Per-layer KV cache. ``k``/``v``: [L, B, T, KH, Dh]; length: [B]."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: torch.Tensor  # [B] int32 — valid entries per sequence
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[2]
+
+
+# ---------------------------------------------------------------------------
+# Parameter declarations
+
+
+def attn_specs(cfg, prefix: tuple) -> dict:
+    d, h, kh, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    ps = tuple(s for s, _ in prefix)
+    specs = {
+        "ln": norm_specs(d, cfg.norm, prefix),
+        "wq": ParamSpec(ps + (d, h, dh), dense_init(d)),
+        "wk": ParamSpec(ps + (d, kh, dh), dense_init(d)),
+        "wv": ParamSpec(ps + (d, kh, dh), dense_init(d)),
+        "wo": ParamSpec(ps + (h, dh, d), dense_init(h * dh)),
+    }
+    if cfg.qk_norm:
+        specs["q_norm"] = ParamSpec(ps + (dh,), ones_init, torch.float32)
+        specs["k_norm"] = ParamSpec(ps + (dh,), ones_init, torch.float32)
+    return specs
+
+
+def mlp_specs(cfg, prefix: tuple) -> dict:
+    specs = {"ln": norm_specs(cfg.d_model, cfg.norm, prefix)}
+    if cfg.num_experts:
+        specs.update(moe_lib.moe_specs(cfg, prefix))
+    elif cfg.act == "gelu":
+        raise NotImplementedError("act='gelu' (gelu_mlp) is not ported yet: encoder-decoder slice")
+    else:
+        specs.update(swiglu_specs(cfg.d_model, cfg.d_ff, prefix))
+    return specs
+
+
+def stacked_block_specs(cfg, layers: int | None = None) -> dict:
+    l = cfg.num_layers if layers is None else layers
+    prefix = ((l, "layers"),)
+    return {"attn": attn_specs(cfg, prefix), "mlp": mlp_specs(cfg, prefix)}
+
+
+def _layer(blocks: dict, i: int) -> dict:
+    """Layer ``i``'s params: a view of every stacked leaf."""
+    return {key: _layer(val, i) if isinstance(val, dict) else val[i] for key, val in blocks.items()}
+
+
+# ---------------------------------------------------------------------------
+# Attention block application
+
+
+def _rmsnorm_head(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """qwen3-style per-head q/k RMSNorm over head_dim."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def _project_qkv(p: dict, xn: torch.Tensor, cfg):
+    q = torch.einsum("bsd,dhk->bshk", xn, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", xn, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", xn, p["wv"])
+    if cfg.qk_norm:
+        q = _rmsnorm_head(p["q_norm"], q)
+        k = _rmsnorm_head(p["k_norm"], k)
+    return q, k, v
+
+
+def attn_full(
+    p: dict,
+    x: torch.Tensor,  # [B, S, D]
+    cfg,
+    dist,
+    positions: torch.Tensor,  # [S]
+    window: int = 0,
+):
+    """Full-sequence causal attention (prefill). Returns ``(y, (k, v))``."""
+    xn = apply_norm(p["ln"], x, cfg.norm)
+    q, k, v = _project_qkv(p, xn, cfg)
+    if cfg.pos == "rope":
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    q = constrain(q, dist)
+    o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True, window=window)
+    y = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return x + y, (k, v)
+
+
+def _decode_slot(length: torch.Tensor, t: int, window: int):
+    """The new token's position, its cache slot and the valid length after
+    the write (the reference's ``pos``, ``slot`` and ``valid``)."""
+    pos = length.to(torch.int32)
+    slot = pos % t if window else pos
+    valid = torch.clamp_max(length + 1, t) if window else length + 1
+    return pos, slot, valid.to(torch.int32)
+
+
+def _write_row(cache: torch.Tensor, slot: torch.Tensor, row: torch.Tensor) -> None:
+    """``cache[b, slot[b]] = row[b]`` in place for ``cache [B, T, KH, Dh]``;
+    a row whose slot is past the cache writes back what is there (the
+    reference drops it)."""
+    t = cache.shape[1]
+    bi = torch.arange(cache.shape[0], device=cache.device)
+    safe = torch.clamp_max(slot, t - 1).long()
+    keep = (slot >= t)[:, None, None]
+    cache[bi, safe] = torch.where(keep, cache[bi, safe], row.to(cache.dtype))
+
+
+def attn_decode(
+    p: dict,
+    x: torch.Tensor,  # [B, D] — one token per sequence
+    k_cache: torch.Tensor,  # [B, T, KH, Dh], written in place
+    v_cache: torch.Tensor,
+    length: torch.Tensor,  # [B] — cache entries BEFORE this token
+    cfg,
+    dist,
+    window: int = 0,
+):
+    """One decode step of one layer. Returns ``(y, (k_cache, v_cache))``."""
+    xn = apply_norm(p["ln"], x[:, None, :], cfg.norm)
+    q, k, v = _project_qkv(p, xn, cfg)
+    pos, slot, valid = _decode_slot(length, k_cache.shape[1], window)
+    if cfg.pos == "rope":
+        q = rope(q, pos[:, None], cfg.rope_theta)
+        k = rope(k, pos[:, None], cfg.rope_theta)
+    _write_row(k_cache, slot, k[:, 0])
+    _write_row(v_cache, slot, v[:, 0])
+    o = flash_decode(q[:, 0].contiguous(), k_cache, v_cache, valid)
+    y = torch.einsum("bhk,hkd->bd", o, p["wo"])
+    return x + y, (k_cache, v_cache)
+
+
+def mlp_apply(p: dict, x: torch.Tensor, cfg, dist, hot_ids: torch.Tensor | None = None):
+    """Pre-norm FFN (dense swiglu or MoE). Returns ``(y, moe_stats|None)``."""
+    xn = apply_norm(p["ln"], x, cfg.norm)
+    stats = None
+    if cfg.num_experts:
+        y, stats = moe_lib.moe_apply(p, xn, cfg, dist, hot_ids)
+    else:
+        y = swiglu(p, xn)
+    return x + y, stats
+
+
+# ---------------------------------------------------------------------------
+# Layer-stack execution
+
+
+def _reduce_layer_stats(stats: list | None) -> dict | None:
+    """Per-layer MoE stats stacked over layers: counts keep their layer
+    resolution ``[L, G, E]``, the scalars are averaged."""
+    if not stats:
+        return None
+    return {
+        "counts": torch.stack([st["counts"] for st in stats]),
+        **{key: torch.stack([st[key] for st in stats]).mean() for key in ("aux", "dropped", "hot_frac")},
+    }
+
+
+def run_decoder(
+    blocks: dict,
+    h: torch.Tensor,  # [B, S, D] embedded inputs
+    cfg,
+    dist=None,
+    *,
+    mode: str = "prefill",
+    window: int = 0,
+    hot_ids: torch.Tensor | None = None,  # [L, R] per-layer replica sets
+):
+    """Run the stacked blocks over ``h``. Returns ``(hidden, cache,
+    moe_stats|None)``; the cache ``[L, B, S, KH, Dh]`` is filled layer by
+    layer in place."""
+    if mode != "prefill":
+        raise NotImplementedError(f"run_decoder mode={mode!r} is not ported yet: training slice")
+    b, s, _ = h.shape
+    positions = torch.arange(s, device=h.device)
+    l, kh, dh = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    k_all = torch.empty((l, b, s, kh, dh), dtype=h.dtype, device=h.device)
+    v_all = torch.empty_like(k_all)
+    stats = []
+    for i in range(l):
+        layer = _layer(blocks, i)
+        h, (k, v) = attn_full(layer["attn"], h, cfg, dist, positions, window)
+        k_all[i], v_all[i] = k, v
+        h, st = mlp_apply(layer["mlp"], h, cfg, dist, None if hot_ids is None else hot_ids[i])
+        if st is not None:
+            stats.append(st)
+    length = torch.full((b,), s, dtype=torch.int32, device=h.device)
+    return h, KVCache(k=k_all, v=v_all, length=length), _reduce_layer_stats(stats)
+
+
+def run_decode_step(
+    blocks: dict,
+    x: torch.Tensor,  # [B, D] — embedded new token
+    cache: KVCache,
+    cfg,
+    dist=None,
+    *,
+    window: int = 0,
+    hot_ids: torch.Tensor | None = None,  # [L, R]
+):
+    """One token through all layers. Each layer writes one ``[B, KH, Dh]``
+    row into the cache in place and attends over its layer's slice.
+    Returns ``(x, cache, moe_stats|None)``; the cache's tensors are the
+    ones passed in, with ``length + 1``."""
+    stats = []
+    for i in range(cfg.num_layers):
+        layer = _layer(blocks, i)
+        x, _ = attn_decode(layer["attn"], x, cache.k[i], cache.v[i], cache.length, cfg, dist, window)
+        y, st = mlp_apply(layer["mlp"], x[:, None, :], cfg, dist,
+                          None if hot_ids is None else hot_ids[i])
+        x = y[:, 0]
+        if st is not None:
+            stats.append(st)
+    return x, cache._replace(length=cache.length + 1), _reduce_layer_stats(stats)

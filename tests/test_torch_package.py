@@ -7,6 +7,7 @@ hold each CUDA kernel against its plain version; they skip where there is
 no card and run on one with ``python -m pytest -m cuda tests/test_torch_package.py``.
 """
 
+import dataclasses
 import os
 import pathlib
 import subprocess
@@ -21,14 +22,18 @@ from repro_torch.core import create_store  # noqa: E402
 from repro_torch.core.expert_placement import ExpertPlacement  # noqa: E402
 from repro_torch.core.hot_embedding import HotEmbedding  # noqa: E402
 from repro_torch.core.traffic import create_stats  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.interop import (  # noqa: E402
     expert_state_from_numpy,
     hot_embedding_state_from_numpy,
+    kv_cache_from_numpy,
     params_from_numpy,
     store_from_numpy,
     trace_from_numpy,
 )
+from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.models.params import ParamSpec, dense_init, init_params  # noqa: E402
+from repro_torch.serving import SessionRouter  # noqa: E402
 from repro_torch.kvsim import (  # noqa: E402
     ClusterConfig,
     RedynisPolicy,
@@ -78,6 +83,20 @@ MODULES = [
     "repro_torch.core.traffic",
     "repro_torch.core.expert_placement",
     "repro_torch.core.hot_embedding",
+    "repro_torch.configs.qwen3_1_7b",
+    "repro_torch.kernels.flash_attention.ops",
+    "repro_torch.kernels.flash_attention.ref",
+    "repro_torch.kernels.flash_decode.ops",
+    "repro_torch.kernels.flash_decode.ref",
+    "repro_torch.models.attention",
+    "repro_torch.models.transformer",
+    "repro_torch.models.model",
+    "repro_torch.train.fault",
+    "repro_torch.serving",
+    "repro_torch.serving.kvcache",
+    "repro_torch.serving.router",
+    "repro_torch.serving.engine",
+    "repro_torch.launch.serve",
 ]
 
 
@@ -110,7 +129,7 @@ def test_each_module_imports_first(module):
 
 
 def test_sources_name_neither_jax_nor_reference():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_fault_check.py"]
     for path in files:
         text = path.read_text()
         assert "import jax" not in text and "from jax" not in text, path
@@ -156,10 +175,16 @@ def _trace_arrays(r=6, k=4):
         lambda device: hot_embedding_state_from_numpy(
             np.zeros((64, 4), np.float32), np.full(8, -1, np.int32), np.full(64, -1, np.int32), 0,
             device=device),
+        lambda device: kv_cache_from_numpy(
+            np.zeros((2, 1, 4, 2, 32), np.float32), np.zeros((2, 1, 4, 2, 32), np.float32),
+            np.zeros(1, np.int32), device=device),
+        lambda device: Model(reduced(get_config("qwen3-1.7b")), device).init_state(2, 8),
+        lambda device: SessionRouter(4, 8, device=device).store,
     ],
     ids=["generate_trace", "create_store", "rtt_matrix", "trace_from_numpy", "store_from_numpy",
          "expert_placement", "hot_embedding", "create_stats", "init_params", "params_from_numpy",
-         "expert_state_from_numpy", "hot_embedding_state_from_numpy"],
+         "expert_state_from_numpy", "hot_embedding_state_from_numpy", "kv_cache_from_numpy",
+         "model_init_state", "session_router"],
 )
 def test_tensor_builders_default_to_cuda(make):
     """Every public function that makes tensors puts them on the card
@@ -438,3 +463,123 @@ def test_ownership_sweep_kernel_takes_f32_traffic(cuda):
     for g, w in zip(got[:4], want[:4]):
         assert torch.equal(g, w)
     torch.testing.assert_close(got[4], want[4], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize(
+    "family,what",
+    [("ssm", "RWKV"), ("hybrid", "RecurrentGemma"), ("audio", "encoder-decoder"), ("vlm", "vision")],
+)
+def test_model_families_of_later_slices_raise(family, what):
+    cfg = dataclasses.replace(reduced(get_config("qwen3-1.7b")), family=family)
+    with pytest.raises(NotImplementedError, match=what):
+        Model(cfg, "cpu")
+
+
+def test_model_loss_and_quantized_params_raise():
+    model = Model(reduced(get_config("qwen3-1.7b")), "cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="training"):
+        model.loss(params, {})
+    params["embed"] = {"q": params["embed"].to(torch.int8), "s": torch.ones(1)}
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="quantized"):
+        model.prefill(params, {"tokens": tokens})
+
+
+def _attention_inputs(b, s, t, h, kh, dh, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dtype)
+            for shape in ((b, s, h, dh), (b, t, kh, dh), (b, t, kh, dh))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,s,t,h,kh,dh,causal,window",
+    [(2, 256, 256, 4, 2, 64, True, 0), (1, 128, 128, 8, 1, 128, True, 0),
+     (2, 256, 256, 4, 4, 32, True, 64), (1, 128, 384, 4, 2, 64, False, 0),
+     (1, 192, 192, 6, 2, 64, True, 0), (1, 1000, 1000, 16, 8, 128, True, 0),
+     (1, 300, 300, 4, 2, 256, True, 100)],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain_version(cuda, b, s, t, h, kh, dh, causal, window, dtype):
+    """tests/test_kernels.py's shapes, a ragged qwen3 prefill and D = 256
+    with a window; f32 to 2e-5, bf16 to 2e-2 (that file's bars)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    q, k, v = _attention_inputs(b, s, t, h, kh, dh, dtype, cuda, seed=s + t)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,kh,dh", [(2, 1024, 8, 2, 64), (4, 512, 4, 1, 128),
+                                         (2, 768, 16, 16, 32), (16, 8192, 16, 8, 128),
+                                         (3, 700, 12, 1, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_kernel_matches_plain_version(cuda, b, t, h, kh, dh, dtype):
+    """tests/test_kernels.py's shapes, the serving shape, G = 12 (two head
+    groups) at D = 256; lengths random with 1 and one past T, and 0 (every
+    position masked: the mean of v) where there are three sequences or more."""
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+
+    rng = np.random.default_rng(t)
+    q = torch.from_numpy(rng.standard_normal((b, h, dh)).astype(np.float32)).to(cuda, dtype)
+    _, k, v = _attention_inputs(b, 1, t, h, kh, dh, dtype, cuda, seed=t)
+    lengths = rng.integers(1, t, b).astype(np.int32)
+    lengths[0], lengths[-1] = 1, t + 5
+    if b > 2:
+        lengths[1] = 0
+    lengths = torch.from_numpy(lengths).to(cuda)
+    got = flash_decode(q, k, v, lengths)
+    want = flash_decode_ref(q, k, v, lengths)
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_serving_on_card_matches_cpu(cuda):
+    """The reduced qwen3 engine on the card against the same engine on the
+    CPU (plain versions), same params: every sampling call's logits to the
+    bf16 bar, teacher-forced with the CPU engine's tokens."""
+    from repro_torch.serving import Request, ServeEngine
+
+    cfg = reduced(get_config("qwen3-1.7b"))
+    cpu_params = Model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+
+    def to(tree, dev):
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+    cpu_eng = ServeEngine(Model(cfg, "cpu"), cpu_params, num_lanes=2, cache_len=48)
+    eng = ServeEngine(Model(cfg, cuda), to(cpu_params, cuda), num_lanes=2, cache_len=48)
+    want, got = [], []
+    cpu_sample = cpu_eng._sample
+
+    def record(logits):
+        want.append(logits)
+        return cpu_sample(logits)
+
+    def forced(logits):
+        got.append(logits.cpu())
+        return cpu_sample(want[len(got) - 1]).to(cuda)
+
+    cpu_eng._sample, eng._sample = record, forced
+    rng = np.random.default_rng(0)
+    steps = [("a", rng.integers(0, cfg.vocab_size, 37), 6), None,
+             ("b", rng.integers(0, cfg.vocab_size, 20), 4)]
+    for item in steps:
+        for e in (cpu_eng, eng):
+            if item is None:
+                e.step()
+            else:
+                e.admit(Request(item[0], item[1], max_new=item[2]))
+    while cpu_eng.step():
+        eng.step()
+    assert len(got) == len(want) == 8  # two admits and six steps
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=2e-2, rtol=2e-2)
