@@ -8,8 +8,9 @@ Each fault is planted by a text substitution in a copy of ``src/repro_torch``
 in a temporary directory (the checkout is left as it is); the copy builds
 its kernels there, and runs in a process of its own. The faults:
 
-* ``attention_tile``: in ``flash_attention``, q tiles from row 2,048 on skip
-  kv tile 0 (64 of 2,049 or more keys);
+* ``attention_tile``: in ``flash_attention``'s TMA/wgmma kernel (the one
+  these bf16, D 128 shapes run on), q tiles from row 2,048 on skip kv tile 0
+  (64 of 2,049 or more keys);
 * ``decode_chunk``: in ``flash_decode``'s combine pass, a sequence longer
   than 4,096 positions loses its last 256-position chunk (at most 6 % of
   its positions).
@@ -44,8 +45,8 @@ ROOT = Path(__file__).resolve().parent
 FAULTS = {
     "attention_tile": (
         "flash_attention",
-        "  lo = p.window > 0 ? max(0, q0 - p.window + 1) / bk : 0;\n",
-        "  lo = p.window > 0 ? max(0, q0 - p.window + 1) / bk : 0;\n  if (q0 >= 2048) lo = max(lo, 1);\n",
+        "  const int lo = p.window > 0 ? max(0, q0 - p.window + 1) / kTmaBK : 0;\n",
+        "  const int lo = max(p.window > 0 ? max(0, q0 - p.window + 1) / kTmaBK : 0, q0 >= 2048 ? 1 : 0);\n",
     ),
     "decode_chunk": (
         "flash_decode",

@@ -21,8 +21,12 @@ versions. Phase 7 serves qwen3-1.7b at full width and all 28 layers through
 cache behind a 4-pod ``SessionRouter`` whose leader fails half-way), first
 on the kernel path alone with its launches counted, then with every
 prefill's and every 8th decode step's attention held against the plain
-versions beside a teacher-forced plain-version engine. It times each kernel
-(phase 8 prints the record). Every phase raises on a mismatch and prints
+versions beside a teacher-forced plain-version engine. Phase 2 also holds
+``flash_attention``'s TMA/wgmma kernel through every mask at D 128 and 64,
+and phase 7 checks that every prefill layer went through it. It times each
+kernel (phase 8 prints the record): attention beside SDPA at every
+prefill length, the sweep on int32 and f32 counts. Every phase raises on a
+mismatch and prints
 its duration; the script exits non-zero without a CUDA device or outside a
 checkout. The last line of its output is the JSON device record.
 """
@@ -67,6 +71,12 @@ ATTN_CASES = [(2, 256, 256, 4, 2, 64, True, 0), (1, 128, 128, 8, 1, 128, True, 0
               (2, 256, 256, 4, 4, 32, True, 64), (1, 128, 384, 4, 2, 64, False, 0),
               (1, 192, 192, 6, 2, 64, True, 0)]
 DECODE_CASES = [(2, 1024, 8, 2, 64), (4, 512, 4, 1, 128), (2, 768, 16, 16, 32)]  # (b, t, h, kh, dh)
+# The TMA/wgmma kernel's masks at D 128 and 64: causal S 4096 and 3001, causal
+# ragged S 1000 and 130, a 256-key window at S 2048, non-causal S 128 over T
+# 384; GQA groups 2, 1, 8.
+TMA_CASES = [(b, s, t, h, kh, dh, causal, window) for dh in (128, 64) for b, s, t, h, kh, causal, window in (
+    (1, 4096, 4096, 16, 8, True, 0), (1, 3001, 3001, 16, 8, True, 0), (1, 1000, 1000, 8, 8, True, 0),
+    (2, 130, 130, 16, 2, True, 0), (1, 2048, 2048, 16, 8, True, 256), (2, 128, 384, 8, 1, False, 0))]
 
 
 def _smi() -> str:
@@ -692,6 +702,7 @@ def main() -> int:
     from repro_torch.kernels.chunk_replay.ops import chunk_replay
     from repro_torch.configs import get_config
     from repro_torch.kernels.chunk_replay.ref import chunk_replay_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.flash_decode.ops import flash_decode
@@ -908,6 +919,26 @@ def main() -> int:
             acases += 1
     print(f"phase 2 flash_attention ok: {acases} cases, max_abs_err f32 {err_attn[torch.float32]}, "
           f"bf16 {err_attn[torch.bfloat16]} (scaled bar used {use_attn:.4f})")
+    # The TMA/wgmma kernel through every mask at D 128 and 64, each case
+    # through both of its q tiles (the one the shape picks, then the other),
+    # held to the flat bar and to half of the scaled bar.
+    use_tma, tcases = 0.0, 0
+    for case in TMA_CASES:
+        b, s_, t, h, kh, dh, causal, window = case
+        q, k, v = (cuda_t(rng.standard_normal(sh).astype(np.float32)).to(torch.bfloat16)
+                   for sh in ((b, s_, h, dh), (b, t, kh, dh), (b, t, kh, dh)))
+        want = flash_attention_ref(q, k, v, causal=causal, window=window)
+        rows = fa_ops.q_rows(s_, h, b)
+        for got, tile in ((flash_attention(q, k, v, causal=causal, window=window), rows),
+                          (fa_ops._launch(q, k, v, causal, window, "tma_wgmma", 192 - rows), 192 - rows)):
+            torch.cuda.synchronize()
+            ctx = f"flash_attention tma {case} q rows {tile}"
+            err, use = _check_close(torch, got, want, torch.bfloat16, ctx)
+            assert use <= 0.5, f"{ctx}: {use:.3f} of the scaled bar"
+            err_attn[torch.bfloat16], use_tma = max(err_attn[torch.bfloat16], err), max(use_tma, use)
+            tcases += 1
+    print(f"phase 2 flash_attention tma_wgmma ok: {tcases} cases (D 128 and 64, both q tiles), "
+          f"max_abs_err {err_attn[torch.bfloat16]}, scaled bar used {use_tma:.4f} (bar 0.5)")
 
     # flash_decode: the reference kernel test's shapes in both dtypes, then
     # the serving shape (16 lanes, an 8,192-slot cache), lengths random
@@ -933,7 +964,8 @@ def main() -> int:
             dcases += 1
     print(f"phase 2 flash_decode ok: {dcases} cases, max_abs_err f32 {err_dec[torch.float32]}, "
           f"bf16 {err_dec[torch.bfloat16]} (scaled bar used {use_dec:.4f})")
-    record["phase2_scaled_bar_used"] = dict(flash_attention=use_attn, flash_decode=use_dec)
+    record["phase2_scaled_bar_used"] = dict(flash_attention=use_attn, flash_attention_tma=use_tma,
+                                            flash_decode=use_dec)
 
     lap("phase 2")
 
@@ -1064,19 +1096,33 @@ def main() -> int:
                              torch, reps=3, iters=2)
     print(f"phase 4 chunk_replay whole trace ({FULL_REQUESTS} requests): kernel {whole_ms:.4f} ms, "
           f"plain {whole_plain:.4f} ms, bound {whole_bytes / BW_BYTES_PER_S * 1e3:.4f} ms")
-    counts = torch.randint(0, 4, (FULL_KEYS, n), dtype=torch.int32, device=dev, generator=gen)
+    # The 1 M-key sweep on int32 access counts (the key-value engine's) and on
+    # f32 EMA traffic (the ML-state daemons'), every output exact.
     live = torch.ones(FULL_KEYS, dtype=torch.bool, device=dev)
     last = torch.zeros(FULL_KEYS, dtype=torch.int32, device=dev)
-    for g, w in zip(ownership_sweep(counts, hosts, live, last, 5, h=1 / n),
-                    sweep_ref(counts, hosts, live, last, 5, h=1 / n)):
-        assert torch.equal(g, w), "full-size ownership_sweep"
-    sweep_ms = _device_ms(lambda: ownership_sweep(counts, hosts, live, last, 5, h=1 / n), torch)
-    sweep_plain = _device_ms(lambda: sweep_ref(counts, hosts, live, last, 5, h=1 / n), torch, iters=20)
+    traffic = torch.randint(0, 50, (FULL_KEYS, n), device=dev, generator=gen).float() * 0.98**3
+    traffic[torch.rand(FULL_KEYS, device=dev, generator=gen) < 0.2] = 0
+    sweep_inputs = {"int32": torch.randint(0, 4, (FULL_KEYS, n), dtype=torch.int32, device=dev, generator=gen),
+                    "f32": traffic}
     sweep_bytes = FULL_KEYS * (n * 4 + n + 1 + 4) + FULL_KEYS * (3 * n + 1 + 4 * n)
+    sweep_runs = {}
+    for label, counts in sweep_inputs.items():
+        for name, g, w in zip(("owners", "add", "drop", "expired", "f"),
+                              ownership_sweep(counts, hosts, live, last, 5, h=1 / n),
+                              sweep_ref(counts, hosts, live, last, 5, h=1 / n)):
+            assert torch.equal(g, w), f"full-size ownership_sweep ({label} counts): {name}"
+        ms = _device_ms(lambda: ownership_sweep(counts, hosts, live, last, 5, h=1 / n), torch)
+        plain = _device_ms(lambda: sweep_ref(counts, hosts, live, last, 5, h=1 / n), torch, iters=20)
+        bound = sweep_bytes / BW_BYTES_PER_S * 1e3
+        sweep_runs[label] = dict(ms=ms, plain_ms=plain, bound_ms=bound, gbs=sweep_bytes / ms / 1e6,
+                                 share_of_bound=bound / ms)
+        print(f"phase 4 ownership_sweep ({FULL_KEYS} keys x {n} nodes, {label} counts): kernel {ms:.4f} ms "
+              f"({sweep_bytes / ms / 1e6:.1f} GB/s, {bound / ms:.3f} of the bytes bound {bound:.4f} ms), "
+              f"plain {plain:.4f} ms; all five outputs exact")
+    sweep_ms, sweep_plain = sweep_runs["int32"]["ms"], sweep_runs["int32"]["plain_ms"]
+    record["sweep"] = sweep_runs
     print(f"phase 4 chunk_replay one chunk ({FULL_INTERVAL} requests, {FULL_KEYS} keys): "
           f"kernel {chunk_ms:.4f} ms, plain {chunk_plain:.4f} ms")
-    print(f"phase 4 ownership_sweep ({FULL_KEYS} keys x {n} nodes): kernel {sweep_ms:.4f} ms, "
-          f"plain {sweep_plain:.4f} ms")
     record["whole_trace_replay"] = dict(ms=whole_ms, plain_ms=whole_plain,
                                         bound_ms=whole_bytes / BW_BYTES_PER_S * 1e3)
 
@@ -1313,9 +1359,11 @@ def main() -> int:
                    "flash_decode": flash_decode}
     for fn in all_kernels.values():
         fn.launches = 0
+    flash_attention.launches_by_variant = dict.fromkeys(fa_ops.VARIANTS, 0)
     torch.cuda.reset_peak_memory_stats()
     drive = _serve_drive(torch, dev, smodel, sparams, log=lambda m: print(f"phase 7 {m}"))
     serve_launches = {name: fn.launches for name, fn in all_kernels.items()}
+    attn_variants = dict(flash_attention.launches_by_variant)
     serve_peak = torch.cuda.max_memory_allocated()
     seng, srouter = drive["engine"], drive["router"]
     n_prefill, n_steps = len(drive["prefills"]), seng.steps
@@ -1324,6 +1372,8 @@ def main() -> int:
     assert serve_launches == {"chunk_replay": 0, "ownership_sweep": sweeps, "latency_histogram": 0,
                               "moe_router": 0, "hot_gather": 0, "flash_attention": layers * n_prefill,
                               "flash_decode": layers * n_steps}, serve_launches
+    # Every prefill layer went through the TMA/wgmma kernel (bf16, D 128).
+    assert attn_variants == {"tma_wgmma": layers * n_prefill, "mma_sync": 0, "f32_simt": 0}, attn_variants
     assert srouter.stats["elections"] == 1 and srouter.leader != SERVE_FAIL_POD, srouter.stats
     outs = [o for o in seng.outputs.values() if o]
     assert outs and all(0 <= t < scfg.vocab_size for o in outs for t in o)
@@ -1341,6 +1391,7 @@ def main() -> int:
         decode_tokens_per_s=decode_tokens / (step_ms.sum() / 1e3),
         peak_bytes=serve_peak, cache_bytes=seng.cache_bytes(), router=dict(srouter.stats),
         hit_rate=srouter.hit_rate(), leader=srouter.leader, sweeps=sweeps, launches=serve_launches,
+        attention_launches_by_variant=attn_variants,
     )
     print(f"phase 7 serve: {seng.tokens_out} tokens in {drive['wall_s']:.3f} s "
           f"({serve['tokens_per_s']:.1f} tok/s end to end); {n_prefill} prefills of "
@@ -1353,7 +1404,7 @@ def main() -> int:
           f"elections {srouter.stats['elections']}, leader {srouter.leader}, sweeps {sweeps}")
     print("phase 7 prefill ms by prompt length: " + ", ".join(
         f"{n}:{m:.2f}" for n, m in sorted(drive["prefills"])))
-    print(f"phase 7 launches {serve_launches}")
+    print(f"phase 7 launches {serve_launches}; flash_attention by variant {attn_variants}")
     # The decode lengths of the median step, for the kernel record.
     mid_lengths = drive["steps"][len(drive["steps"]) // 2][2]
 
@@ -1414,23 +1465,39 @@ def main() -> int:
     del lock, keng, krouter, peng
     torch.cuda.empty_cache()
 
-    # Kernel times at the serving shapes: a 4096-token prefill layer
-    # (q [1, 4096, 16, 128], k/v [1, 4096, 8, 128] bf16) and a decode
+    # Kernel times at the serving shapes: a prefill layer at every length of
+    # SERVE_PREFILL_LENS (q [1, S, 16, 128], k/v [1, S, 8, 128] bf16, causal),
+    # SDPA beside it, the mma.sync kernel (bf16 D 32/256) beside it at the longest, and a decode
     # layer over the 16 x 8,192 cache at the drive's median-step lengths.
     h_, kh_, dh_ = scfg.num_heads, scfg.num_kv_heads, scfg.resolved_head_dim
     gen = torch.Generator(device=dev).manual_seed(1)
-    q, k, v = (torch.randn(sh, generator=gen, device=dev).to(torch.bfloat16)
-               for sh in ((1, 4096, h_, dh_), (1, 4096, kh_, dh_), (1, 4096, kh_, dh_)))
-    fa_ms = _device_ms(lambda: flash_attention(q, k, v), torch, reps=5, iters=20)
-    fa_plain = _device_ms(lambda: flash_attention_ref(q, k, v), torch, reps=3, iters=3)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    fa_lib = _device_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), torch, reps=5, iters=20)
-    fa_flops, fa_bytes = _attention_flops_bytes(1, 4096, 4096, h_, kh_, dh_, True, 0)
-    fa_bound = max(fa_flops / BF16_OPS_PER_S, fa_bytes / BW_BYTES_PER_S) * 1e3
-    print(f"phase 7 flash_attention (S 4096, 16/8 heads of 128, causal): kernel {fa_ms:.4f} ms "
-          f"({fa_flops / fa_ms / 1e9:.1f} TFLOP/s), plain {fa_plain:.4f} ms, SDPA {fa_lib:.4f} ms, "
-          f"bound {fa_bound:.4f} ms")
+    attn_at = {}
+    for n in SERVE_PREFILL_LENS:
+        q, k, v = (torch.randn(sh, generator=gen, device=dev).to(torch.bfloat16)
+                   for sh in ((1, n, h_, dh_), (1, n, kh_, dh_), (1, n, kh_, dh_)))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        flops, nbytes = _attention_flops_bytes(1, n, n, h_, kh_, dh_, True, 0)
+        bound = max(flops / BF16_OPS_PER_S, nbytes / BW_BYTES_PER_S) * 1e3
+        ms = _device_ms(lambda: flash_attention(q, k, v), torch, reps=5, iters=20)
+        lib_ms = _device_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), torch,
+                            reps=5, iters=20)
+        rows = fa_ops.q_rows(n, h_, 1)  # and the q tile that the rule did not pick, for comparison
+        other_ms = _device_ms(lambda: fa_ops._launch(q, k, v, True, 0, "tma_wgmma", 192 - rows), torch,
+                              reps=5, iters=20)
+        attn_at[n] = dict(ms=ms, sdpa_ms=lib_ms, bound_ms=bound, tflops=flops / ms / 1e9,
+                          share_of_bound=bound / ms, q_rows=rows, other_q_rows_ms=other_ms)
+        print(f"phase 7 flash_attention S {n}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+              f"{bound / ms:.3f} of the bound {bound:.4f} ms, q tile {rows}; q tile {192 - rows}: "
+              f"{other_ms:.4f} ms), SDPA {lib_ms:.4f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s)")
+    fa_ms, fa_lib, fa_bound = (attn_at[longest][key] for key in ("ms", "sdpa_ms", "bound_ms"))
+    fa_flops, fa_bytes = _attention_flops_bytes(1, longest, longest, h_, kh_, dh_, True, 0)
+    fa_plain = _device_ms(lambda: flash_attention_ref(q, k, v), torch, reps=3, iters=3)
+    fa_mma = _device_ms(lambda: fa_ops._launch(q, k, v, True, 0, "mma_sync"), torch, reps=5, iters=20)
+    encode_us = fa_ops.encode_seconds(q, k, v) * 1e6
+    print(f"phase 7 flash_attention S {longest}: plain {fa_plain:.4f} ms; the mma.sync kernel "
+          f"{fa_mma:.4f} ms ({fa_flops / fa_mma / 1e9:.1f} TFLOP/s); tensor-map encoding adds "
+          f"{encode_us:.3f} us of host time a call")
     del q, k, v, qt, kt, vt
     dq = torch.randn((SERVE_LANES, h_, dh_), generator=gen, device=dev).to(torch.bfloat16)
     kc, vc = (torch.randn((SERVE_LANES, SERVE_CACHE, kh_, dh_), generator=gen, device=dev).to(torch.bfloat16)
@@ -1449,7 +1516,8 @@ def main() -> int:
           f"({fd_bytes / fd_ms / 1e6:.1f} GB/s), plain {fd_plain:.4f} ms, masked SDPA {fd_lib:.4f} ms, "
           f"bound {fd_bound:.4f} ms")
     record["serve_kernels"] = dict(decode_lengths=lens.tolist(), attention_tflops=fa_flops / fa_ms / 1e9,
-                                   decode_gbs=fd_bytes / fd_ms / 1e6)
+                                   attention_at=attn_at, attention_mma_sync_ms=fa_mma,
+                                   attention_encode_us=encode_us, decode_gbs=fd_bytes / fd_ms / 1e6)
     del dq, kc, vc, kct, vct, mask, sparams, smodel
     torch.cuda.empty_cache()
     err_fa = max(err_attn[torch.bfloat16], err_attn[torch.float32], st["attn_err"])
@@ -1501,6 +1569,7 @@ def main() -> int:
              source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:31",
              launches=serve_launches["flash_attention"], max_abs_err=err_fa,
+             variant={k: v for k, v in attn_variants.items() if v},
              ms=fa_ms, plain_ms=fa_plain, bound_ms=fa_bound,
              bound_by="operations" if fa_flops / BF16_OPS_PER_S >= fa_bytes / BW_BYTES_PER_S else "bytes",
              library_ms=fa_lib),

@@ -5,14 +5,22 @@ Each ``kernels/<name>/csrc/<name>.cu`` exposes a plain C interface and is
 compiled on its own into ``build/repro_torch_kernels/<name>-<hash>.so`` at
 the repository root (``build/`` is git-ignored); the hash covers the
 source, the shared headers it can include (``kernels/csrc/*.cuh``, on the
-include path) and the flags, so an edited source or header rebuilds.
-Nothing is compiled or loaded when a module is imported: ``load`` runs
-inside the wrappers, on the first launch. ``build_all`` starts one ``nvcc`` per source at once, so
-a fresh checkout builds in the time of its slowest file.
+include path) and the kernel's own flags, so an edited source, header or
+flag rebuilds. Nothing is compiled or loaded when a module is imported:
+``load`` runs inside the wrappers, on the first launch. ``build_all``
+starts one ``nvcc`` per source at once, so a fresh checkout builds in the
+time of its slowest file.
 
-Flags: ``-fmad=false`` and no ``--use_fast_math`` (IEEE division stays the
-default) — the latency and fraction expressions must give the plain
-versions' f32 bits.
+Flags, per kernel (``flags``): all but ``flash_attention`` are built with
+``-fmad=false`` and no ``--use_fast_math`` (IEEE division stays the
+default). The simulator and ML-state kernels must give their plain
+versions' f32 bits in the latency, fraction and gate expressions, where a
+fused multiply-add would round once where the plain version rounds twice;
+``flash_decode`` keeps the flags it was measured with. ``flash_attention``
+is held to a tolerance, not to bits, and its online softmax is
+multiply-adds (``s * scale * log2(e) - m``, ``l * alpha + sum``, the
+``acc * alpha`` rescale beside PV), so it keeps nvcc's default
+contraction, which halves those instructions.
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["KERNEL_SOURCES", "BUILD_DIR", "build_all", "load", "check", "check_input"]
+__all__ = ["KERNEL_SOURCES", "BUILD_DIR", "flags", "build_all", "load", "check", "check_input"]
 
 _KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "repro_torch_kernels"
@@ -40,8 +48,11 @@ KERNEL_SOURCES = {
 INCLUDE_DIR = _KERNELS_DIR / "csrc"  # headers shared between kernels
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+BIT_EXACT = ("-fmad=false",)  # the plain versions' f32 rounding, operation by operation
+KERNEL_FLAGS = {name: BIT_EXACT for name in KERNEL_SOURCES}
+KERNEL_FLAGS["flash_attention"] = ()
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -56,11 +67,16 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def flags(name: str) -> tuple[str, ...]:
+    """The ``nvcc`` flags that build kernel ``name``."""
+    return NVCC_FLAGS + KERNEL_FLAGS[name]
+
+
 def _target(name: str) -> Path:
     h = hashlib.sha256(KERNEL_SOURCES[name].read_bytes())
     for header in sorted(INCLUDE_DIR.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags(name)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -73,7 +89,7 @@ def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
     log = target.with_suffix(".log")
     proc = subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", str(tmp),
+        [_nvcc(), *flags(name), "-I", str(INCLUDE_DIR), "-o", str(tmp),
          str(KERNEL_SOURCES[name])],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )

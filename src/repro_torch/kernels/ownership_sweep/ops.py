@@ -19,7 +19,7 @@ from repro_torch.kernels.ownership_sweep.ref import sweep_ref
 
 __all__ = ["ownership_sweep"]
 
-MAX_GRID = 132 * 16  # blocks per launch: 16 per SM of an H100, grid-stride beyond
+MAX_GRID = 132 * 8  # blocks per launch: 8 per SM of an H100, tiles grid-stride beyond
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P, _I] + [_P] * 3 + [_I] * 3 + [_F, _I] + [_P] * 5 + [_I, _P]
@@ -62,7 +62,10 @@ def ownership_sweep(
     lib = _build.load("ownership_sweep")
     fn = lib.ownership_sweep_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    grid = min(-(-k // lib.ownership_sweep_threads()), MAX_GRID)
+    tile_keys = lib.ownership_sweep_tile_keys
+    tile_keys.argtypes, tile_keys.restype = [_I], _I
+    tile = tile_keys(n)  # keys per block tile
+    grid = min(-(-k // tile), MAX_GRID)
     code = fn(
         counts.data_ptr(), int(counts.dtype == torch.float32), hosts.data_ptr(), live.data_ptr(),
         last_access.data_ptr(), k, n, int(now), float(h), int(max(expiry, 0)),

@@ -465,6 +465,36 @@ def test_ownership_sweep_kernel_takes_f32_traffic(cuda):
     torch.testing.assert_close(got[4], want[4], rtol=1e-6, atol=0)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts_dtype", ["int32", "f32"])
+@pytest.mark.parametrize("k,n,offset",
+                         [(1_000, 3, 0), (3_333, 7, 0), (1_023, 5, 1), (17, 3, 0), (5_000, 4, 3)])
+def test_ownership_sweep_tiles_match_plain_version(cuda, k, n, offset, counts_dtype):
+    """Keys not a multiple of the block tile; N of 3 and 7, whose byte
+    planes are not whole 16-byte vectors; arrays starting off a 16-byte
+    boundary (a sliced view); f at or next to H = 1 / N on f32 traffic
+    (rows of equal counts). Every output exact."""
+    from repro_torch.kernels.ownership_sweep.ops import ownership_sweep
+    from repro_torch.kernels.ownership_sweep.ref import sweep_ref
+
+    rng = np.random.default_rng(k + n)
+    rows = k + offset
+    if counts_dtype == "f32":
+        counts = (rng.integers(0, 50, (rows, n)) * 0.98 ** 3).astype(np.float32)
+        counts[rng.random(rows) < 0.2] = np.float32(0.98 ** 5)  # equal counts: f at or next to H
+    else:
+        counts = rng.integers(0, 4, (rows, n)).astype(np.int32)
+    counts[rng.random(rows) < 0.2] = 0
+    arrays = (counts, rng.random((rows, n)) < 0.4, rng.random(rows) < 0.9,
+              rng.integers(0, 10, rows).astype(np.int32))
+    args = [torch.from_numpy(a).to(cuda)[offset:] for a in arrays]
+    got = ownership_sweep(*args, 9, h=1 / n, expiry=3)
+    want = sweep_ref(*args, 9, h=1 / n, expiry=3)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("owners", "add", "drop", "expired", "f"), got, want):
+        assert torch.equal(g, w), name
+
+
 @pytest.mark.parametrize(
     "family,what",
     [("ssm", "RWKV"), ("hybrid", "RecurrentGemma"), ("audio", "encoder-decoder"), ("vlm", "vision")],
@@ -513,6 +543,40 @@ def test_flash_attention_kernel_matches_plain_version(cuda, b, s, t, h, kh, dh, 
     torch.cuda.synchronize()
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _scaled_bar(want):
+    """chip_smoke.py's output-scaled bf16 bar: 2**-6 of each value plus its
+    row's rms over head_dim."""
+    w = want.float()
+    return 2**-6 * (w.abs() + w.pow(2).mean(dim=-1, keepdim=True).sqrt())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("q_rows", [64, 128])
+@pytest.mark.parametrize(
+    "b,s,t,h,kh,causal,window",
+    [(1, 1000, 1000, 8, 8, True, 0), (2, 130, 130, 16, 2, True, 0), (1, 700, 700, 8, 4, True, 200),
+     (2, 128, 384, 8, 1, False, 0), (1, 200, 77, 4, 2, False, 0), (1, 65, 65, 2, 1, True, 64)],
+)
+def test_flash_attention_tma_kernel_matches_plain_version(cuda, b, s, t, h, kh, dh, causal, window, q_rows):
+    """The TMA/wgmma kernel at D 64 and 128, through both of its q tiles:
+    ragged causal S, a window, non-causal T != S (longer and shorter than
+    S), GQA groups 1 to 8; bf16 to 2e-2 and to half of the output-scaled bar."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    q, k, v = _attention_inputs(b, s, t, h, kh, dh, torch.bfloat16, cuda, seed=s + t + dh)
+    before = fa_ops.flash_attention.launches_by_variant["tma_wgmma"]
+    got = fa_ops._launch(q, k, v, causal, window, "tma_wgmma", q_rows)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches_by_variant["tma_wgmma"] == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert float(((got.float() - want.float()).abs() / _scaled_bar(want)).max()) <= 0.5
+    assert torch.equal(fa_ops.flash_attention(q, k, v, causal=causal, window=window),
+                       fa_ops._launch(q, k, v, causal, window, "tma_wgmma", fa_ops.q_rows(s, h, b)))
 
 
 @pytest.mark.cuda
