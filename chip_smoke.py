@@ -77,6 +77,14 @@ DECODE_CASES = [(2, 1024, 8, 2, 64), (4, 512, 4, 1, 128), (2, 768, 16, 16, 32)] 
 TMA_CASES = [(b, s, t, h, kh, dh, causal, window) for dh in (128, 64) for b, s, t, h, kh, causal, window in (
     (1, 4096, 4096, 16, 8, True, 0), (1, 3001, 3001, 16, 8, True, 0), (1, 1000, 1000, 8, 8, True, 0),
     (2, 130, 130, 16, 2, True, 0), (1, 2048, 2048, 16, 8, True, 256), (2, 128, 384, 8, 1, False, 0))]
+# Rows with no allowed key (window > 0, T + window <= S: rows from T + window - 1
+# on are the mean of v), causal and not, in q tiles with and without kv tiles
+# to visit; (b, s, t, h, kh, causal, window), run through every variant.
+EMPTY_ROW_CASES = [(1, 256, 64, 4, 2, True, 16), (2, 192, 128, 4, 2, False, 24),
+                   (1, 1000, 100, 8, 2, True, 30)]
+EMPTY_ROW_VARIANTS = [("f32_simt", "float32", 64), ("mma_sync", "bfloat16", 32),
+                      ("mma_sync", "bfloat16", 256), ("tma_wgmma", "bfloat16", 64),
+                      ("tma_wgmma", "bfloat16", 128)]
 
 
 def _smi() -> str:
@@ -215,7 +223,7 @@ def _profile_window(torch, trace, wl, cl, policy, run_scenario, out_dir,
     # the device time of the kernels it launched.
     dev = [e for e in events if e.device_type == DeviceType.CUDA]
     device_chunk_ms = sum(e.self_device_time_total for e in dev) / 1e3 / chunks
-    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel") / chunks
+    launches = sum(e.count for e in events if e.key.startswith("cudaLaunchKernel")) / chunks
     top_dev = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:8]
     top_cpu = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
     busy = device_chunk_ms / unprofiled_chunk_ms
@@ -233,6 +241,32 @@ def _profile_window(torch, trace, wl, cl, policy, run_scenario, out_dir,
         top_device=[(e.key, e.self_device_time_total / 1e3 / chunks) for e in top_dev],
         top_host=[(e.key, e.self_cpu_time_total / 1e3 / chunks) for e in top_cpu],
     )
+
+
+def _kernels_per_call(torch, call, wrapper, calls: int = 20) -> dict:
+    """Host kernel launches (``cudaLaunchKernel*``, every kernel the calls
+    start), the wrapper's counted launches and the device events the
+    profiler caught, per call, over ``calls`` calls after a warm one, with
+    the device events' names. The host count is the check: the device
+    count can miss a kernel at the edge of the window, and a window can
+    receive a late record of an earlier profile."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    before = wrapper.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    counted = (wrapper.launches - before) / calls
+    wrapper.launches = before  # measurement launches are not the path's
+    events = prof.key_averages()
+    device = sum(e.count for e in events if e.device_type == DeviceType.CUDA)
+    host = sum(e.count for e in events if e.key.startswith("cudaLaunchKernel"))
+    return dict(device_kernels=device / calls, host_launches=host / calls, counted=counted,
+                device_events=sorted({e.key for e in events if e.device_type == DeviceType.CUDA}))
 
 
 def _router_near_ties(got, want, probs, ctx: str):
@@ -451,7 +485,7 @@ def _profile_steps(torch, step, steps: int, out_dir, label: str, unprofiled_ms: 
     gemm = sum(e.self_device_time_total for e in dev
                if any(w in e.key.lower() for w in ("gemm", "xmma", "cutlass", "wgmma", "nvjet"))
                ) / 1e3 / steps
-    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel") / steps
+    launches = sum(e.count for e in events if e.key.startswith("cudaLaunchKernel")) / steps
     top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:8]
     if total == 0:
         print(f"{label} profile: the profiler recorded no device time")
@@ -769,7 +803,7 @@ def main() -> int:
     cases = 0
     for topo, rtt in (("flat", ClusterConfig().rtt_matrix(dev)), ("wan5", wan5_cluster().rtt_matrix(dev))):
         n = rtt.shape[0]
-        b, k = 10_007, 100_003  # neither a multiple of the 256-thread block
+        b, k = 10_007, 100_003  # neither a multiple of four requests nor of a block's
         hosts = rng.random((k, n)) < 0.4
         hosts[rng.random(k) < 0.1] = False  # orphan rows: worst-RTT path
         args = [cuda_t(hosts), cuda_t(rng.integers(0, k, b).astype(np.int32)),
@@ -789,6 +823,9 @@ def main() -> int:
                     want = chunk_replay_ref(*args, **kw, lat_out=outs[1][0], hit_out=outs[1][1])
                     ctx = f"chunk_replay {topo} {mode} bins={bins} extra={with_extra}"
                     err_replay = max(err_replay, _check_replay(got, want, ctx))
+                    again = chunk_replay(*args, **kw)  # the same inputs: the same bits
+                    assert all(x is None and y is None or torch.equal(x, y)
+                               for x, y in zip(got, again)), ctx
                     if not with_extra:  # whole-ms latencies, sums < 2**24: exact
                         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), ctx
                     else:
@@ -874,9 +911,11 @@ def main() -> int:
     print(f"phase 2 hot_gather ok: {gcases} cases, rows and hit flags exact")
 
     # moe_router: the reference kernel test's shapes (E 64 / k 6, E 32 / k 8,
-    # E 8 / k 2; a short last group) and the deepseek-moe-16b shape.
+    # E 8 / k 2; a short last group), the deepseek-moe-16b shape, the 8-lane
+    # rows (E 128 and 256) and groups shorter than a block's rows.
     err_router, rcases, near_p2 = 0.0, 0, 0
-    for t, e, k, grp in ((512, 64, 6, 128), (300, 32, 8, 128), (1_024, 8, 2, 256), (32_768, 64, 6, 512)):
+    for t, e, k, grp in ((512, 64, 6, 128), (300, 32, 8, 128), (1_024, 8, 2, 256), (32_768, 64, 6, 512),
+                         (1_000, 128, 8, 300), (4_099, 256, 6, 512), (777, 64, 6, 7)):
         logits = cuda_t(rng.standard_normal((t, e)).astype(np.float32))
         near, err = _router_near_ties(moe_router(logits, k=k, group=grp), router_ref(logits, k, grp),
                                       _plain_probs(logits), f"moe_router {t}x{e} k={k}")
@@ -939,6 +978,30 @@ def main() -> int:
             tcases += 1
     print(f"phase 2 flash_attention tma_wgmma ok: {tcases} cases (D 128 and 64, both q tiles), "
           f"max_abs_err {err_attn[torch.bfloat16]}, scaled bar used {use_tma:.4f} (bar 0.5)")
+    # Rows that see no key, through every variant (the TMA one through both q
+    # tiles): the plain version's bars, and the rows equal to the mean of v.
+    ecases = 0
+    for b, s_, t, h, kh, causal, window in EMPTY_ROW_CASES:
+        for kind, dname, dh in EMPTY_ROW_VARIANTS:
+            dtype = getattr(torch, dname)
+            assert fa_ops.variant(dtype, dh) == kind and fa_ops.has_empty_rows(s_, t, window)
+            q, k, v = (cuda_t(rng.standard_normal(sh).astype(np.float32)).to(dtype)
+                       for sh in ((b, s_, h, dh), (b, t, kh, dh), (b, t, kh, dh)))
+            want = flash_attention_ref(q, k, v, causal=causal, window=window)
+            first = t + window - 1
+            mean_v = v.float().mean(dim=1).repeat_interleave(h // kh, dim=1)[:, None]
+            for rows in ((64, 128) if kind == "tma_wgmma" else (None,)):
+                got = fa_ops._launch(q, k, v, causal, window, kind, rows)
+                torch.cuda.synchronize()
+                ctx = f"flash_attention empty rows {kind} {(b, s_, t, h, kh, dh, causal, window)} q rows {rows}"
+                err, use = _check_close(torch, got, want, dtype, ctx)
+                _check_close(torch, got[:, first:], mean_v.expand(b, s_ - first, h, dh), dtype, ctx + " mean")
+                assert kind != "tma_wgmma" or use <= 0.5, f"{ctx}: {use:.3f} of the scaled bar"
+                err_attn[dtype] = max(err_attn[dtype], err)
+                ecases += 1
+    print(f"phase 2 flash_attention rows without keys ok: {ecases} cases (all three variants), "
+          f"each such row the mean of v; max_abs_err f32 {err_attn[torch.float32]}, "
+          f"bf16 {err_attn[torch.bfloat16]}")
 
     # flash_decode: the reference kernel test's shapes in both dtypes, then
     # the serving shape (16 lanes, an 8,192-slot cache), lengths random
@@ -1094,8 +1157,10 @@ def main() -> int:
                           torch, reps=3, iters=5)
     whole_plain = _device_ms(lambda: chunk_replay_ref(hosts, trace.keys, trace.nodes, trace.is_read, allv, rtt, **skw),
                              torch, reps=3, iters=2)
+    whole_bound = whole_bytes / BW_BYTES_PER_S * 1e3
     print(f"phase 4 chunk_replay whole trace ({FULL_REQUESTS} requests): kernel {whole_ms:.4f} ms, "
-          f"plain {whole_plain:.4f} ms, bound {whole_bytes / BW_BYTES_PER_S * 1e3:.4f} ms")
+          f"plain {whole_plain:.4f} ms, bound {whole_bound:.4f} ms, "
+          f"{whole_bound / whole_ms:.4f} of the bytes bound")
     # The 1 M-key sweep on int32 access counts (the key-value engine's) and on
     # f32 EMA traffic (the ML-state daemons'), every output exact.
     live = torch.ones(FULL_KEYS, dtype=torch.bool, device=dev)
@@ -1121,10 +1186,27 @@ def main() -> int:
               f"plain {plain:.4f} ms; all five outputs exact")
     sweep_ms, sweep_plain = sweep_runs["int32"]["ms"], sweep_runs["int32"]["plain_ms"]
     record["sweep"] = sweep_runs
+    # Device kernels and host launches a chunk_replay call makes, by the
+    # profiler over calls at the chunk shape (histogram on, as on the
+    # telemetry path, and off); and the launch counter over the same calls.
+    replay_calls = {}
+    for bins in (0, tcfg.num_bins):
+        replay_calls[bins] = _kernels_per_call(
+            torch, lambda: chunk_replay(hosts, ck, cn, cr, cv, rtt, num_bins=bins, **rkw), chunk_replay)
+    chunk_bound = replay_bytes / BW_BYTES_PER_S * 1e3
     print(f"phase 4 chunk_replay one chunk ({FULL_INTERVAL} requests, {FULL_KEYS} keys): "
-          f"kernel {chunk_ms:.4f} ms, plain {chunk_plain:.4f} ms")
-    record["whole_trace_replay"] = dict(ms=whole_ms, plain_ms=whole_plain,
-                                        bound_ms=whole_bytes / BW_BYTES_PER_S * 1e3)
+          f"kernel {chunk_ms:.4f} ms, plain {chunk_plain:.4f} ms, bound {chunk_bound:.7f} ms, "
+          f"{chunk_bound / chunk_ms:.4f} of the bytes bound; per call (histogram off / on): "
+          + " / ".join(f"{c['host_launches']:.1f} kernel launches ({c['counted']:.1f} counted), "
+                       f"{c['device_kernels']:.2f} device events caught, {c['device_events']}"
+                       for c in replay_calls.values()))
+    for c in replay_calls.values():  # one kernel launch a call, and no other
+        assert c["host_launches"] == c["counted"] == 1, replay_calls
+    record["whole_trace_replay"] = dict(ms=whole_ms, plain_ms=whole_plain, bound_ms=whole_bound,
+                                        share_of_bound=whole_bound / whole_ms)
+    record["chunk_replay_chunk"] = dict(ms=chunk_ms, plain_ms=chunk_plain, bound_ms=chunk_bound,
+                                        share_of_bound=chunk_bound / chunk_ms,
+                                        per_call={str(k): v for k, v in replay_calls.items()})
 
     lap("phase 4")
 
@@ -1316,14 +1398,20 @@ def main() -> int:
     gather_bytes = (t_n * 4 + int(torch.unique(tokens).numel()) * 4
                     + int(torch.unique(gslots[ghit]).numel()) * d_n * 2 + t_n * d_n * 2 + t_n)
     gather_bound = gather_bytes / BW_BYTES_PER_S * 1e3
+    router_calls = _kernels_per_call(torch, lambda: moe_router(logits, k=k_n, group=grp), moe_router)
+    assert router_calls["host_launches"] == router_calls["counted"] == 1, router_calls
     print(f"phase 6 moe_router ({t_n} x {e_n}, k {k_n}, groups of {grp}): kernel {router_ms:.4f} ms, "
           f"plain {router_plain:.4f} ms, bound {router_bound:.4f} ms, "
-          f"softmax+topk floor {router_floor:.4f} ms")
+          f"{router_bound / router_ms:.4f} of the bound, softmax+topk floor {router_floor:.4f} ms; "
+          f"{router_calls['host_launches']:.1f} kernel launches a call, device events "
+          f"{router_calls['device_events']}")
     print(f"phase 6 hot_gather ({t_n} tokens, {hot_table.shape[0]} x {d_n} bf16 hot table, hit "
           f"{float(ghit.float().mean()):.4f}): kernel {gather_ms:.4f} ms, plain {gather_plain:.4f} ms, "
           f"bound {gather_bound:.4f} ms, F.embedding floor {gather_floor:.4f} ms")
     record["ml_kernels"] = dict(router_floor_ms=router_floor, gather_floor_ms=gather_floor,
-                                gather_hit_frac=float(ghit.float().mean()))
+                                gather_hit_frac=float(ghit.float().mean()),
+                                router_share_of_bound=router_bound / router_ms,
+                                router_per_call=router_calls)
     del ml, tokens, hstate, table, hot_table, xg, logits, gslots, ghit, safe
 
     lap("phase 6")
@@ -1536,7 +1624,8 @@ def main() -> int:
              launches=tele_launches["chunk_replay"], max_abs_err=err_replay,
              ms=chunk_ms, plain_ms=chunk_plain,
              bound_ms=replay_bytes / BW_BYTES_PER_S * 1e3, bound_by="bytes",
-             library_ms=None),
+             library_ms=None, whole_trace_ms=whole_ms, whole_trace_bound_ms=whole_bound,
+             kernels_per_call=replay_calls[tcfg.num_bins]["host_launches"]),
         dict(name="ownership_sweep", route="cuda",
              source="src/repro_torch/kernels/ownership_sweep/csrc/ownership_sweep.cu",
              replaces="src/repro/kernels/ownership_sweep/kernel.py:38",
@@ -1558,7 +1647,7 @@ def main() -> int:
              ms=router_ms, plain_ms=router_plain, bound_ms=router_bound,
              bound_by="bytes" if router_bytes / BW_BYTES_PER_S >= router_ops / F32_OPS_PER_S
              else "operations",
-             library_ms=None),
+             library_ms=None, kernels_per_call=router_calls["host_launches"]),
         dict(name="hot_gather", route="cuda",
              source="src/repro_torch/kernels/hot_gather/csrc/hot_gather.cu",
              replaces="src/repro/kernels/hot_gather/kernel.py:34",

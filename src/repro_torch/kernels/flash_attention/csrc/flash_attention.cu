@@ -14,7 +14,8 @@
 //
 // Three kernels, chosen by shape alone (the wrapper's rule, ops.py):
 //
-// * flash_attention_tma<D, kC> — bf16, D in {64, 128}: the serving path's.
+// * flash_attention_tma<D, kC, kEmpty> — bf16, D in {64, 128}: the serving
+//   path's (kEmpty: the shape has rows that see no key, below).
 //   Warp-specialised: one producer warp keeps TMA loads in flight (the q
 //   tile once, then 64-row K and V tiles, the reference's kv block, through
 //   a ring of kStages buffers with full and empty mbarriers; 128-byte
@@ -50,6 +51,13 @@
 // masked to -1e30; m_new = max(m, rowmax); alpha = exp(m - m_new);
 // p = exp(s - m_new); l = l * alpha + rowsum(p); p is rounded to v's dtype
 // before the PV product; acc = acc * alpha + pv; out = acc / max(l, 1e-30).
+// A row with no allowed key (window > 0 and row >= T + window - 1, causal
+// or not) has every score at -1e30, so the reference's softmax weighs all
+// T keys alike: such a row is the mean of v over T. The wrapper passes that
+// mean ([B, KH, D] f32, `vmean`) only when the shape has such rows, and the
+// epilogues write it there, whatever the kv loop left in the accumulator
+// (it skipped the row's tiles, or took p = 1 on every visited key, padding
+// past T included).
 // A skipped tile is one that the reference's mask empties: its p would be 0,
 // or exp(0) that a later alpha of 0 wipes, so skipping it changes nothing.
 // The TMA kernel keeps m in log2 units (m * log2(e)); exp2 of the same
@@ -75,9 +83,17 @@ struct Params {
   const void* k;  // [B, T, KH, D]
   const void* v;
   void* o;        // [B, S, H, D]
+  const float* vmean;  // [B, KH, D] mean of v over T, or null: no row is empty
   int S, T, H, KH, group, causal, window;
   float scale;
 };
+
+// The mean of v for query row qp when that row has no allowed key, else null.
+__device__ __forceinline__ const float* empty_row_mean(const float* vmean, int T, int window, int KH,
+                                                       int b, int kvh, int D, int qp) {
+  if (vmean == nullptr || qp < T + window - 1) return nullptr;
+  return vmean + (static_cast<long long>(b) * KH + kvh) * D;
+}
 
 // kv tiles [lo, hi) that a q tile starting at q0 can attend to.
 __device__ __forceinline__ void kv_range(const Params& p, int q0, int bk, int& lo, int& hi) {
@@ -258,11 +274,14 @@ __global__ void __launch_bounds__(kThreads) flash_attention_bf16(Params p) {
     const int row = row0 + r * 8;
     if (row >= p.S) continue;
     const float l = fmaxf(l_run[r], 1e-30f);
+    const float* mean = empty_row_mean(p.vmean, p.T, p.window, p.KH, b, h / p.group, D, row);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
+      const int c = j * 8 + 2 * t4;
       const __nv_bfloat162 val =
-          __floats2bfloat162_rn(acc[j][2 * r] / l, acc[j][2 * r + 1] / l);
-      *reinterpret_cast<__nv_bfloat162*>(o + row * q_stride + j * 8 + 2 * t4) = val;
+          mean != nullptr ? __floats2bfloat162_rn(mean[c], mean[c + 1])
+                          : __floats2bfloat162_rn(acc[j][2 * r] / l, acc[j][2 * r + 1] / l);
+      *reinterpret_cast<__nv_bfloat162*>(o + row * q_stride + c) = val;
     }
   }
 }
@@ -349,7 +368,9 @@ __global__ void __launch_bounds__(kThreads32) flash_attention_f32(Params p) {
              static_cast<long long>(h) * D;
   for (int i = tid; i < kBQ * D; i += kThreads32) {
     const int r = i / D, c = i % D;
-    if (q0 + r < p.S) o[(q0 + r) * q_stride + c] = sO[i] / fmaxf(sL[r], 1e-30f);
+    if (q0 + r >= p.S) continue;
+    const float* mean = empty_row_mean(p.vmean, p.T, p.window, p.KH, b, h / p.group, D, q0 + r);
+    o[(q0 + r) * q_stride + c] = mean != nullptr ? mean[c] : sO[i] / fmaxf(sL[r], 1e-30f);
   }
 }
 
@@ -383,6 +404,7 @@ struct TmaParams {
   void* o;  // [B, S, H, D] bf16
   int S, T, H, KH, group, causal, window;
   float scale_log2;  // scale * log2(e)
+  const float* vmean;  // [B, KH, D] mean of v over T (the kEmpty instantiations only)
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -614,7 +636,7 @@ __device__ __forceinline__ void rescale(float (&o)[D / 2], const float (&alpha)[
   }
 }
 
-template <int D, int kC>
+template <int D, int kC, bool kEmpty>
 __global__ void __launch_bounds__(128 * (kC + 1), 1)
     flash_attention_tma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv, TmaParams p) {
@@ -763,7 +785,8 @@ __global__ void __launch_bounds__(128 * (kC + 1), 1)
   }
 
   // Epilogue: the quad's partial sums, then rows < S straight from registers
-  // (every thread reads its accumulators; only the stores are predicated).
+  // (every thread reads its accumulators; only the stores are predicated);
+  // a row with no allowed key takes the mean of v.
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.o) +
                        static_cast<long long>(b) * p.S * p.H * D + static_cast<long long>(h) * D;
 #pragma unroll
@@ -773,9 +796,15 @@ __global__ void __launch_bounds__(128 * (kC + 1), 1)
     const int row = row_a + 8 * r;
     const float den = fmaxf(l[r], 1e-30f);
     __nv_bfloat16* orow = out + static_cast<long long>(min(row, p.S - 1)) * p.H * D + 2 * t4;
+    const float* mean = nullptr;
+    if constexpr (kEmpty) mean = empty_row_mean(p.vmean, p.T, p.window, p.KH, b, kvh, D, row);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      const __nv_bfloat162 val = __floats2bfloat162_rn(o[4 * j + 2 * r] / den, o[4 * j + 2 * r + 1] / den);
+      __nv_bfloat162 val = __floats2bfloat162_rn(o[4 * j + 2 * r] / den, o[4 * j + 2 * r + 1] / den);
+      if constexpr (kEmpty) {
+        const int c = 8 * j + 2 * t4;
+        if (mean != nullptr) val = __floats2bfloat162_rn(mean[c], mean[c + 1]);
+      }
       if (row < p.S) *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = val;
     }
   }
@@ -839,18 +868,18 @@ int encode_maps(TmaMaps& m, const void* q, const void* k, const void* v, int B, 
   return err;
 }
 
-template <int D, int kC>
+template <int D, int kC, bool kEmpty>
 int launch_tma(const TmaMaps& m, const TmaParams& p, int B, cudaStream_t stream) {
   using L = TmaSmem<D, kC>;
   static bool attr_set = false;  // the shared-memory opt-in, once per instantiation
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_tma<D, kC>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kAlloc);
+        flash_attention_tma<D, kC, kEmpty>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kAlloc);
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
   const dim3 grid(p.H, (p.S + L::kQRows - 1) / L::kQRows, B);
-  flash_attention_tma<D, kC><<<grid, 128 * (kC + 1), L::kAlloc, stream>>>(m.q, m.k, m.v, p);
+  flash_attention_tma<D, kC, kEmpty><<<grid, 128 * (kC + 1), L::kAlloc, stream>>>(m.q, m.k, m.v, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -888,11 +917,13 @@ const char* flash_attention_error_string(int code) {
 // The mma.sync (bf16) and CUDA-core (f32) kernels. q [B, S, H, D], k/v
 // [B, T, KH, D], o [B, S, H, D], all contiguous and of one dtype (bf16 when
 // is_bf16, else f32); H % KH == 0; D in {32, 64, 128, 256}; rows 16-byte
-// aligned.
-int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-                           int T, int H, int KH, int D, int causal, int window, float scale,
-                           int is_bf16, void* stream) {
-  const Params p{q, k, v, o, S, T, H, KH, H / KH, causal, window, scale};
+// aligned. vmean: [B, KH, D] f32, the mean of v over T, given (non-null)
+// exactly when window > 0 and T + window - 1 < S (some row has no key).
+int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
+                           const void* vmean, int B, int S, int T, int H, int KH, int D, int causal,
+                           int window, float scale, int is_bf16, void* stream) {
+  const Params p{q, k, v, o, static_cast<const float*>(vmean), S, T, H, KH, H / KH, causal, window,
+                 scale};
   const auto s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32: return dispatch<32>(p, B, is_bf16, s);
@@ -906,18 +937,28 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
 // The TMA + wgmma kernel: bf16, D in {64, 128}, q_rows (q rows per block)
 // 64 or 128, the rest as above. Encodes the three tensor maps, then
 // launches.
-int flash_attention_tma_launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-                               int T, int H, int KH, int D, int causal, int window, float scale,
-                               int q_rows, void* stream) {
+int flash_attention_tma_launch(const void* q, const void* k, const void* v, void* o,
+                               const void* vmean, int B, int S, int T, int H, int KH, int D,
+                               int causal, int window, float scale, int q_rows, void* stream) {
   TmaMaps m;
   const int err = encode_maps(m, q, k, v, B, S, T, H, KH, D, q_rows);
   if (err != 0) return err;
-  const TmaParams p{o, S, T, H, KH, H / KH, causal, window, scale * 1.4426950408889634f};
+  const TmaParams p{o, S, T, H, KH, H / KH, causal, window, scale * 1.4426950408889634f,
+                    static_cast<const float*>(vmean)};
   const auto s = static_cast<cudaStream_t>(stream);
-  if (D == 128 && q_rows == 128) return launch_tma<128, 2>(m, p, B, s);
-  if (D == 128 && q_rows == 64) return launch_tma<128, 1>(m, p, B, s);
-  if (D == 64 && q_rows == 128) return launch_tma<64, 2>(m, p, B, s);
-  if (D == 64 && q_rows == 64) return launch_tma<64, 1>(m, p, B, s);
+  // Shapes with rows that see no key take the kEmpty instantiations, so the
+  // epilogue of the others is the one the serving path was tuned with.
+  if (vmean != nullptr) {
+    if (D == 128 && q_rows == 128) return launch_tma<128, 2, true>(m, p, B, s);
+    if (D == 128 && q_rows == 64) return launch_tma<128, 1, true>(m, p, B, s);
+    if (D == 64 && q_rows == 128) return launch_tma<64, 2, true>(m, p, B, s);
+    if (D == 64 && q_rows == 64) return launch_tma<64, 1, true>(m, p, B, s);
+  } else {
+    if (D == 128 && q_rows == 128) return launch_tma<128, 2, false>(m, p, B, s);
+    if (D == 128 && q_rows == 64) return launch_tma<128, 1, false>(m, p, B, s);
+    if (D == 64 && q_rows == 128) return launch_tma<64, 2, false>(m, p, B, s);
+    if (D == 64 && q_rows == 64) return launch_tma<64, 1, false>(m, p, B, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -35,7 +35,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-__all__ = ["flash_attention", "variant", "q_rows", "HEAD_DIMS", "TMA_HEAD_DIMS", "DTYPES", "VARIANTS"]
+__all__ = ["flash_attention", "variant", "q_rows", "has_empty_rows", "HEAD_DIMS", "TMA_HEAD_DIMS", "DTYPES", "VARIANTS"]
 
 HEAD_DIMS = (32, 64, 128, 256)
 TMA_HEAD_DIMS = (64, 128)
@@ -44,7 +44,7 @@ VARIANTS = ("tma_wgmma", "mma_sync", "f32_simt")
 NUM_SMS = 132  # H100 SXM
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P] * 4 + [_I] * 8 + [_F, _I, _P]  # both launch functions; the last int: is_bf16 | q_rows
+_ARGTYPES = [_P] * 5 + [_I] * 8 + [_F, _I, _P]  # both launch functions; the last int: is_bf16 | q_rows
 _ENCODE_ARGTYPES = [_P] * 3 + [_I] * 8
 
 
@@ -58,6 +58,14 @@ def variant(dtype: torch.dtype, head_dim: int) -> str:
 def q_rows(s: int, h: int, b: int) -> int:
     """q rows per block of the ``tma_wgmma`` kernel at q ``[b, s, h, D]``."""
     return 64 if -(-s // 128) * h * b < NUM_SMS else 128
+
+
+def has_empty_rows(s: int, t: int, window: int) -> bool:
+    """Whether some query row sees no key: with a window, rows
+    ``i >= t + window - 1`` do (causal or not) when ``s`` reaches them.
+    Those rows are the mean of v over ``t``, as the reference's uniform
+    softmax over all-masked scores gives."""
+    return window > 0 and t + window - 1 < s
 
 
 def _check(q, k, v) -> None:
@@ -89,8 +97,11 @@ def _launch(q, k, v, causal: bool, window: int, kind: str | None = None,
     t, kh = k.shape[1], k.shape[2]
     kind = kind or variant(q.dtype, d)
     o = torch.empty_like(q)
+    # [B, KH, D] f32, only for shapes with rows that see no key (never at T == S).
+    vmean = v.float().mean(dim=1) if has_empty_rows(s, t, window) else None
     lib = _build.load("flash_attention")
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, t, h, kh, d,
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if vmean is None else vmean.data_ptr(), b, s, t, h, kh, d,
             int(causal), int(window), float(d**-0.5))
     stream = torch.cuda.current_stream(dev).cuda_stream
     if kind == "tma_wgmma":
@@ -138,7 +149,7 @@ def flash_attention(
     """Attention of q over k/v, ``[B, S, H, D]`` in q's dtype (bf16 or f32).
     Query i sees key j where ``j <= i`` (causal) and ``i - j < window``
     (window > 0), as the reference's mask says; q head h reads kv head
-    ``h // (H // KH)``."""
+    ``h // (H // KH)``. A query that sees no key gets the mean of v."""
     dev = q.device
     if dev.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)

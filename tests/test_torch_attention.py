@@ -30,6 +30,7 @@ from repro.kernels.flash_decode.ops import flash_decode as jax_flash_decode  # n
 from repro.kernels.flash_decode.ref import decode_ref  # noqa: E402
 from repro.models import attention as jax_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_decode.ops import flash_decode  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 
@@ -109,6 +110,43 @@ def test_flash_attention_ragged_matches_blockwise(s, t, causal, window, dtype):
     want = jax_attention.blockwise_attention(jq, jk, jv, causal=causal, window=window, chunk=32)
     tol = DTYPES[dtype][3] + (2**-7 if dtype == "bf16" else 0.0)
     _close(got, want, tol)
+
+
+# Rows with no allowed key: window > 0 and T + window <= S leave rows
+# i >= T + window - 1 with every score masked; (b, s, t, h, kh, dh, causal, window).
+EMPTY_ROW_CASES = [
+    (1, 256, 64, 4, 2, 64, True, 16),  # 177 empty rows, q tiles with no kv tile
+    (2, 192, 128, 4, 2, 32, False, 24),  # empty rows from 151 on, mid-tile
+]
+
+
+@pytest.mark.parametrize("case", EMPTY_ROW_CASES, ids=lambda c: "b{}s{}t{}h{}kh{}d{}c{}w{}".format(*c))
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_attention_rows_without_keys_are_the_mean_of_v(case, dtype):
+    """A query that sees no key: the reference's softmax over all-masked
+    scores is uniform, so the row is the mean of v over its kv head's T
+    keys. The plain version gives it, as ``attention_ref`` and the Pallas
+    kernel (interpret mode) do."""
+    b, s, t, h, kh, dh, causal, window = case
+    rng = np.random.default_rng(s + t + window)
+    (jq, q), (jk, k), (jv, v) = (_both(_normal(rng, sh), dtype) for sh in
+                                 ((b, s, h, dh), (b, t, kh, dh), (b, t, kh, dh)))
+    tol = DTYPES[dtype][3]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    qf = jq.transpose(0, 2, 1, 3).reshape(b * h, s, dh)
+    kf = jk.transpose(0, 2, 1, 3).reshape(b * kh, t, dh)
+    vf = jv.transpose(0, 2, 1, 3).reshape(b * kh, t, dh)
+    ref = attention_ref(qf, kf, vf, group=h // kh, heads=h, kv_heads=kh, causal=causal,
+                        window=window).reshape(b, h, s, dh).transpose(0, 2, 1, 3)
+    _close(got, ref, tol)
+    pallas = jax_flash_attention(jq, jk, jv, causal=causal, window=window, bq=64, bk=64)
+    _close(got, pallas, tol)
+    first = t + window - 1
+    assert fa_ops.has_empty_rows(s, t, window) and first < s
+    mean_v = v.float().mean(dim=1).repeat_interleave(h // kh, dim=1)  # [b, h, dh]
+    _close(got[:, first:], mean_v[:, None].expand(b, s - first, h, dh).numpy(), tol)
+    # The row before the first empty one sees exactly one key: v of key t - 1.
+    _close(got[:, first - 1], v[:, t - 1].float().repeat_interleave(h // kh, dim=1).numpy(), tol)
 
 
 def test_flash_attention_window_skips_only_empty_tiles():

@@ -1,17 +1,25 @@
-"""The port's kernel build flags and the attention dispatch rule, on the CPU.
+"""The port's kernel build flags, the wrappers' launch rules and their C
+signatures, on the CPU.
 
-Both are plain Python (``kernels/_build.py``, ``kernels/flash_attention/ops.py``)
-and decide what runs on the card: which nvcc flags build each kernel (and so
-whether its f32 arithmetic rounds as its plain version does), and which of
-the three attention kernels a shape goes to.
+All are plain Python (``kernels/_build.py``, the ``ops.py`` wrappers) or
+source text, and decide what runs on the card: which nvcc flags build each
+kernel (and so whether its f32 arithmetic rounds as its plain version
+does), which of the three attention kernels a shape goes to, how the
+wrappers size their grids and when they move data as vectors, and whether
+the ``ctypes`` argument lists match the C launch functions they call.
 """
+
+import ctypes
+import re
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.chunk_replay import ops as cr_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.moe_router import ops as mr_ops  # noqa: E402
 
 BIT_EXACT = ("chunk_replay", "ownership_sweep", "latency_histogram", "moe_router", "hot_gather",
              "flash_decode")
@@ -72,3 +80,102 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     out = fa_ops.flash_attention(q, k, k)
     assert out.shape == q.shape and out.dtype == q.dtype
     assert (fa_ops.flash_attention.launches, fa_ops.flash_attention.launches_by_variant) == before
+
+
+@pytest.mark.parametrize("s,t,window,want", [
+    (256, 64, 16, True), (256, 64, 0, False), (192, 128, 24, True), (151, 128, 24, False),
+    (152, 128, 24, True), (4096, 4096, 0, False), (2048, 2048, 256, False), (300, 300, 100, False),
+])
+def test_attention_passes_the_mean_of_v_only_where_a_row_sees_no_key(s, t, window, want):
+    """Row i sees no key exactly when window > 0 and i >= t + window - 1;
+    the serving shapes (t == s) never have such a row."""
+    assert fa_ops.has_empty_rows(s, t, window) == want
+    for causal in (True, False):
+        sees = [any((j <= i or not causal) and (window == 0 or i - j < window) for j in range(t))
+                for i in range(s)]
+        assert (not all(sees)) == want
+
+
+@pytest.mark.parametrize("b,n,k,want", [
+    (1, 5, 1_000_000, ("cluster", 512, 1)), (2_048, 5, 1_000_000, ("cluster", 512, 1)),
+    (2_049, 5, 1_000_000, ("cluster", 512, 2)), (10_000, 5, 1_000_000, ("cluster", 512, 8)),
+    (10_007, 3, 100_003, ("cluster", 512, 8)), (16_384, 8, 10, ("cluster", 512, 8)),
+    (16_385, 5, 1_000_000, ("grid", 128, 33)), (10_000, 9, 10, ("grid", 128, 20)),
+    (10_000, 64, 1_000, ("grid", 128, 20)), (100_003, 5, 100_003, ("grid", 128, 196)),
+    (400_012, 5, 100_003, ("packed", 128, 782)), (540_672, 64, 1_000, ("grid", 128, 1_056)),
+    (100_000_000, 5, 1_000_000, ("packed", 128, 1_056)), (100_000, 3, 1_000, ("packed", 128, 196)),
+])
+def test_chunk_replay_launch_is_a_cluster_for_a_chunk_else_a_grid(b, n, k, want):
+    """A chunk of up to 16,384 requests on up to 8 nodes: one step a thread,
+    one cluster of a power-of-two count (at most 8) of 512-thread blocks
+    (the simulator's 10,000-request chunk: 8 blocks). Otherwise 128-thread
+    blocks, at most 8 an SM of the H100, looping beyond; with at least
+    PACK_RATIO requests a key (the whole trace: 100 per key) and up to 8
+    nodes, the map is packed first."""
+    mode, threads, blocks = cr_ops.launch_shape(b, n, k)
+    assert (mode, threads, blocks) == want and mode in cr_ops.MODES
+    steps = -(-b // (cr_ops.PER_THREAD * threads * blocks))
+    if mode == "cluster":
+        assert steps == 1 and blocks <= cr_ops.CLUSTER_MAX and blocks & (blocks - 1) == 0
+        assert blocks == 1 or (blocks // 2) * threads * cr_ops.PER_THREAD < b
+    else:
+        assert blocks <= cr_ops.MAX_GRID == cr_ops.NUM_SMS * 8
+        assert steps == 1 or blocks == cr_ops.MAX_GRID
+        assert (mode == "packed") == (n <= 8 and b >= cr_ops.PACK_RATIO * k)
+
+
+@pytest.mark.parametrize("ptr16,ptr4,want", [
+    ([0, 512], [1024, 2048], True), ([0, 512, 4096], [1024, 2048, 8], True),
+    ([4, 512], [1024, 2048], False), ([0, 520], [1024, 2048], False),
+    ([0, 512], [1025, 2048], False), ([0, 512], [1024, 2048, 6], False),
+])
+def test_chunk_replay_moves_vectors_only_at_aligned_addresses(ptr16, ptr4, want):
+    assert cr_ops.vector_io(ptr16, ptr4) == want
+
+
+@pytest.mark.parametrize("e,lanes,rows", [
+    (8, 4, 64), (32, 4, 64), (64, 4, 64), (65, 8, 32), (128, 8, 32), (256, 8, 32),
+])
+def test_moe_router_tile_is_a_row_per_subgroup(e, lanes, rows):
+    """4 lanes a row up to 64 experts (16 logits a lane), 8 up to 256 (32);
+    a 256-thread block then holds 64 or 32 rows: 32,768 rows are 512 blocks."""
+    assert mr_ops.lanes_per_row(e) == lanes
+    assert mr_ops.THREADS // lanes == rows
+    assert -(-e // (4 * lanes)) * 4 <= 32  # logits a lane: registers, not memory
+    assert -(-32_768 // (mr_ops.THREADS // mr_ops.lanes_per_row(64))) == 512
+
+
+@pytest.mark.parametrize("ptr,e,want", [(0, 64, True), (256, 32, True), (4, 64, False),
+                                        (0, 63, False), (16, 6, False)])
+def test_moe_router_loads_float4_only_on_aligned_rows(ptr, e, want):
+    assert mr_ops.vector_io(ptr, e) == want
+
+
+_CTYPE = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "long long": ctypes.c_longlong,
+          "float": ctypes.c_float}
+
+
+def _c_params(source: str, fn: str) -> list:
+    """The ctypes types of a C launch function's parameters, read from its
+    definition in ``source``."""
+    m = re.search(rf"\bint {fn}\(([^)]*)\)", source)
+    assert m, fn
+    names = []
+    for param in m.group(1).split(","):
+        words = param.replace("const ", "").split()
+        ctype = " ".join(words[:-1]) + ("*" if words[-1].startswith("*") else "")
+        names.append(_CTYPE[ctype.replace(" *", "*")])
+    return names
+
+
+@pytest.mark.parametrize("kernel,fn,argtypes", [
+    ("chunk_replay", "chunk_replay_launch", cr_ops._ARGTYPES),
+    ("moe_router", "moe_router_launch", mr_ops._ARGTYPES),
+    ("flash_attention", "flash_attention_launch", fa_ops._ARGTYPES),
+    ("flash_attention", "flash_attention_tma_launch", fa_ops._ARGTYPES),
+])
+def test_ctypes_argument_lists_match_the_c_launch_functions(kernel, fn, argtypes):
+    """A pointer passed where the C side reads an int (or the reverse)
+    shifts every later argument: the lists must agree type by type."""
+    source = _build.KERNEL_SOURCES[kernel].read_text()
+    assert _c_params(source, fn) == list(argtypes)

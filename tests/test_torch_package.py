@@ -447,6 +447,133 @@ def test_moe_router_kernel_matches_plain_version(cuda, t, e, k, group):
     assert float(counts.sum()) == t * k
 
 
+def _replay_inputs(b, k, n, device, seed):
+    """A random map (a tenth of the keys with no replica), requests, a
+    random RTT matrix of whole ms with a zero diagonal, and extra_ms."""
+    rng = np.random.default_rng(seed)
+    hosts = rng.random((k, n)) < 0.4
+    hosts[rng.random(k) < 0.1] = False
+    rtt = rng.integers(1, 300, (n, n)).astype(np.float32)
+    np.fill_diagonal(rtt, 0.0)
+    arrays = (hosts, rng.integers(0, k, b).astype(np.int32), rng.integers(0, n, b).astype(np.int32),
+              rng.random(b) < 0.8, rng.random(b) < 0.9, rtt, rng.uniform(0, 30, b).astype(np.float32))
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+def _replay_equal(got, want, exact_sums):
+    for i in (2, 3, 4):
+        assert int(got[i]) == int(want[i]), i
+    if exact_sums:  # whole-ms latencies, sums below 2**24: the f64 sums are exact
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+    assert (got[5] is None) == (want[5] is None)
+    if got[5] is not None:
+        assert torch.equal(got[5], want[5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 257, 10_000, 10_003, 100_003, 2_000_003])
+@pytest.mark.parametrize("n", [3, 5, 64])
+@pytest.mark.parametrize("bins,extra", [(0, False), (0, True), (128, False), (128, True)])
+def test_chunk_replay_one_launch_matches_plain_version(cuda, b, n, bins, extra):
+    """B of one request, a vector tail (10,003), one cluster launch (up to
+    16,384 requests on up to 8 nodes), a one-step grid launch (100,003, and
+    N 64 at every B) and a grid-stride launch (2,000,003): the combine
+    across blocks both ways; N 3 and 5 (the replica-set tables) and 64;
+    histogram and extra_ms on and off, the per-request outputs given with
+    extra_ms. Two calls on the same inputs give the same bits, each one
+    kernel launch."""
+    from repro_torch.kernels.chunk_replay.ops import chunk_replay
+    from repro_torch.kernels.chunk_replay.ref import chunk_replay_ref
+
+    hosts, keys, nodes, is_read, valid, rtt, extra_ms = _replay_inputs(b, 100_003, n, cuda, b + n)
+    kw = dict(service_ms=10.0, master=n // 2, xfer_read_ms=2.0, xfer_write_ms=3.0, read_mode="map",
+              num_bins=bins, extra_ms=extra_ms if extra else None)
+    outs = [(torch.empty(b, device=cuda), torch.empty(b, dtype=torch.bool, device=cuda))
+            for _ in range(3)] if extra else [(None, None)] * 3
+    args = (hosts, keys, nodes, is_read, valid, rtt)
+    before = chunk_replay.launches
+    got = chunk_replay(*args, **kw, lat_out=outs[0][0], hit_out=outs[0][1])
+    again = chunk_replay(*args, **kw, lat_out=outs[1][0], hit_out=outs[1][1])
+    want = chunk_replay_ref(*args, **kw, lat_out=outs[2][0], hit_out=outs[2][1])
+    torch.cuda.synchronize()
+    assert chunk_replay.launches == before + 2
+    _replay_equal(got, want, exact_sums=not extra)
+    for x, y in zip(got, again):
+        assert (x is None and y is None) or torch.equal(x, y)
+    if extra:
+        for lat, hit in outs[:2]:
+            assert torch.equal(lat, outs[2][0]) and torch.equal(hit, outs[2][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [10_003, 100_003])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("mode", ["map", "no_local", "ideal"])
+def test_chunk_replay_unaligned_views_match_plain_version(cuda, b, offset, mode):
+    """Views at odd offsets (requests and map): the kernel's scalar loads
+    and byte-wise map rows, in a cluster launch (10,003 requests) and a
+    grid launch (100,003)."""
+    from repro_torch.kernels.chunk_replay.ops import chunk_replay, vector_io
+    from repro_torch.kernels.chunk_replay.ref import chunk_replay_ref
+
+    k, n = 30_001, 5
+    hosts, keys, nodes, is_read, valid, rtt, extra_ms = _replay_inputs(b + offset, k + 1, n, cuda, offset)
+    flat = torch.cat([torch.zeros(offset, dtype=torch.bool, device=cuda), hosts[:k].reshape(-1)])
+    view_hosts = flat[offset:].view(k, n)
+    view = [x[offset:] for x in (keys, nodes, is_read, valid, extra_ms)]
+    view[0] = view[0].clamp_max(k - 1)
+    assert not vector_io([view[0].data_ptr()], [view[2].data_ptr()])
+    kw = dict(service_ms=10.0, master=1, xfer_read_ms=2.0, xfer_write_ms=3.0, read_mode=mode,
+              num_bins=128, extra_ms=view[4])
+    outs = [(torch.empty(b + 1, device=cuda)[1:], torch.empty(b + 1, dtype=torch.bool, device=cuda)[1:])
+            for _ in range(2)]
+    args = (view_hosts, *view[:4], rtt)
+    got = chunk_replay(*args, **kw, lat_out=outs[0][0], hit_out=outs[0][1])
+    want = chunk_replay_ref(*args, **kw, lat_out=outs[1][0], hit_out=outs[1][1])
+    torch.cuda.synchronize()
+    _replay_equal(got, want, exact_sums=False)
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+
+
+def _router_logits(t, e, rng, ties):
+    """Logits whose softmax has no two picks within an ulp: each row a
+    permutation of a 0.03-spaced ladder plus a row offset. With ``ties``,
+    whole numbers 0..3: many exact ties, which must break to the lower id."""
+    if ties:
+        return rng.integers(0, 4, (t, e)).astype(np.float32)
+    ladder = np.tile(np.arange(e, dtype=np.float32) * 0.03, (t, 1))
+    return rng.permuted(ladder, axis=1) + rng.standard_normal((t, 1)).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,group", [(1_000, 300), (4_099, 512), (777, 7)])
+@pytest.mark.parametrize("e", [32, 64, 128, 256])
+@pytest.mark.parametrize("k", [1, 6, 8])
+@pytest.mark.parametrize("ties", [False, True])
+def test_moe_router_row_tiles_match_plain_version(cuda, t, group, e, k, ties):
+    """T not a multiple of the row tile nor of the group, groups shorter
+    than a block (7), E 32 to 256, k 1 to 8: ids and counts exact (no near
+    ties in these logits; planted exact ties go to the lower id), gates to
+    1e-6 relative; one launch a call, and the count scratch left zero (a
+    second call gives the same counts)."""
+    from repro_torch.kernels.moe_router.ops import moe_router
+    from repro_torch.kernels.moe_router.ref import router_ref
+
+    logits = torch.from_numpy(_router_logits(t, e, np.random.default_rng(t + e + k), ties)).to(cuda)
+    before = moe_router.launches
+    gates, ids, counts = moe_router(logits, k=k, group=group)
+    again = moe_router(logits, k=k, group=group)
+    want = router_ref(logits, k, group)
+    torch.cuda.synchronize()
+    assert moe_router.launches == before + 2
+    assert torch.equal(ids, want[1]) and torch.equal(counts, want[2])
+    torch.testing.assert_close(gates, want[0], rtol=1e-6, atol=0)
+    assert all(torch.equal(x, y) for x, y in zip((gates, ids, counts), again))
+    assert counts.shape == (-(-t // group), e) and float(counts.sum()) == t * k
+
+
 @pytest.mark.cuda
 def test_ownership_sweep_kernel_takes_f32_traffic(cuda):
     from repro_torch.kernels.ownership_sweep.ops import ownership_sweep
@@ -577,6 +704,40 @@ def test_flash_attention_tma_kernel_matches_plain_version(cuda, b, s, t, h, kh, 
     assert float(((got.float() - want.float()).abs() / _scaled_bar(want)).max()) <= 0.5
     assert torch.equal(fa_ops.flash_attention(q, k, v, causal=causal, window=window),
                        fa_ops._launch(q, k, v, causal, window, "tma_wgmma", fa_ops.q_rows(s, h, b)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,dtype,dh", [
+    ("f32_simt", torch.float32, 64), ("mma_sync", torch.bfloat16, 32), ("mma_sync", torch.bfloat16, 256),
+    ("tma_wgmma", torch.bfloat16, 64), ("tma_wgmma", torch.bfloat16, 128),
+])
+@pytest.mark.parametrize("b,s,t,h,kh,causal,window", [
+    (1, 256, 64, 4, 2, True, 16), (2, 192, 128, 4, 2, False, 24), (1, 1000, 100, 8, 2, True, 30),
+])
+def test_flash_attention_rows_without_keys_are_the_mean_of_v(cuda, variant, dtype, dh, b, s, t, h, kh,
+                                                            causal, window):
+    """window > 0 and T + window <= S: rows i >= T + window - 1 see no key,
+    in q tiles with no kv tile to visit and inside tiles that visit some.
+    Every variant (the TMA one through both q tiles) gives them the mean of
+    v over T, as the plain version does; f32 to 2e-5, bf16 to 2e-2 and, for
+    the TMA kernel, to half of the output-scaled bar."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    assert fa_ops.variant(dtype, dh) == variant and fa_ops.has_empty_rows(s, t, window)
+    q, k, v = _attention_inputs(b, s, t, h, kh, dh, dtype, cuda, seed=s + t + dh)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    tiles = (64, 128) if variant == "tma_wgmma" else (None,)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    first = t + window - 1
+    mean_v = v.float().mean(dim=1).repeat_interleave(h // kh, dim=1)[:, None].expand(b, s - first, h, dh)
+    for rows in tiles:
+        got = fa_ops._launch(q, k, v, causal, window, variant, rows)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+        torch.testing.assert_close(got[:, first:].float(), mean_v, atol=tol, rtol=tol)
+        if variant == "tma_wgmma":
+            assert float(((got.float() - want.float()).abs() / _scaled_bar(want)).max()) <= 0.5
 
 
 @pytest.mark.cuda
