@@ -25,7 +25,11 @@ versions beside a teacher-forced plain-version engine. Phase 2 also holds
 ``flash_attention``'s TMA/wgmma kernel through every mask at D 128 and 64,
 and phase 7 checks that every prefill layer went through it. It times each
 kernel (phase 8 prints the record): attention beside SDPA at every
-prefill length, the sweep on int32 and f32 counts. Every phase raises on a
+prefill length, the sweep on int32 and f32 counts, the histogram at the
+static path's full-size shape on its own latencies and on log-uniform
+ones, in the flat form and in 997-row chunks. Phase 2 holds the
+histogram's threshold count against the bin rule on all 2**32 f32 bit
+patterns at three settings. Every phase raises on a
 mismatch and prints
 its duration; the script exits non-zero without a CUDA device or outside a
 checkout. The last line of its output is the JSON device record.
@@ -158,6 +162,112 @@ def _plain_histogram(lat, group, weight, *, rows_per_chunk=None, **kw):
     if rows_per_chunk is None:
         return latency_histogram_ref(lat, group, weight, **kw)
     return latency_histogram_chunks_ref(lat, group, weight, rows_per_chunk=rows_per_chunk, **kw)
+
+
+# (lo, hi, B) of tests/test_torch_telemetry.py::HIST_GRID whose bin rules
+# phase 2 checks on every f32 bit pattern.
+RULE_CHECKS = ((1.0, 10_000.0, 128), (5.0, 500.0, 32), (0.1, 1e6, 128))
+
+
+def _histogram_cases(torch, dev, rng) -> tuple[int, float, list, dict]:
+    """Hold ``latency_histogram`` against its plain version on the card:
+    log-uniform latencies over [0.1, 1e5] ms with the decade edges first, G
+    up to 128, flat and per-chunk forms (a short last chunk); rows that all
+    share one latency or a handful (collisions in every warp); all weights
+    0; G 1 and the largest G the wrapper admits at B 128 (454: neither the
+    u32 counts nor the threshold table fit beside the histogram, so the
+    search reads the table from global memory), 227 (counts, table in
+    global memory) and 228 (table, no counts); rows_per_chunk 1, 997 and
+    larger than R; R
+    not a multiple of 4; inputs at an offset off 16 bytes. 0/1 weights
+    exact, real weights to rtol 1e-5, atol 1e-3 (per chunk where a flat
+    cell would sum 10**5 of them). Then the bin rule: the
+    kernel's threshold count against ``bin_of`` on all 2**32 f32 bit
+    patterns, 0 mismatches, at ``RULE_CHECKS``. Returns (cases, the real
+    weights' largest error, the decade-edge bins, mismatches by rule)."""
+    from repro_torch.kernels.latency_histogram import ops as hist_ops
+
+    def cuda_t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    latency_histogram = hist_ops.latency_histogram
+    err, cases = 0.0, 0
+
+    def exact(lat, group, weight, ctx, **kw):
+        nonlocal cases
+        got = latency_histogram(lat, group, weight, **kw)
+        assert torch.equal(got, _plain_histogram(lat, group, weight, **kw)), ctx
+        cases += 1
+
+    def close(lat, group, weight, ctx, **kw):
+        nonlocal cases, err
+        got = latency_histogram(lat, group, weight, **kw)
+        want = _plain_histogram(lat, group, weight, **kw)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3, msg=ctx)
+        err = max(err, float((got - want).abs().max()))
+        cases += 1
+
+    def log_uniform(r):
+        lat = np.exp(rng.uniform(np.log(0.1), np.log(1e5), r)).astype(np.float32)
+        lat[:4] = [1.0, 10.0, 100.0, 1000.0]
+        return lat
+
+    for g in (6, 10, 128):
+        r = 1_000_003
+        hargs = [cuda_t(log_uniform(r)), cuda_t(rng.integers(0, g, r).astype(np.int32)),
+                 cuda_t((rng.random(r) < 0.8).astype(np.float32))]
+        hkw = dict(num_groups=g, num_bins=128, lo=1.0, hi=10_000.0)
+        for rpc in (None, 10_000, 997):
+            exact(*hargs, (g, rpc), rows_per_chunk=rpc, **hkw)
+        real = torch.rand(r, device=dev, generator=torch.Generator(device=dev).manual_seed(g))
+        close(hargs[0], hargs[1], real, ("real", g), **hkw)
+        close(hargs[0], hargs[1], real, ("real", g, 997), rows_per_chunk=997, **hkw)
+    # Collisions: one latency for every row, then five; all weights 0.
+    r, g = 1_000_003, 10
+    group = cuda_t(rng.integers(0, g, r).astype(np.int32))
+    ones = torch.ones(r, device=dev)
+    hkw = dict(num_groups=g, num_bins=128, lo=1.0, hi=10_000.0)
+    for lat in (np.full(r, 123.4, np.float32),
+                rng.choice(np.float32([2.5, 40.0, 123.4, 180.25, 20_000.0]), r)):
+        for rpc in (None, 10_000, 997):
+            exact(cuda_t(lat), group, ones, ("collide", len(np.unique(lat)), rpc),
+                  rows_per_chunk=rpc, **hkw)
+            if rpc is not None:  # a flat cell would sum 10**5 real weights: f32 drift
+                close(cuda_t(lat), group, torch.rand(r, device=dev), ("collide real", rpc),
+                      rows_per_chunk=rpc, **hkw)
+    exact(cuda_t(log_uniform(r)), group, torch.zeros(r, device=dev), "zero weights",
+          rows_per_chunk=10_000, **hkw)
+    # G 1, the largest G at B 128, and the two other shared-memory layouts;
+    # rows_per_chunk 1, 997 and above R; R not a multiple of 4; offset views.
+    for g, r, rpcs in ((1, 1_000_003, (None, 10_000, 997)), (454, 300_001, (None, 10_000)),
+                       (227, 300_001, (None, 10_000)), (228, 300_001, (None, 10_000)),
+                       (6, 20_011, (1, 997, 10**8)),
+                       (10, 4_099, (None, 1, 4_096, 4_099, 10**8))):
+        lat, grp = cuda_t(log_uniform(r)), cuda_t(rng.integers(-1, g + 1, r).astype(np.int32))
+        w = cuda_t((rng.random(r) < 0.8).astype(np.float32))
+        kw = dict(num_groups=g, num_bins=128, lo=1.0, hi=10_000.0)
+        for rpc in rpcs:
+            exact(lat, grp, w, (g, r, rpc), rows_per_chunk=rpc, **kw)
+            exact(lat[1:], grp[1:], w[1:], (g, r, rpc, "offset"), rows_per_chunk=rpc, **kw)
+        close(lat, grp, torch.rand(r, device=dev), (g, r, "real"), rows_per_chunk=997, **kw)
+    # Other rules of tests/test_torch_telemetry.py::HIST_GRID.
+    for lo, hi, b in RULE_CHECKS[1:]:
+        r = 1_000_003
+        lat = cuda_t(np.exp(rng.uniform(np.log(lo / 10), np.log(hi * 10), r)).astype(np.float32))
+        grp = cuda_t(rng.integers(0, 16, r).astype(np.int32))
+        exact(lat, grp, ones, (lo, hi, b), num_groups=16, num_bins=b, lo=lo, hi=hi,
+              rows_per_chunk=997)
+    one = torch.ones(4, dtype=torch.int32, device=dev)
+    edge_hist = latency_histogram(cuda_t(np.asarray([1.0, 10.0, 100.0, 1000.0], np.float32)), one,
+                                  torch.ones(4, device=dev), num_groups=2, num_bins=128)
+    edge_bins = edge_hist[1].nonzero().flatten().tolist()
+    assert edge_bins == [1, 32, 64, 95], edge_bins
+    rule = {}
+    for lo, hi, b in RULE_CHECKS:
+        bad, first = hist_ops.check_bin_rule(lo, hi, b, dev)
+        assert bad == 0, ("bin rule", lo, hi, b, bad, first)
+        rule[(lo, hi, b)] = bad
+    return cases, err, edge_bins, rule
 
 
 def _check_result(a, b, ctx: str) -> float:
@@ -860,36 +970,13 @@ def main() -> int:
         err_sweep = max(err_sweep, float((got[4] - want[4]).abs().max()))
     print(f"phase 2 ownership_sweep ok: 3 cases, max_abs_err {err_sweep}")
 
-    # latency_histogram: log-uniform latencies over [0.1, 1e5] ms with the
-    # decade edges first, G up to 128, flat and per-chunk forms (a short
-    # last chunk), 0/1 weights exact and real weights to rtol 1e-5.
-    err_hist = 0.0
-    hcases = 0
-    for g in (6, 10, 128):
-        r = 1_000_003
-        lat = np.exp(rng.uniform(np.log(0.1), np.log(1e5), r)).astype(np.float32)
-        lat[:4] = [1.0, 10.0, 100.0, 1000.0]
-        hargs = [cuda_t(lat), cuda_t(rng.integers(0, g, r).astype(np.int32)),
-                 cuda_t((rng.random(r) < 0.8).astype(np.float32))]
-        hkw = dict(num_groups=g, num_bins=128, lo=1.0, hi=10_000.0)
-        for rpc in (None, 10_000, 997):
-            got = latency_histogram(*hargs, rows_per_chunk=rpc, **hkw)
-            want = _plain_histogram(*hargs, rows_per_chunk=rpc, **hkw)
-            assert torch.equal(got, want), (g, rpc)
-            hcases += 1
-        real = torch.rand(r, device=dev, generator=torch.Generator(device=dev).manual_seed(g))
-        got = latency_histogram(hargs[0], hargs[1], real, **hkw)
-        want = _plain_histogram(hargs[0], hargs[1], real, **hkw)
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
-        err_hist = max(err_hist, float((got - want).abs().max()))
-        hcases += 1
-    one = torch.ones(4, dtype=torch.int32, device=dev)
-    edge_hist = latency_histogram(cuda_t(np.asarray([1.0, 10.0, 100.0, 1000.0], np.float32)), one,
-                                  torch.ones(4, device=dev), num_groups=2, num_bins=128)
-    edge_bins = edge_hist[1].nonzero().flatten().tolist()
-    assert edge_bins == [1, 32, 64, 95], edge_bins
+    hcases, err_hist, edge_bins, rule_checks = _histogram_cases(torch, dev, rng)
     print(f"phase 2 latency_histogram ok: {hcases} cases, max_abs_err {err_hist} "
           f"(real weights; 0/1 weights exact), decade-edge bins {edge_bins}")
+    print("phase 2 latency_histogram bin rule: threshold count against bin_of on all 2**32 "
+          "f32 patterns: " + ", ".join(f"(lo {lo}, hi {hi}, B {b}) {bad} mismatches"
+                                       for (lo, hi, b), bad in rule_checks.items()))
+    record["histogram_rule_mismatches"] = [[*k, v] for k, v in rule_checks.items()]
 
     # hot_gather: the reference kernel test's shapes (tests/test_kernels.py),
     # a row of 6 bytes (2-byte copy units), both table dtypes, and the
@@ -1238,6 +1325,7 @@ def main() -> int:
     chunk_replay.launches = 0
     ownership_sweep.launches = 0
     latency_histogram.launches = 0
+    latency_histogram.setup_launches = 0  # the threshold table's, counted apart
     tele = {}
     for name, (w, c, t, pol) in runs.items():
         t0 = time.perf_counter()
@@ -1260,6 +1348,7 @@ def main() -> int:
     tele_launches = {"chunk_replay": chunk_replay.launches,
                      "ownership_sweep": ownership_sweep.launches,
                      "latency_histogram": latency_histogram.launches}
+    tele_setup = latency_histogram.setup_launches  # 0: the warm-up set the table up
     tele_mem = torch.cuda.max_memory_allocated()
     # Two Redynis runs replay chunk by chunk with the fused histogram and
     # sweep every chunk; the static run is one whole-trace replay and one
@@ -1296,10 +1385,12 @@ def main() -> int:
     for row in tele.values():
         del row["result"], row["trace"]
     slowdown = float(np.median(turns["on"]) / np.median(turns["off"]))
-    print(f"phase 5 launches {tele_launches}, max_memory_allocated {tele_mem} bytes; Redynis with "
+    print(f"phase 5 launches {tele_launches} (latency_histogram set-up: {tele_setup}), "
+          f"max_memory_allocated {tele_mem} bytes; Redynis with "
           f"telemetry takes {slowdown:.4f}x the wall time without (medians of three turns)")
     record["telemetry"] = tele
     record["telemetry_launches"] = tele_launches
+    record["telemetry_histogram_setup_launches"] = tele_setup
     record["telemetry_max_memory_allocated"] = tele_mem
     del trace_c
 
@@ -1325,11 +1416,37 @@ def main() -> int:
                          torch, reps=3, iters=5)
     del flat
     hist_bytes = FULL_REQUESTS * 12 + chunks * g * nb * 4
+    hist_calls = _kernels_per_call(torch, lambda: latency_histogram(lat, group, weight, **hkw),
+                                   latency_histogram)
     print(f"phase 5 latency_histogram ({FULL_REQUESTS} requests -> [{chunks}, {g}, {nb}]): "
           f"kernel {hist_ms:.4f} ms, plain {hist_plain:.4f} ms, "
-          f"bound {hist_bytes / BW_BYTES_PER_S * 1e3:.4f} ms, bincount fold floor {fold_ms:.4f} ms")
+          f"bound {hist_bytes / BW_BYTES_PER_S * 1e3:.4f} ms "
+          f"({hist_bytes / BW_BYTES_PER_S * 1e3 / hist_ms:.3f} of it), bincount fold floor "
+          f"{fold_ms:.4f} ms; kernel launches a call by the profiler: host {hist_calls['host_launches']}, "
+          f"device {hist_calls['device_kernels']} {hist_calls['device_events']}")
+    assert hist_calls["host_launches"] == 1, hist_calls  # no fill, no second kernel
+    # The same shape on log-uniform latencies over [0.1, 1e5] ms (few lanes
+    # collide), the flat [2N, B] form (on those too: a flat cell of the
+    # static replay counts up to 18 M rows, past f32's exact integers) and
+    # rows_per_chunk 997, each exact.
+    lat_u = torch.exp(torch.empty(FULL_REQUESTS, device=dev).uniform_(
+        float(np.log(0.1)), float(np.log(1e5)), generator=torch.Generator(device=dev).manual_seed(0)))
+    extra = {}
+    for label, x, rpc in (("log_uniform", lat_u, FULL_INTERVAL), ("flat", lat_u, None), ("rpc_997", lat, 997)):
+        kw = dict(hkw, rows_per_chunk=rpc)
+        got = latency_histogram(x, group, weight, **kw)
+        assert torch.equal(got, _plain_histogram(x, group, weight, **kw)), label
+        del got
+        n_out = 1 if rpc is None else -(-FULL_REQUESTS // rpc)
+        bound = (FULL_REQUESTS * 12 + n_out * g * nb * 4) / BW_BYTES_PER_S * 1e3
+        ms = _device_ms(lambda: latency_histogram(x, group, weight, **kw), torch, reps=3, iters=5)
+        extra[label] = dict(ms=ms, bound_ms=bound, share=bound / ms)
+        print(f"phase 5 latency_histogram {label}: kernel {ms:.4f} ms, {bound / ms:.3f} of the "
+              f"{bound:.4f} ms bound")
+    del lat_u
     record["latency_histogram_full"] = dict(ms=hist_ms, plain_ms=hist_plain, bincount_fold_ms=fold_ms,
-                                            bound_ms=hist_bytes / BW_BYTES_PER_S * 1e3)
+                                            bound_ms=hist_bytes / BW_BYTES_PER_S * 1e3,
+                                            kernels_per_call=hist_calls, **extra)
 
     del trace, lat, group, weight, allv, hosts, multi, counts, live, last
     torch.cuda.empty_cache()
@@ -1639,7 +1756,7 @@ def main() -> int:
              launches=tele_launches["latency_histogram"], max_abs_err=err_hist,
              ms=hist_ms, plain_ms=hist_plain,
              bound_ms=hist_bytes / BW_BYTES_PER_S * 1e3, bound_by="bytes",
-             library_ms=None),
+             library_ms=None, kernels_per_call=hist_calls["host_launches"]),
         dict(name="moe_router", route="cuda",
              source="src/repro_torch/kernels/moe_router/csrc/moe_router.cu",
              replaces="src/repro/kernels/moe_router/kernel.py:28",

@@ -8,9 +8,13 @@ The group id encodes (node, read/write) as ``g = node * 2 + is_read``.
 The logarithms are taken in float64 and rounded to float32: that is the
 correctly rounded f32 log, which is what puts latencies sitting exactly on
 a decade edge (10, 100 and 1000 ms at ``lo=1, hi=1e4, B=128``) into the
-same bins as the reference (32, 64 and 95). Both CUDA kernels
-(``chunk_replay`` and ``latency_histogram``) compute the same expression
-the same way (``kernels/csrc/log_bins.cuh``).
+same bins as the reference (32, 64 and 95). The reference's own bins rest
+on its platform's f32 log: where XLA's CPU log is an ulp off the correctly
+rounded one, a latency within an ulp or so of an edge lands one bin over
+(``tests/test_torch_telemetry.py`` counts them). ``chunk_replay``'s kernel
+computes the same expression the same way (``kernels/csrc/log_bins.cuh``);
+``latency_histogram``'s counts the rule's thresholds below a latency
+(:func:`bin_thresholds` is their plain version).
 
 Rows whose group lies outside ``[0, G)`` are dropped, as the kernel drops
 them.
@@ -21,7 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["bin_index", "bin_edges", "latency_histogram_ref", "latency_histogram_chunks_ref"]
+__all__ = ["bin_index", "bin_thresholds", "bin_edges", "latency_histogram_ref",
+           "latency_histogram_chunks_ref"]
 
 
 def _log_f32(x: torch.Tensor) -> torch.Tensor:
@@ -39,6 +44,28 @@ def bin_index(lat: torch.Tensor, lo: float, hi: float, num_bins: int) -> torch.T
     raw = torch.clamp(raw, 1, inner)
     idx = torch.where(lat >= hi_t, torch.full_like(raw, num_bins - 1), raw)
     return torch.where(lat < lo_t, torch.zeros_like(raw), idx)
+
+
+def _bits(x: float) -> int:
+    return int(torch.tensor(x, dtype=torch.float32).view(torch.int32))
+
+
+def bin_thresholds(lo: float, hi: float, num_bins: int) -> torch.Tensor:
+    """The ``num_bins - 1`` f32 thresholds of :func:`bin_index`: ``e_k`` is
+    the least f32 with ``bin_index(e_k) >= k``, found by bisection over the
+    bit patterns of ``[lo, hi]`` (positive floats order like their bits).
+    The rule is monotone, so the bin of a non-NaN latency is the number of
+    thresholds at or below it. For the tests: the kernel builds the same
+    table on the card with its own rule."""
+    k = torch.arange(1, num_bins, dtype=torch.int64)
+    a = torch.full_like(k, _bits(lo))
+    b = torch.full_like(k, _bits(hi))
+    for _ in range(32):
+        m = a + (b - a) // 2
+        reach = bin_index(m.to(torch.int32).view(torch.float32), lo, hi, num_bins).long() >= k
+        b = torch.where(reach, m, b)
+        a = torch.where(reach, a, m + 1)
+    return a.to(torch.int32).view(torch.float32)
 
 
 def bin_edges(lo: float, hi: float, num_bins: int) -> np.ndarray:

@@ -5,8 +5,9 @@ All are plain Python (``kernels/_build.py``, the ``ops.py`` wrappers) or
 source text, and decide what runs on the card: which nvcc flags build each
 kernel (and so whether its f32 arithmetic rounds as its plain version
 does), which of the three attention kernels a shape goes to, how the
-wrappers size their grids and when they move data as vectors, and whether
-the ``ctypes`` argument lists match the C launch functions they call.
+wrappers size their grids and share rows out among blocks, when they move
+data as vectors, and whether the ``ctypes`` argument lists match the C
+launch functions they call.
 """
 
 import ctypes
@@ -19,6 +20,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.chunk_replay import ops as cr_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.latency_histogram import ops as lh_ops  # noqa: E402
 from repro_torch.kernels.moe_router import ops as mr_ops  # noqa: E402
 
 BIT_EXACT = ("chunk_replay", "ownership_sweep", "latency_histogram", "moe_router", "hot_gather",
@@ -151,6 +153,61 @@ def test_moe_router_loads_float4_only_on_aligned_rows(ptr, e, want):
     assert mr_ops.vector_io(ptr, e) == want
 
 
+@pytest.mark.parametrize("chunks", [1, 2, 7, 100, 131, 132, 659, 660, 661, 1_056, 2_113, 10_000])
+@pytest.mark.parametrize("rows_per_chunk", [1, 3, 4, 997, 4_096, 10_000, 65_537, 10**6, 10**8])
+@pytest.mark.parametrize("short", [0, 1])
+@pytest.mark.parametrize("resident", [132, 660, 1_056])
+def test_latency_histogram_launch_gives_every_row_to_one_block(chunks, rows_per_chunk, short,
+                                                               resident):
+    """The kernel's work items are (chunk, tile) pairs, tile t of a chunk
+    taking its rows [t * span, (t + 1) * span) clipped to the chunk, and the
+    grid-stride loop gives item i to block i % blocks: so every row lies in
+    one item, and every item goes to one block, when tiles * span covers a
+    chunk and blocks <= items. Never more blocks than fit on the card at
+    once; at least that many chunks is a block a chunk (stores, no fill);
+    fewer are split into tiles of at least MIN_TILE_ROWS rows (a multiple
+    of 4), at most about one a resident block. The last chunk may be short."""
+    r = max(1, chunks * rows_per_chunk - short * (rows_per_chunk - 1) // 2)
+    for rpc in (rows_per_chunk, None):
+        mode, blocks, tiles, span = lh_ops.launch_shape(r, rpc, resident)
+        n_chunks = -(-r // (rpc or r))
+        rows = min(rpc or r, r)
+        assert mode in lh_ops.MODES and (mode == "chunk") == (tiles == 1)
+        assert 1 <= blocks <= min(n_chunks * tiles, resident) and span % 4 == 0
+        assert tiles * span >= rows and (tiles == 1 or (tiles - 1) * span < rows)
+        assert n_chunks < resident or tiles == 1
+        assert tiles == 1 or (span >= lh_ops.MIN_TILE_ROWS and n_chunks * (tiles - 1) < resident)
+        if n_chunks < resident and rows >= 2 * lh_ops.MIN_TILE_ROWS:
+            assert mode == "split"
+
+
+def test_latency_histogram_splits_the_static_path_by_chunk_and_the_flat_form_by_tile():
+    """At [10, 128] an H100 holds 5 blocks an SM (the kernel's 48 registers
+    a thread bound it), 660 in all."""
+    assert lh_ops.launch_shape(100_000_000, 10_000, 660) == ("chunk", 660, 1, 10_000)
+    assert lh_ops.launch_shape(100_000_000, 997, 660) == ("chunk", 660, 1, 1_000)
+    assert lh_ops.launch_shape(660 * 10**6, 10**6, 660) == ("chunk", 660, 1, 10**6)
+    assert lh_ops.launch_shape(600 * 10**6, 10**6, 660)[:3] == ("split", 660, 2)
+    mode, blocks, tiles, span = lh_ops.launch_shape(100_000_000, None, 660)
+    assert (mode, blocks, tiles) == ("split", 660, 660) and span * tiles >= 100_000_000
+
+
+@pytest.mark.parametrize("b,depth", [(3, 2), (4, 2), (5, 3), (32, 5), (128, 7), (129, 8),
+                                     (256, 8), (257, 9), (58_112, 16)])
+def test_latency_histogram_threshold_tree_holds_every_threshold(b, depth):
+    """The table is 2**depth floats: NaN's bin, then the B - 1 thresholds
+    in a complete tree of 2**depth - 1 nodes, the least depth that holds
+    them."""
+    assert lh_ops.table_depth(b) == depth
+    assert 2**depth - 1 >= b - 1 > 2 ** (depth - 1) - 1
+
+
+@pytest.mark.parametrize("ptrs,want", [([0, 512, 4096], True), ([4, 512, 4096], False),
+                                       ([0, 520, 4096], False), ([0, 512, 4100], False)])
+def test_latency_histogram_reads_vectors_only_from_aligned_inputs(ptrs, want):
+    assert lh_ops.vector_io(ptrs) == want
+
+
 _CTYPE = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "long long": ctypes.c_longlong,
           "float": ctypes.c_float}
 
@@ -173,6 +230,10 @@ def _c_params(source: str, fn: str) -> list:
     ("moe_router", "moe_router_launch", mr_ops._ARGTYPES),
     ("flash_attention", "flash_attention_launch", fa_ops._ARGTYPES),
     ("flash_attention", "flash_attention_tma_launch", fa_ops._ARGTYPES),
+    ("latency_histogram", "latency_histogram_launch", lh_ops._ARGTYPES),
+    ("latency_histogram", "latency_histogram_resident", lh_ops._RESIDENT_ARGTYPES),
+    ("latency_histogram", "latency_histogram_thresholds_launch", lh_ops._THRESHOLD_ARGTYPES),
+    ("latency_histogram", "latency_histogram_check_launch", lh_ops._CHECK_ARGTYPES),
 ])
 def test_ctypes_argument_lists_match_the_c_launch_functions(kernel, fn, argtypes):
     """A pointer passed where the C side reads an int (or the reverse)

@@ -129,7 +129,8 @@ def test_each_module_imports_first(module):
 
 
 def test_sources_name_neither_jax_nor_reference():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_fault_check.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / name for name in (
+        "chip_smoke.py", "chip_fault_check.py", "chip_histogram_split.py")]
     for path in files:
         text = path.read_text()
         assert "import jax" not in text and "from jax" not in text, path
@@ -356,6 +357,114 @@ def test_latency_histogram_kernel_matches_plain_version(cuda, g, rows_per_chunk)
         latency_histogram(lat, group, real, **kw), latency_histogram_ref(lat, group, real, **kw),
         rtol=1e-5, atol=1e-3,
     )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("distinct", [1, 5])
+@pytest.mark.parametrize("rows_per_chunk", [None, 10_000, 997])
+def test_latency_histogram_kernel_folds_colliding_rows(cuda, distinct, rows_per_chunk):
+    """Every row one latency, or one of five: each warp's lanes aim at a
+    handful of cells. 0/1 weights exact, real weights (per chunk) to the
+    real-weight bar."""
+    from repro_torch.kernels.latency_histogram.ops import latency_histogram
+    from repro_torch.kernels.latency_histogram.ref import latency_histogram_chunks_ref
+
+    rng = np.random.default_rng(distinct)
+    r, g = 300_007, 10
+    values = np.float32([123.4, 2.5, 40.0, 180.25, 20_000.0])[:distinct]
+    lat = torch.from_numpy(rng.choice(values, r)).to(cuda)
+    group = torch.from_numpy(rng.integers(0, g, r).astype(np.int32)).to(cuda)
+    kw = dict(num_groups=g, num_bins=128, lo=1.0, hi=10_000.0)
+    rpc = r if rows_per_chunk is None else rows_per_chunk
+    ones = torch.ones(r, device=cuda)
+    got = latency_histogram(lat, group, ones, rows_per_chunk=rows_per_chunk, **kw)
+    want = latency_histogram_chunks_ref(lat, group, ones, rows_per_chunk=rpc, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want[0] if rows_per_chunk is None else want)
+    if rows_per_chunk is not None:
+        real = torch.rand(r, device=cuda)
+        torch.testing.assert_close(
+            latency_histogram(lat, group, real, rows_per_chunk=rpc, **kw),
+            latency_histogram_chunks_ref(lat, group, real, rows_per_chunk=rpc, **kw),
+            rtol=1e-5, atol=1e-3,
+        )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,offset,rows_per_chunk", [
+    (4_099, 0, 1), (4_099, 1, 997), (100_003, 1, None), (100_003, 3, 10_000), (100_001, 0, 10**8),
+])
+def test_latency_histogram_kernel_takes_unaligned_rows(cuda, r, offset, rows_per_chunk):
+    """R not a multiple of 4, inputs at an offset off 16 bytes (scalar
+    loads), chunks that start off a 16-byte boundary (scalar heads and
+    tails), rows_per_chunk 1 and above R; rows outside [0, G) dropped."""
+    from repro_torch.kernels.latency_histogram.ops import latency_histogram
+    from repro_torch.kernels.latency_histogram.ref import latency_histogram_chunks_ref
+
+    lat, group, weight = _histogram_inputs(7, r + offset, 10, cuda)
+    group[::7] = -1
+    group[::11] = 10
+    lat, group, weight = lat[offset:], group[offset:], weight[offset:]
+    kw = dict(num_groups=10, num_bins=128, lo=1.0, hi=10_000.0)
+    got = latency_histogram(lat, group, weight, rows_per_chunk=rows_per_chunk, **kw)
+    want = latency_histogram_chunks_ref(lat, group, weight, rows_per_chunk=rows_per_chunk or r, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want[0] if rows_per_chunk is None else want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [226, 227, 228, 454])
+def test_latency_histogram_kernel_takes_every_shared_layout(cuda, g):
+    """At B 128 the block's shared memory holds the f32 histogram, then the
+    u32 counts and the threshold table where they fit: both (226), counts
+    with the table read from global memory (227), the table without counts
+    (228), neither (454, the largest G the wrapper admits)."""
+    from repro_torch.kernels.latency_histogram.ops import latency_histogram
+    from repro_torch.kernels.latency_histogram.ref import latency_histogram_chunks_ref
+
+    r = 200_003
+    lat, group, weight = _histogram_inputs(g, r, g, cuda)
+    kw = dict(num_groups=g, num_bins=128, lo=1.0, hi=10_000.0)
+    for rpc in (None, 10_000):
+        got = latency_histogram(lat, group, weight, rows_per_chunk=rpc, **kw)
+        want = latency_histogram_chunks_ref(lat, group, weight, rows_per_chunk=rpc or r, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want[0] if rpc is None else want), rpc
+    real = torch.rand(r, device=cuda)
+    torch.testing.assert_close(
+        latency_histogram(lat, group, real, rows_per_chunk=997, **kw),
+        latency_histogram_chunks_ref(lat, group, real, rows_per_chunk=997, **kw),
+        rtol=1e-5, atol=1e-3,
+    )
+
+
+@pytest.mark.cuda
+def test_latency_histogram_sets_each_rule_up_once(cuda):
+    """The threshold table of a rule is set up by one counted launch the
+    first time a device sees the rule, then reused, on other streams too
+    (ordered after its set-up)."""
+    from repro_torch.kernels.latency_histogram.ops import latency_histogram
+    from repro_torch.kernels.latency_histogram.ref import latency_histogram_ref
+
+    lat, group, weight = _histogram_inputs(3, 50_001, 6, cuda)
+    kw = dict(num_groups=6, num_bins=48, lo=3.0, hi=3_000.0)
+    setups = latency_histogram.setup_launches
+    for _ in range(3):
+        side = torch.cuda.Stream(cuda)
+        side.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(side):
+            got = latency_histogram(lat, group, weight, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, latency_histogram_ref(lat, group, weight, **kw))
+    assert latency_histogram.setup_launches - setups == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lo,hi,num_bins", [(1.0, 10_000.0, 128), (5.0, 500.0, 32)])
+def test_latency_histogram_threshold_count_is_bin_of_on_every_float(cuda, lo, hi, num_bins):
+    from repro_torch.kernels.latency_histogram.ops import check_bin_rule
+
+    assert check_bin_rule(lo, hi, num_bins, cuda) == (0, None)
 
 
 @pytest.mark.cuda
