@@ -21,10 +21,16 @@ versions. Phase 7 serves qwen3-1.7b at full width and all 28 layers through
 cache behind a 4-pod ``SessionRouter`` whose leader fails half-way), first
 on the kernel path alone with its launches counted, then with every
 prefill's and every 8th decode step's attention held against the plain
-versions beside a teacher-forced plain-version engine. Phase 2 also holds
-``flash_attention``'s TMA/wgmma kernel through every mask at D 128 and 64,
-and phase 7 checks that every prefill layer went through it. It times each
-kernel (phase 8 prints the record): attention beside SDPA at every
+versions beside a teacher-forced plain-version engine. Phase 8 runs the
+paper's experiment grid: ``run_experiment`` for Figures 2 and 3 at the
+paper's size (card against the CPU port on the same traces), the policy
+head-to-head of ``benchmarks/policy_matrix.py`` and the budgets of
+``benchmarks/capacity_sweep.py`` at 1 M keys and 10 M requests (held
+against the plain-version engine), with the capacity projection's device
+time a sweep. Phase 2 also holds ``chunk_replay`` on empty replica rows
+and ``flash_attention``'s TMA/wgmma kernel through every mask at D 128 and
+64, and phase 7 checks that every prefill layer went through it. It times
+each kernel (phase 9 prints the record): attention beside SDPA at every
 prefill length, the sweep on int32 and f32 counts, the histogram at the
 static path's full-size shape on its own latencies and on log-uniform
 ones, in the flat form and in 997-row chunks. Phase 2 holds the
@@ -52,6 +58,16 @@ F32_OPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores (NVIDIA data
 FULL_REQUESTS = 100_000_000
 FULL_KEYS = 1_000_000
 FULL_INTERVAL = 10_000
+# Phase 8: benchmarks/policy_matrix.py's eight specs and the sixth family,
+# on benchmarks/common.py's WAN5_WORKLOAD_KWARGS; capacity_sweep.py's
+# budgets (KiB) at 1,000 times its keys.
+GRID_REQUESTS = 10_000_000  # policy_matrix and capacity_sweep at full key scale
+GRID_ITERATIONS = 3
+MATRIX_SPECS = ("local", "remote", "replicated", "redynis", "redynis:h=0.05,decay=0.9",
+                "topk:k=100", "costgreedy", "decaylfu:alpha=0.5", "sizeaware")
+WAN5_WORKLOAD_KWARGS = dict(num_nodes=5, region_weights=(0.35, 0.25, 0.20, 0.12, 0.08), affinity=0.8)
+CAPACITY_KIB = (float("inf"), 256_000, 128_000, 64_000, 32_000, 16_000)
+EDGE_CAPACITY_BYTES = 64 * 1024.0 * 1_000
 ML_LAYERS = 4  # deepseek-moe-16b has 28; cut for the time limit shared with the other phases
 ML_BATCH, ML_SEQ = 16, 2048  # 32,768 tokens per step
 ML_STEPS = 150  # three sweeps at sweep_period 50
@@ -272,9 +288,9 @@ def _histogram_cases(torch, dev, rng) -> tuple[int, float, list, dict]:
 
 def _check_result(a, b, ctx: str) -> float:
     """Hold two ``SimResult``s of one trace to the engine tolerances: move
-    counts and hit rate exact, the f32 aggregates to rtol 1e-5. Returns the
-    largest relative difference of the latter."""
-    for f in ("replication_moves", "deletion_moves", "evictions", "hit_rate"):
+    counts (capacity evictions too) and hit rate exact, the f32 aggregates
+    to rtol 1e-5. Returns the largest relative difference of the latter."""
+    for f in ("replication_moves", "deletion_moves", "evictions", "capacity_evictions", "hit_rate"):
         assert getattr(a, f) == getattr(b, f), (ctx, f, getattr(a, f), getattr(b, f))
     rel = 0.0
     for f in ("throughput_ops_s", "mean_latency_ms", "node_busy_ms", "peak_occupancy_bytes"):
@@ -832,6 +848,255 @@ def _attention_flops_bytes(b, s, t, h, kh, dh, causal, window, elem=2):
     return 4 * b * h * dh * pairs, elem * (2 * b * s * h * dh + 2 * b * t * kh * dh)
 
 
+def _profile_calls(torch, call, calls: int = 20) -> dict:
+    """Device ms and host kernel launches a call of ``call``, by
+    ``torch.profiler`` over ``calls`` calls after a warm one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    return dict(
+        device_ms=sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA)
+        / 1e3 / calls,
+        host_launches=sum(e.count for e in events if e.key.startswith("cudaLaunchKernel")) / calls,
+    )
+
+
+def _experiment_phase(torch, dev, out_dir) -> dict:
+    """Phase 8: the paper's experiment grid and the policy family.
+
+    (a) Figures 2 and 3 exactly as ``benchmarks/fig2_uniform.py`` and
+        ``fig3_skewed.py`` call ``run_experiment``, on the card and through
+        the port on the CPU on the same traces, every per-seed result held;
+    (b) ``benchmarks/policy_matrix.py``'s head-to-head (and ``sizeaware``)
+        at 1 M keys, seed 0 of every active policy held against the
+        plain-version engine on the card;
+    (c) ``benchmarks/capacity_sweep.py``'s budgets at 1,000 times its keys,
+        and the edge-node preset under Redynis and ``costgreedy``, one
+        finite budget held against the plain-version engine.
+
+    The kernel counters are zeroed before (a) and read after (c), before
+    any plain-version run or profile. Returns the phase's record."""
+    from repro_torch.kernels.chunk_replay.ops import chunk_replay
+    from repro_torch.kernels.latency_histogram.ops import latency_histogram
+    from repro_torch.kernels.ownership_sweep.ops import ownership_sweep
+    from repro_torch.core.costmodel import project_capacity
+    from repro_torch.core.ownership import ownership_fraction
+    from repro_torch.kvsim import (
+        ClusterConfig,
+        RedynisPolicy,
+        StaticPolicy,
+        TelemetryConfig,
+        WorkloadConfig,
+        generate_trace,
+        parse_policy,
+        run_experiment,
+        run_scenario,
+        wan5_cluster,
+        wan5_edge_cluster,
+        wan5_workload,
+    )
+
+    rec: dict = {}
+    expect = {"chunk_replay": 0, "ownership_sweep": 0, "latency_histogram": 0}
+
+    def expect_runs(policy, requests: int, interval: int, runs: int, telemetry: bool) -> None:
+        """The launches ``runs`` kernel-path runs of ``policy`` make."""
+        chunks = -(-requests // interval)
+        if policy.is_active:
+            expect["chunk_replay"] += runs * chunks
+            if isinstance(policy, RedynisPolicy):  # the one policy on the sweep kernel
+                expect["ownership_sweep"] += runs * -(-chunks // policy.period)
+        else:
+            expect["chunk_replay"] += runs
+            expect["latency_histogram"] += runs * telemetry
+
+    def cached(store: dict):
+        def traces(wl, seed):
+            if (wl, seed) not in store:
+                store[(wl, seed)] = generate_trace(wl, seed, device=dev)
+            return store[(wl, seed)]
+        return traces
+
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    for fn in (chunk_replay, ownership_sweep, latency_histogram):
+        fn.launches = 0
+
+    # (a) The paper's Figures 2 and 3.
+    baselines = {"local": StaticPolicy("local"), "optimized": RedynisPolicy(),
+                 "remote": StaticPolicy("remote"), "replicated": StaticPolicy("replicated")}
+    fig_rfs, fig_iters, fig_r = (1.0, 0.9, 0.75, 0.5), 5, 100_000
+    rec["figures"] = {}
+    fig_checked = 0
+    for skewed in (False, True):
+        kw = dict(policies=list(baselines.values()), read_fractions=fig_rfs, skewed=skewed,
+                  iterations=fig_iters, num_requests=fig_r, traces=cached({}))
+        t0 = time.perf_counter()
+        card = run_experiment(**kw)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        cpu = run_experiment(**kw, device="cpu")
+        for pol in baselines.values():
+            expect_runs(pol.resolve(3), fig_r, 1000, len(fig_rfs) * fig_iters, False)
+        rows = dict(zip(baselines, card["policies"].values()))
+        for name, label in zip(baselines, card["policies"]):
+            for rc, rp in zip(card["policies"][label], cpu["policies"][label]):
+                for seed, (a, c) in enumerate(zip(rc["results"], rp["results"])):
+                    _check_result(a, c, f"phase 8 fig {skewed} {name} rf {rc['read_fraction']} seed {seed}")
+                    fig_checked += 1
+        fig = "fig3_skewed" if skewed else "fig2_uniform"
+        for i, rf in enumerate(fig_rfs):
+            tput = {name: rows[name][i]["throughput"] for name in baselines}
+            assert tput["local"] > tput["optimized"] > tput["remote"], (fig, rf, tput)
+            print(f"phase 8 {fig} rf {rf}: " + ", ".join(
+                f"{name} {rows[name][i]['throughput']:.2f} ± {rows[name][i]['ci99']:.2f} ops/s "
+                f"(hit {rows[name][i]['hit_rate']:.4f})" for name in baselines))
+        rec["figures"][fig] = dict(card_wall_s=card_s, rows={
+            name: [dict(read_fraction=r["read_fraction"], throughput=r["throughput"], ci99=r["ci99"],
+                        hit_rate=r["hit_rate"], hit_rate_ci99=r["hit_rate_ci99"],
+                        mean_latency_ms=r["mean_latency_ms"]) for r in rows[name]]
+            for name in baselines})
+    print(f"phase 8 (a) ok: figures 2 and 3, card against the CPU port on the same traces "
+          f"({fig_checked} per-seed results held); local > optimized > remote in every row")
+
+    # (b) The policy head-to-head at full key scale.
+    tcfg = TelemetryConfig()
+    wl_b = WorkloadConfig(num_requests=GRID_REQUESTS, read_fraction=0.9, skewed=True,
+                          num_keys=FULL_KEYS, **WAN5_WORKLOAD_KWARGS)
+    traces_b = cached({})
+    for seed in range(GRID_ITERATIONS):
+        traces_b(wl_b, seed)
+    torch.cuda.synchronize()
+    matrix = {}
+    for spec in MATRIX_SPECS:
+        pol = parse_policy(spec)
+        t0 = time.perf_counter()
+        out = run_experiment(read_fractions=(0.9,), skewed=True, iterations=GRID_ITERATIONS,
+                             num_requests=GRID_REQUESTS, cluster=wan5_cluster(),
+                             daemon_interval=FULL_INTERVAL, policies=[pol], telemetry=tcfg,
+                             traces=traces_b, num_keys=FULL_KEYS, **WAN5_WORKLOAD_KWARGS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        expect_runs(pol.resolve(5), GRID_REQUESTS, FULL_INTERVAL, GRID_ITERATIONS, True)
+        (label, (row,)), = out["policies"].items()
+        assert row["trace"].hist.sum() == GRID_ITERATIONS * GRID_REQUESTS, label
+        assert np.isfinite(row["p99_latency_ms"]) and row["throughput"] > 0, label
+        matrix[label] = dict(spec=spec, row=row, wall_s=wall,
+                             sim_requests_per_s=GRID_ITERATIONS * GRID_REQUESTS / wall)
+        print(f"phase 8 matrix {label}: hit_rate {row['hit_rate']:.4f} ± {row['hit_rate_ci99']:.4f}, "
+              f"mean {row['mean_latency_ms']:.3f} ms, p99 {row['p99_latency_ms']:.3f} ± "
+              f"{row['p99_ci99']:.3f} ms, throughput {row['throughput']:.3f} ± {row['ci99']:.3f} ops/s; "
+              f"wall {wall:.3f} s for {GRID_ITERATIONS} seeds, "
+              f"{GRID_ITERATIONS * GRID_REQUESTS / wall:.0f} simulated req/s")
+
+    # (c) Capacity at full key scale.
+    wl_c = WorkloadConfig(num_requests=GRID_REQUESTS, num_keys=FULL_KEYS, skewed=True,
+                          object_bytes_sigma=0.5)
+    trace_c = generate_trace(wl_c, 0, device=dev)
+    wl_e = wan5_workload(num_requests=GRID_REQUESTS, num_keys=FULL_KEYS, affinity=0.8,
+                         object_bytes_sigma=0.5)
+    trace_e = generate_trace(wl_e, 0, device=dev)
+    cl_e = wan5_edge_cluster(edge_capacity_bytes=EDGE_CAPACITY_BYTES)
+    chunks = -(-GRID_REQUESTS // FULL_INTERVAL)
+    capacity = {}
+    runs_c = [(f"{kib:g} KiB", wl_c, ClusterConfig(capacity_bytes=kib * 1024.0), trace_c, RedynisPolicy())
+              for kib in CAPACITY_KIB]
+    runs_c += [(f"wan5 edge {spec}", wl_e, cl_e, trace_e, parse_policy(spec))
+               for spec in ("redynis", "costgreedy")]
+    for label, w, c, t, pol in runs_c:
+        t0 = time.perf_counter()
+        res = run_scenario(w, c, pol, daemon_interval=FULL_INTERVAL, trace=t)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        expect_runs(pol.resolve(c.num_nodes), GRID_REQUESTS, FULL_INTERVAL, 1, False)
+        capacity[label] = dict(result=res, wall_s=wall)
+        print(f"phase 8 capacity {label}: hit_rate {res.hit_rate:.4f}, capacity_evictions "
+              f"{res.capacity_evictions:.0f}, peak occupancy {res.peak_occupancy_bytes.max():.0f} bytes "
+              f"(per node {np.round(res.peak_occupancy_bytes).astype(np.int64).tolist()}), moves "
+              f"{res.replication_moves:.0f}, throughput {res.throughput_ops_s:.3f} ops/s, wall {wall:.3f} s")
+    assert capacity["inf KiB"]["result"].capacity_evictions == 0
+    assert all(capacity[f"{kib:g} KiB"]["result"].capacity_evictions > 0 for kib in CAPACITY_KIB[1:])
+    assert capacity["wan5 edge redynis"]["result"].capacity_evictions > 0
+
+    launches = {"chunk_replay": chunk_replay.launches, "ownership_sweep": ownership_sweep.launches,
+                "latency_histogram": latency_histogram.launches}
+    assert launches == expect, (launches, expect)
+    assert all(v > 0 for v in launches.values()), launches
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    rec["held_at_start"] = held
+    print(f"phase 8 launches {json.dumps(launches)}")
+    print(f"phase 8 max_memory_allocated {rec['max_memory_allocated']} bytes, "
+          f"{held} of them held from earlier phases at its start")
+    rec["launches"] = launches
+
+    # The plain-version engine on the card: seed 0 of every active policy of
+    # (b), and one finite budget of (c) (capacity evictions exact).
+    with _plain_versions():
+        for label, m in matrix.items():
+            pol = parse_policy(m["spec"])
+            if not pol.is_active:
+                continue
+            plain = run_scenario(wl_b, wan5_cluster(), pol, daemon_interval=FULL_INTERVAL,
+                                 trace=traces_b(wl_b, 0), telemetry=tcfg)[0]
+            m["plain_max_rel_diff"] = _check_result(m["row"]["results"][0], plain,
+                                                    f"phase 8 matrix {label}")
+        held_kib = CAPACITY_KIB[3]  # 64,000 KiB: the middle of the sweep
+        held = f"{held_kib:g} KiB"
+        plain = run_scenario(wl_c, ClusterConfig(capacity_bytes=held_kib * 1024.0), RedynisPolicy(),
+                             daemon_interval=FULL_INTERVAL, trace=trace_c)
+        capacity[held]["plain_max_rel_diff"] = _check_result(
+            capacity[held]["result"], plain, f"phase 8 capacity {held}")
+    print(f"phase 8 (b), (c) ok: seed 0 of {sum('plain_max_rel_diff' in m for m in matrix.values())} "
+          f"active policies and the {held} budget match the plain-version engine "
+          f"(capacity evictions {plain.capacity_evictions:.0f}, exact)")
+    del traces_b
+
+    # The projection a sweep, at the capacity run's shape, and the chunk
+    # loop's launches with and without a budget.
+    gen = torch.Generator(device=dev).manual_seed(1)
+    counts = torch.randint(0, 4, (FULL_KEYS, 3), device=dev, generator=gen, dtype=torch.int32)
+    f = ownership_fraction(counts)
+    owners = f >= 1 / 3
+    hosts = torch.rand((FULL_KEYS, 3), device=dev, generator=gen) < 0.4
+    cap = ClusterConfig(capacity_bytes=held_kib * 1024.0).capacity_vector(dev)
+    proj = _profile_calls(torch, lambda: project_capacity(owners, hosts, f, trace_c.object_bytes, cap))
+    proj["event_ms"] = _device_ms(lambda: project_capacity(owners, hosts, f, trace_c.object_bytes, cap),
+                                  torch, iters=20)
+    print(f"phase 8 project_capacity ({FULL_KEYS} keys x 3 nodes): device {proj['device_ms']:.4f} ms "
+          f"a sweep by the profiler ({proj['event_ms']:.4f} ms by events), "
+          f"{proj['host_launches']:.1f} kernel launches a sweep")
+    rec["projection"] = proj
+    rec["chunk_profile"] = {}
+    for label, kib in (("no_budget", float("inf")), (f"{held_kib:g}_KiB", held_kib)):
+        unprofiled = capacity[f"{kib:g} KiB"]["wall_s"] * 1e3 / chunks
+        rec["chunk_profile"][label] = _profile_window(
+            torch, trace_c, wl_c, ClusterConfig(capacity_bytes=kib * 1024.0), RedynisPolicy(),
+            run_scenario, out_dir, unprofiled_chunk_ms=unprofiled, label=f"phase 8 capacity {label}")
+    rec["matrix"] = {label: dict(
+        spec=m["spec"], wall_s=m["wall_s"], sim_requests_per_s=m["sim_requests_per_s"],
+        plain_max_rel_diff=m.get("plain_max_rel_diff"),
+        **{k: m["row"][k] for k in ("hit_rate", "hit_rate_ci99", "mean_latency_ms", "throughput",
+                                    "ci99", "p99_latency_ms", "p99_ci99", "quantiles")})
+        for label, m in matrix.items()}
+    rec["capacity"] = {label: dict(
+        wall_s=c["wall_s"], plain_max_rel_diff=c.get("plain_max_rel_diff"),
+        hit_rate=c["result"].hit_rate, capacity_evictions=c["result"].capacity_evictions,
+        replication_moves=c["result"].replication_moves,
+        throughput_ops_s=c["result"].throughput_ops_s,
+        peak_occupancy_bytes=c["result"].peak_occupancy_bytes.tolist())
+        for label, c in capacity.items()}
+    del trace_c, trace_e, counts, f, owners, hosts
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -859,6 +1124,7 @@ def main() -> int:
     from repro_torch.kernels.latency_histogram.ref import bin_index
     from repro_torch.kernels.ownership_sweep.ops import ownership_sweep
     from repro_torch.kernels.ownership_sweep.ref import sweep_ref
+    from repro_torch.kernels.chunk_replay.ops import launch_shape
     from repro_torch.kvsim import (
         ClusterConfig,
         RedynisPolicy,
@@ -955,6 +1221,34 @@ def main() -> int:
     assert torch.equal(hist, chunk_replay_ref(*edge, **kw)[5].cpu())
     print(f"phase 2 chunk_replay ok: {cases} cases, max_abs_err {err_replay}, "
           f"decade-edge bins {bins_hit}")
+    # Empty replica rows (mask 0), reachable once a finite budget evicts a
+    # key's last replica: reads pay the worst RTT. Both launch modes the
+    # engine takes, a chunk (one cluster) and a whole trace (packed map);
+    # whole-ms latencies, so every output is exact.
+    ecases = 0
+    for n_e, rtt_e in ((3, ClusterConfig().rtt_matrix(dev)), (5, wan5_cluster().rtt_matrix(dev))):
+        for b_e, k_e, want_mode in ((10_000, 50_000, "cluster"), (1_000_000, 50_000, "packed")):
+            assert launch_shape(b_e, n_e, k_e)[0] == want_mode, (b_e, n_e, k_e)
+            for empty_share in (0.3, 1.0):
+                hosts_e = rng.random((k_e, n_e)) < 0.4
+                hosts_e[rng.random(k_e) < empty_share] = False
+                args = [cuda_t(hosts_e), cuda_t(rng.integers(0, k_e, b_e).astype(np.int32)),
+                        cuda_t(rng.integers(0, n_e, b_e).astype(np.int32)),
+                        cuda_t(rng.random(b_e) < 0.75), cuda_t(rng.random(b_e) < 0.95), rtt_e]
+                for mode in ("map", "no_local"):
+                    kw = dict(service_ms=10.0, master=1, xfer_read_ms=2.0, xfer_write_ms=3.0,
+                              read_mode=mode, num_bins=128)
+                    outs = [(torch.empty(b_e, device=dev), torch.empty(b_e, dtype=torch.bool, device=dev))
+                            for _ in range(2)]
+                    got = chunk_replay(*args, **kw, lat_out=outs[0][0], hit_out=outs[0][1])
+                    want = chunk_replay_ref(*args, **kw, lat_out=outs[1][0], hit_out=outs[1][1])
+                    ctx = f"chunk_replay empty rows N={n_e} B={b_e} share={empty_share} {mode}"
+                    assert all(torch.equal(g, w) for g, w in zip(got, want)), ctx
+                    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1]), ctx
+                    ecases += 1
+    print(f"phase 2 chunk_replay empty replica rows ok: {ecases} cases (mask 0 on 30 % and on all "
+          f"keys; map and no_local; N 3 and 5; a chunk (cluster) and a whole trace (packed)), "
+          f"every output exact")
 
     err_sweep = 0.0
     for k, n, h, expiry in ((1_000_003, 5, 0.2, 0), (1_000_003, 5, 0.2, 3), (65_537, 3, 1 / 3, 2)):
@@ -1730,10 +2024,16 @@ def main() -> int:
 
     lap("phase 7")
 
-    # ---- phase 8: the kernel record ------------------------------------
+    # ---- phase 8: the paper's experiment grid, policies and capacity -----
+    record["experiment"] = _experiment_phase(torch, dev, out_dir)
+
+    lap("phase 8")
+
+    # ---- phase 9: the kernel record ------------------------------------
     # Launches: the telemetry path's run (phase 5) drives the first three,
     # the ML-state run (phase 6) the next two, the serving drive (phase 7)
-    # the last two.
+    # the last two; phase 8's launches of the first three are on a line of
+    # their own ("phase 8 launches").
     kernels = [
         dict(name="chunk_replay", route="cuda",
              source="src/repro_torch/kernels/chunk_replay/csrc/chunk_replay.cu",
@@ -1790,7 +2090,7 @@ def main() -> int:
     record["kernels"] = kernels
     record["ml_launches"] = ml_launches
     record["card"] = smi
-    lap("phase 8")
+    lap("phase 9")
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -21,7 +21,14 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["MetadataStore", "create_store", "record_accesses", "record_new_keys"]
+__all__ = [
+    "MetadataStore",
+    "create_store",
+    "record_accesses",
+    "record_new_keys",
+    "local_hit",
+    "owner_of",
+]
 
 _INT32_MIN = -(2**31)
 
@@ -103,3 +110,23 @@ def record_new_keys(
     store.live[keys] = store.live[keys] | is_new
     store.home[keys] = torch.where(is_new, nodes.to(torch.int32), store.home[keys])
     return record_accesses(store, keys, nodes, now)
+
+
+def local_hit(store: MetadataStore, keys: torch.Tensor, nodes: torch.Tensor) -> torch.Tensor:
+    """``[B]`` bool: does the requesting node hold a replica (Algorithm 1's test)?"""
+    keys = keys.long()
+    return store.hosts[keys, nodes.long()] & store.live[keys]
+
+
+def owner_of(store: MetadataStore, keys: torch.Tensor) -> torch.Tensor:
+    """``[B]`` int32 owner for a remote fetch: the home node if it still
+    holds a replica, else the lowest-indexed holder (node 0 for a key with
+    none, as the reference's argmax of an all-false row)."""
+    keys = keys.long()
+    home = store.home[keys].long()
+    rows = store.hosts[keys]
+    home_ok = rows.gather(1, home[:, None])[:, 0]
+    n = store.num_nodes
+    idx = torch.arange(n, device=rows.device)
+    first = torch.where(rows, idx, n).amin(dim=-1) % n
+    return torch.where(home_ok, home, first).to(torch.int32)

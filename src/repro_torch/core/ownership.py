@@ -16,6 +16,7 @@ __all__ = [
     "ownership_fraction",
     "eligible_hosts",
     "eligible_from_fractions",
+    "first_argmax",
 ]
 
 
@@ -62,10 +63,13 @@ def eligible_from_fractions(f: torch.Tensor, counts: torch.Tensor, h: float) -> 
     counts = counts.to(torch.float32)
     has_traffic = counts.sum(dim=-1) > 0
     none_qualify = has_traffic & ~mask.any(dim=-1)
-    # First index of the maximum, as jnp.argmax breaks ties.
-    n = counts.shape[-1]
-    idx = torch.arange(n, device=counts.device)
-    is_max = counts == counts.amax(dim=-1, keepdim=True)
-    first = torch.where(is_max, idx, n).amin(dim=-1)
-    fallback = idx == first[..., None]
+    fallback = torch.arange(counts.shape[-1], device=counts.device) == first_argmax(counts)[..., None]
     return torch.where(none_qualify[..., None], fallback, mask)
+
+
+def first_argmax(x: torch.Tensor) -> torch.Tensor:
+    """Index of the first maximum along the last dim (int64), as
+    ``jnp.argmax`` breaks ties, on every device."""
+    n = x.shape[-1]
+    idx = torch.arange(n, device=x.device)
+    return torch.where(x == x.amax(dim=-1, keepdim=True), idx, n).amin(dim=-1)

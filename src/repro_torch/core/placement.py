@@ -5,13 +5,13 @@
 (fractions, eligibility with the starvation guard, silence keeps the
 placement, expiry and live mask, the moves) whatever ``backend`` names:
 the reference's two backends compute the same plan. Then the optional
-availability mask and the store update. It is the one sweep of the port:
-``core/policy.py::policy_sweep`` (the chunk engine's) calls it too.
-Only ``capacity_bytes=None`` is ported (bit-exact Algorithm 3); a finite
-capacity raises until the capacity slice. ``apply_plan`` enforces a plan on
-a presence mask, ``PlacementDaemon`` drives ``sweep`` every ``period``
-ticks with the post-sweep count decay. The scan-compatible ``masked_step``
-is the engine's ``core/policy.py::policy_masked_step``.
+availability mask, the capacity projection (``core/costmodel.py``) scored
+by the kernel's ``f`` when ``capacity_bytes`` is given (``None`` skips it:
+bit-exact Algorithm 3), and the store update. ``apply_plan`` enforces a
+plan on a presence mask; ``masked_step`` commits a sweep only on a due
+tick; ``PlacementDaemon`` drives ``sweep`` every ``period`` ticks with the
+post-sweep count decay. The chunk engine's policy step is
+``core/policy.py::policy_masked_step``.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.costmodel import project_capacity
 from repro_torch.core.metadata import MetadataStore
 from repro_torch.core.ownership import eligible_from_fractions, validate_coefficient
 
@@ -30,6 +31,7 @@ __all__ = [
     "redynis_candidates",
     "sweep",
     "apply_plan",
+    "masked_step",
     "PlacementDaemon",
 ]
 
@@ -48,7 +50,8 @@ class PlacementPlan(NamedTuple):
 
 
 class SweepStats(NamedTuple):
-    """Move accounting for one daemon step (0-dim int64 device tensors)."""
+    """Move accounting for one daemon step (0-dim int64 device tensors; the
+    reference's are f32 counts)."""
 
     adds: torch.Tensor  # replicas created
     drops: torch.Tensor  # replicas dropped (threshold + expiry)
@@ -78,6 +81,7 @@ def sweep(
     now: int,
     expiry: int | None = None,
     *,
+    object_bytes: torch.Tensor | None = None,
     capacity_bytes=None,
     backend: str = "jax",
     avail: torch.Tensor | None = None,
@@ -85,11 +89,12 @@ def sweep(
     """One full-cluster analysis pass. Returns the plan and a store with the
     plan reflected (hosts and live updated, counts of expired keys
     cleared); moving the data is the caller's step 4. ``avail`` ``[N]``
-    bool keeps the daemon off down nodes."""
+    bool keeps the daemon off down nodes. ``capacity_bytes`` (``[N]`` or a
+    scalar) trims the plan to per-node replica-byte budgets of
+    ``object_bytes`` (``[K]``, default 1.0 a key: budgets count replicas);
+    ``None`` skips the stage and an infinite budget is an identity."""
     if backend not in SWEEP_BACKENDS:
         raise ValueError(f"unknown sweep backend {backend!r}; expected one of {SWEEP_BACKENDS}")
-    if capacity_bytes is not None:
-        raise NotImplementedError("a finite capacity_bytes is not ported yet: capacity slice")
     # Imported here: the kernel's plain version imports ``repro_torch.core``,
     # whose package module imports this one.
     from repro_torch.kernels.ownership_sweep.ops import ownership_sweep
@@ -99,10 +104,17 @@ def sweep(
         counts, hosts, live, store.last_access, now,
         h=h, expiry=expiry if _expiry_enabled(expiry) else 0,
     )
+    evicted = None
     if avail is not None:
         owners = owners & avail[None, :]
+    if capacity_bytes is not None:
+        obj = (torch.ones(store.num_keys, dtype=torch.float32, device=counts.device)
+               if object_bytes is None else object_bytes)
+        owners, evicted, _ = project_capacity(owners, hosts, f, obj, capacity_bytes)
+    if avail is not None or capacity_bytes is not None:
         to_add, to_drop = owners & ~hosts, hosts & ~owners
-    plan = PlacementPlan(owners=owners, to_add=to_add, to_drop=to_drop, expired=expired, f=f)
+    plan = PlacementPlan(owners=owners, to_add=to_add, to_drop=to_drop, expired=expired, f=f,
+                         capacity_evicted=evicted)
     new_store = store._replace(
         hosts=owners,
         live=live & ~expired,
@@ -129,6 +141,47 @@ def _decay_counts(store: MetadataStore, decay: float, *, always: bool = False) -
     # and synchronise the stream once per sweep.
     factor = torch.full((), decay, dtype=torch.float32, device=counts.device)
     return store._replace(access_counts=torch.floor(counts.to(torch.float32) * factor).to(torch.int32))
+
+
+def _sweep_stats(plan: PlacementPlan) -> SweepStats:
+    """The moves of one committed sweep."""
+    evicted = plan.capacity_evicted
+    return SweepStats(
+        adds=plan.to_add.sum(),
+        drops=plan.to_drop.sum(),
+        expiry_evictions=(plan.to_drop & plan.expired[:, None]).sum(),
+        capacity_evictions=(torch.zeros((), dtype=torch.int64, device=plan.owners.device)
+                            if evicted is None else evicted.sum()),
+    )
+
+
+def _no_moves(device: torch.device) -> SweepStats:
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    return SweepStats(zero, zero, zero, zero)
+
+
+def masked_step(
+    store: MetadataStore,
+    now: int,
+    due: bool,
+    *,
+    h: float,
+    expiry: int | None = None,
+    decay: float = 1.0,
+    object_bytes: torch.Tensor | None = None,
+    capacity_bytes=None,
+    backend: str = "jax",
+    avail: torch.Tensor | None = None,
+) -> tuple[SweepStats, MetadataStore]:
+    """One daemon tick: ``sweep`` and the count decay, committed only when
+    ``due``. ``due`` is known on the host, so an off tick skips the sweep
+    outright where the reference computes and masks it; the results are the
+    same. Returns ``(stats, store)``, the stats all zero off a due tick."""
+    if not due:
+        return _no_moves(store.hosts.device), store
+    plan, swept = sweep(store, h, now, expiry, object_bytes=object_bytes,
+                        capacity_bytes=capacity_bytes, backend=backend, avail=avail)
+    return _sweep_stats(plan), _decay_counts(swept, decay)
 
 
 class PlacementDaemon:
@@ -167,8 +220,17 @@ class PlacementDaemon:
     def due(self, tick: int) -> bool:
         return tick % self.period == 0
 
-    def step(self, store: MetadataStore, now: int, *, capacity_bytes=None,
-             avail: torch.Tensor | None = None) -> tuple[PlacementPlan, MetadataStore]:
-        plan, store = sweep(store, self.h, now, self.expiry, capacity_bytes=capacity_bytes,
-                            backend=self.backend, avail=avail)
+    def step(self, store: MetadataStore, now: int, *, object_bytes: torch.Tensor | None = None,
+             capacity_bytes=None, avail: torch.Tensor | None = None,
+             ) -> tuple[PlacementPlan, MetadataStore]:
+        plan, store = sweep(store, self.h, now, self.expiry, object_bytes=object_bytes,
+                            capacity_bytes=capacity_bytes, backend=self.backend, avail=avail)
         return plan, _decay_counts(store, self.decay)
+
+    def masked_step(self, store: MetadataStore, now: int, due: bool, *,
+                    object_bytes: torch.Tensor | None = None, capacity_bytes=None,
+                    avail: torch.Tensor | None = None) -> tuple[SweepStats, MetadataStore]:
+        """``step`` committed only when ``due``."""
+        return masked_step(store, now, due, h=self.h, expiry=self.expiry, decay=self.decay,
+                           object_bytes=object_bytes, capacity_bytes=capacity_bytes,
+                           backend=self.backend, avail=avail)

@@ -1,19 +1,40 @@
 """The paper's testbed (§8) as a trace-driven simulator, in PyTorch:
-cluster and workload configs (with the M/M/1 ``ServiceConfig``), trace
-generation, ``run_scenario`` and its telemetry (``TelemetryConfig``,
-``SimTrace``). The baseline policies are re-exported for convenience."""
+cluster and workload configs (with the M/M/1 ``ServiceConfig`` and per-node
+replica-byte budgets), trace generation, ``run_scenario``,
+``run_experiment`` (the paper's Figure 2/3 grid with 99% CIs over seeds),
+the ``run_scenario_reference`` oracle and telemetry (``TelemetryConfig``,
+``SimTrace``). The placement policies are re-exported for convenience."""
 
-from repro_torch.core.policy import RedynisPolicy, StaticPolicy
+from repro_torch.core.policy import (
+    POLICIES,
+    CostGreedyPolicy,
+    DecayLFUPolicy,
+    RedynisPolicy,
+    SizeAwarePolicy,
+    StaticPolicy,
+    TopKPolicy,
+    describe_policy,
+    make_policy,
+    parse_policy,
+)
 from repro_torch.kvsim.cluster import (
     WAN5_REGIONS,
     WAN5_RTT_MS,
     ClusterConfig,
     ServiceConfig,
     flat_rtt,
+    normalize_service,
     wan5_cluster,
+    wan5_edge_cluster,
 )
-from repro_torch.kvsim.simulate import SimResult, run_scenario
-from repro_torch.kvsim.telemetry import SimTrace, TelemetryConfig
+from repro_torch.kvsim.simulate import (
+    SimResult,
+    confidence_interval_99,
+    run_experiment,
+    run_scenario,
+    run_scenario_reference,
+)
+from repro_torch.kvsim.telemetry import SimTrace, TelemetryConfig, histogram_quantile
 from repro_torch.kvsim.workload import (
     Trace,
     WorkloadConfig,
@@ -23,21 +44,35 @@ from repro_torch.kvsim.workload import (
 )
 
 __all__ = [
-    "RedynisPolicy",
-    "StaticPolicy",
-    "WAN5_REGIONS",
-    "WAN5_RTT_MS",
-    "ClusterConfig",
-    "ServiceConfig",
-    "flat_rtt",
-    "wan5_cluster",
-    "SimResult",
-    "run_scenario",
-    "SimTrace",
-    "TelemetryConfig",
     "Trace",
     "WorkloadConfig",
-    "diurnal_workload",
     "generate_trace",
     "wan5_workload",
+    "diurnal_workload",
+    "ClusterConfig",
+    "ServiceConfig",
+    "normalize_service",
+    "flat_rtt",
+    "wan5_cluster",
+    "wan5_edge_cluster",
+    "WAN5_REGIONS",
+    "WAN5_RTT_MS",
+    "SimResult",
+    "SimTrace",
+    "TelemetryConfig",
+    "histogram_quantile",
+    "run_scenario",
+    "run_scenario_reference",
+    "run_experiment",
+    "confidence_interval_99",
+    "POLICIES",
+    "CostGreedyPolicy",
+    "DecayLFUPolicy",
+    "RedynisPolicy",
+    "SizeAwarePolicy",
+    "StaticPolicy",
+    "TopKPolicy",
+    "describe_policy",
+    "make_policy",
+    "parse_policy",
 ]

@@ -8,10 +8,14 @@ functions themselves live in ``repro_torch.kernels.chunk_replay.ref``.
 
 ``ClusterConfig`` keeps every field of the reference, defaults included, so
 a reference config converts field by field (``interop.cluster_from_fields``).
-``service`` takes a :class:`ServiceConfig` (the M/M/1 contention model); the
-routing (``routing``), failure-injection (``faults``, ``zone_of``,
-``region_of``) and finite-capacity fields are accepted here but rejected by
-``run_scenario`` until their slices land.
+``service`` takes a :class:`ServiceConfig` (the M/M/1 contention model) and
+``capacity_bytes`` the per-node replica-byte budgets (``wan5_edge_cluster``
+is the preset with one small edge node); the routing (``routing``) and
+failure-injection (``faults``, ``zone_of``, ``region_of``) fields are
+accepted here but rejected by ``run_scenario`` until their slices land.
+The flat (``read_latency``, ``write_latency``) and geo (``*_geo``,
+``nearest_replica_rtt``) latency functions are the config-level spelling of
+``kernels/chunk_replay/ref.py``'s.
 """
 
 from __future__ import annotations
@@ -22,6 +26,11 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.chunk_replay.ref import (
+    nearest_replica_rtt_ref,
+    read_latency_ref,
+    write_latency_ref,
+)
 
 __all__ = [
     "ClusterConfig",
@@ -29,8 +38,14 @@ __all__ = [
     "normalize_service",
     "flat_rtt",
     "wan5_cluster",
+    "wan5_edge_cluster",
     "WAN5_REGIONS",
     "WAN5_RTT_MS",
+    "read_latency",
+    "write_latency",
+    "nearest_replica_rtt",
+    "read_latency_geo",
+    "write_latency_geo",
 ]
 
 
@@ -141,6 +156,11 @@ class ClusterConfig(NamedTuple):
             return tuple(float(c) for c in self.capacity_bytes)
         return (float(self.capacity_bytes),) * self.num_nodes
 
+    def capacity_vector(self, device: str | torch.device | None = None) -> torch.Tensor:
+        """The ``[N]`` f32 per-node budget on ``device`` (``None`` means CUDA)."""
+        return torch.tensor(self.capacity_tuple(), dtype=torch.float32,
+                            device=resolve_device(device))
+
     @property
     def has_finite_capacity(self) -> bool:
         return any(math.isfinite(c) for c in self.capacity_tuple())
@@ -151,3 +171,67 @@ def wan5_cluster(service_ms: float = 10.0, **kwargs) -> ClusterConfig:
     return ClusterConfig(
         num_nodes=5, rtt=WAN5_RTT_MS, service_ms=service_ms, **kwargs
     )
+
+
+def wan5_edge_cluster(
+    edge_capacity_bytes: float = 64 * 1024.0, edge_node: int = 4, **kwargs
+) -> ClusterConfig:
+    """The 5-region WAN with one small edge node (default ap-northeast)
+    whose replica budget is finite while the core regions are unbounded:
+    the capacity projection evicts the edge node's coldest replicas."""
+    caps = tuple(
+        float(edge_capacity_bytes) if i == edge_node else float("inf") for i in range(5)
+    )
+    return wan5_cluster(capacity_bytes=caps, **kwargs)
+
+
+# Flat-model latency functions (paper §8.2), for the degenerate topology.
+
+
+def read_latency(cfg: ClusterConfig, hit: torch.Tensor) -> torch.Tensor:
+    """Per-request read latency: service + RTT on a local miss (Algorithm 1)."""
+    return torch.where(hit, cfg.local_ms, cfg.remote_ms) + cfg.service_ms
+
+
+def write_latency(
+    cfg: ClusterConfig,
+    node: torch.Tensor,
+    sole_local_owner: torch.Tensor,
+    any_owner_remote_from_master: torch.Tensor,
+) -> torch.Tensor:
+    """Per-request write latency (Algorithm 2), flat topology: commit
+    locally when the requesting node is the sole owner; otherwise relay to
+    the master (RTT unless the requester is the master) and post to the
+    owners (RTT if any owner is not the master)."""
+    relay = torch.where(node == cfg.master, 0.0, cfg.remote_ms)
+    post = torch.where(any_owner_remote_from_master, cfg.remote_ms, 0.0)
+    return torch.where(sole_local_owner, 0.0, relay + post) + cfg.service_ms
+
+
+# Geo latency functions over the [N, N] RTT matrix.
+
+
+def nearest_replica_rtt(rtt: torch.Tensor, replicas: torch.Tensor, nodes: torch.Tensor) -> torch.Tensor:
+    """RTT from each requesting node to its nearest replica ``[B]``. An
+    empty replica mask (reachable under a finite budget, which may evict a
+    key's last replica) pays the topology's worst RTT: the backing-store
+    fetch (in the flat testbed exactly ``remote_ms``)."""
+    return nearest_replica_rtt_ref(rtt, replicas, nodes)
+
+
+def read_latency_geo(cfg: ClusterConfig, rtt: torch.Tensor, replicas: torch.Tensor,
+                     nodes: torch.Tensor) -> torch.Tensor:
+    """Geo read path: service + RTT to the nearest replica, + the payload
+    transfer charge when the requesting node holds no visible copy."""
+    return read_latency_ref(rtt, replicas, nodes, service_ms=cfg.service_ms,
+                            xfer_ms=cfg.transfer_ms(cfg.value_bytes))
+
+
+def write_latency_geo(cfg: ClusterConfig, rtt: torch.Tensor, replicas: torch.Tensor,
+                      nodes: torch.Tensor, sole_local_owner: torch.Tensor) -> torch.Tensor:
+    """Geo write path (Algorithm 2 over the RTT matrix): relay to the
+    master, then a parallel post completing at the farthest owner; a link
+    crossing pays the transfer charge."""
+    return write_latency_ref(rtt, replicas, nodes, sole_local_owner, service_ms=cfg.service_ms,
+                             master=cfg.master,
+                             xfer_ms=cfg.transfer_ms(cfg.value_bytes + cfg.key_bytes))

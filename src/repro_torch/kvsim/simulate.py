@@ -1,5 +1,8 @@
 """Trace-driven simulation of the paper's experiment (§8–§9) on one device
-(counterpart of ``src/repro/kvsim/simulate.py::run_scenario``).
+(counterpart of ``src/repro/kvsim/simulate.py``): ``run_scenario`` (one
+policy over one trace), ``run_experiment`` (the paper's Figure 2/3 grid and
+its policy head-to-heads, with 99% CIs over seeds) and
+``run_scenario_reference`` (the per-chunk oracle).
 
 The trace is processed in chunks of ``daemon_interval`` requests. Within a
 chunk every request sees the replica map frozen at chunk start (the paper's
@@ -10,8 +13,10 @@ non-blocking property). Per chunk, in this order:
   2. per-node occupancy is sampled on that same map (the running peak
      starts at the initial map's occupancy);
   3. ``record_accesses`` folds the chunk's accesses into the metadata;
-  4. on a due tick (``chunk % period == 0``) the Redynis sweep
-     (``ownership_sweep``) rewrites the map.
+  4. on a due tick (``chunk % period == 0``) the policy's sweep
+     (``core/policy.py::policy_sweep``; Redynis through ``ownership_sweep``)
+     rewrites the map, trimmed to the per-node replica-byte budgets when
+     the cluster has a finite ``capacity_bytes``.
 
 Static policies never change the map, so their whole trace is replayed in
 one ``chunk_replay`` launch: the same sums, re-associated, as the
@@ -37,9 +42,14 @@ Throughput model: nodes serve their request streams concurrently;
 per-node busy time = Σ latency of requests arriving there; makespan = max
 over nodes; throughput = R / makespan.
 
-This slice covers a materialised trace on one device with routing, faults,
-finite capacity, sharding and telemetry attribution off; each of those
-raises ``NotImplementedError`` naming its later slice.
+``run_scenario_reference`` replays chunk by chunk with the kernels' plain
+versions on whatever device it is given, the policy through its plain
+``decide``, and float64 host accumulators; with telemetry its trace carries
+every request's latency (``raw_latency_ms``).
+
+The port covers a materialised trace on one device with routing, faults,
+sharding and telemetry attribution off; each of those raises
+``NotImplementedError`` naming its later slice.
 """
 
 from __future__ import annotations
@@ -52,15 +62,19 @@ import torch
 from repro_torch.core.metadata import create_store, record_accesses
 from repro_torch.core.policy import (
     PolicyContext,
+    describe_policy,
     policy_masked_step,
+    policy_sweep,
     split_policy,
 )
 from repro_torch.device import resolve_device
 from repro_torch.kernels.chunk_replay.ops import chunk_replay
 from repro_torch.kernels.chunk_replay.ref import (
+    chunk_latency_ref,
     contention_extra_ms_chunks_ref,
     contention_extra_ms_ref,
 )
+from repro_torch.kernels.latency_histogram.ref import latency_histogram_ref
 from repro_torch.kvsim import telemetry as telemetry_mod
 from repro_torch.kvsim.cluster import ClusterConfig, normalize_service
 from repro_torch.kvsim.telemetry import (
@@ -69,11 +83,19 @@ from repro_torch.kvsim.telemetry import (
     TelemetryConfig,
     TelemetryLeaves,
     build_trace,
+    leaves_quantile,
+    merge_leaves,
     normalize_telemetry,
 )
 from repro_torch.kvsim.workload import Trace, WorkloadConfig, generate_trace
 
-__all__ = ["SimResult", "run_scenario"]
+__all__ = [
+    "SimResult",
+    "run_scenario",
+    "run_scenario_reference",
+    "run_experiment",
+    "confidence_interval_99",
+]
 
 
 class SimResult(NamedTuple):
@@ -150,10 +172,11 @@ def _contention_kwargs(cluster: ClusterConfig, read_mode: str, daemon_interval: 
     )
 
 
-def _check_slice(workload, cluster, trace_mode, num_shards) -> None:
-    """Reject what this slice does not cover, naming the slice that will."""
+def _check_slice(workload, cluster, trace_mode="materialized", num_shards=1,
+                 caller="run_scenario") -> None:
+    """Reject what the port does not cover yet, naming the slice that will,
+    and a workload that does not fit the cluster."""
     later = [
-        (cluster.has_finite_capacity, "a finite capacity_bytes (the capacity slice)"),
         (cluster.routing is not None, "ClusterConfig.routing (the routing slice)"),
         (cluster.faults is not None, "ClusterConfig.faults (the failure-injection slice)"),
         (trace_mode == "streamed", "trace_mode='streamed' (the streamed-trace slice)"),
@@ -161,9 +184,9 @@ def _check_slice(workload, cluster, trace_mode, num_shards) -> None:
     ]
     for hit, what in later:
         if hit:
-            raise NotImplementedError(f"run_scenario: {what} is not ported yet")
+            raise NotImplementedError(f"{caller}: {what} is not ported yet")
     if trace_mode != "materialized":
-        raise ValueError(f"run_scenario: unknown trace_mode={trace_mode!r}")
+        raise ValueError(f"{caller}: unknown trace_mode={trace_mode!r}")
     if workload.num_nodes != cluster.num_nodes:
         raise ValueError(
             f"workload has {workload.num_nodes} nodes but cluster topology "
@@ -173,6 +196,31 @@ def _check_slice(workload, cluster, trace_mode, num_shards) -> None:
         raise ValueError(
             f"rtt matrix has {len(cluster.rtt)} rows but num_nodes={cluster.num_nodes}"
         )
+    if isinstance(cluster.capacity_bytes, tuple) and len(cluster.capacity_bytes) != cluster.num_nodes:
+        raise ValueError(
+            f"capacity_bytes has {len(cluster.capacity_bytes)} entries for "
+            f"num_nodes={cluster.num_nodes}"
+        )
+
+
+def _prepare(workload, policy, daemon_interval: int, caller: str) -> tuple:
+    """The policy resolved, validated and split: ``(static_key, params)``."""
+    if policy is None:
+        raise ValueError(
+            f"{caller}: a policy is required — e.g. RedynisPolicy() or "
+            f"StaticPolicy(mode='local')"
+        )
+    if daemon_interval < 1:
+        raise ValueError(f"{caller}: daemon_interval={daemon_interval} must be >= 1")
+    policy = policy.resolve(workload.num_nodes)
+    policy.validate(workload.num_nodes)
+    return split_policy(policy)
+
+
+def _capacity(cluster: ClusterConfig, device: torch.device) -> torch.Tensor | None:
+    """The ``[N]`` budgets on the device, or ``None`` when every budget is
+    infinite (the projection stage is skipped: bit-exact Algorithm 3)."""
+    return cluster.capacity_vector(device) if cluster.has_finite_capacity else None
 
 
 def run_scenario(
@@ -198,21 +246,21 @@ def run_scenario(
     """
     _check_slice(workload, cluster, trace_mode, num_shards)
     tcfg = normalize_telemetry(telemetry)
-    if policy is None:
-        raise ValueError(
-            "run_scenario: a policy is required — e.g. RedynisPolicy() or "
-            "StaticPolicy(mode='local')"
-        )
-    if daemon_interval < 1:
-        raise ValueError(f"run_scenario: daemon_interval={daemon_interval} must be >= 1")
+    static, params = _prepare(workload, policy, daemon_interval, "run_scenario")
     dev = resolve_device(device)
-    policy = policy.resolve(workload.num_nodes)
-    policy.validate(workload.num_nodes)
-    static, params = split_policy(policy)
-
     if trace is None:
         trace = generate_trace(workload, seed, device=dev)
-    trace = trace.to(dev)
+    result, leaves = _simulate(trace.to(dev), cluster, static, params, daemon_interval, tcfg)
+    return result if tcfg is None else (result, build_trace(leaves, tcfg))
+
+
+def _simulate(
+    trace: Trace, cluster: ClusterConfig, static, params: dict, daemon_interval: int,
+    tcfg: TelemetryConfig | None,
+) -> tuple[SimResult, TelemetryLeaves | None]:
+    """The engine on the trace's device: the run's ``SimResult`` and, with
+    ``tcfg``, its telemetry leaves on the host."""
+    dev = trace.keys.device
     keys, nodes, is_read = trace.keys, trace.nodes, trace.is_read
     r = keys.shape[0]
     k, n = trace.natural_node.shape[0], cluster.num_nodes
@@ -257,13 +305,14 @@ def run_scenario(
                 tcfg, lat, hit, nodes, is_read, daemon_interval, num_chunks, n, peak, rho
             )
     else:
-        ctx = PolicyContext(rtt=rtt, object_bytes=obj, capacity_bytes=None, params=params)
+        ctx = PolicyContext(rtt=rtt, object_bytes=obj, capacity_bytes=_capacity(cluster, dev),
+                            params=params)
         valid = torch.ones(min(daemon_interval, r), dtype=torch.bool, device=dev)
         busy = torch.zeros(n, **f32)
         lat_sum = torch.zeros((), **f32)
         hits = torch.zeros((), **i64)
         reads = torch.zeros((), **i64)
-        pstate = ()
+        pstate = static.init(store, ctx)
         per_chunk = []  # device tensors of each chunk, stacked at the end
         for c in range(num_chunks):
             lo, hi = c * daemon_interval, min((c + 1) * daemon_interval, r)
@@ -318,13 +367,13 @@ def run_scenario(
         peak_occupancy_bytes=out[7 + n : 7 + 2 * n],
     )
     if tcfg is None:
-        return result
+        return result, None
     at = 7 + 2 * n
     host = {}
     for name, t in series.items():
         host[name] = out[at : at + t.numel()].reshape(tuple(t.shape))
         at += t.numel()
-    return result, build_trace(_leaves(host, static.is_active, num_chunks), tcfg)
+    return result, _leaves(host, static.is_active, num_chunks)
 
 
 def _active_series(per_chunk: list, n: int) -> dict:
@@ -386,3 +435,256 @@ def _leaves(host: dict, active: bool, num_chunks: int) -> TelemetryLeaves:
         repair_moves=zeros_c, unreachable_frac=zeros_c, wiped_frac=zeros_c,
     ) if active else {}
     return TelemetryLeaves(**host, **routing, **faults)
+
+
+def _reference_engine(
+    trace: Trace, cluster: ClusterConfig, static, params: dict, daemon_interval: int,
+    tcfg: TelemetryConfig | None,
+) -> tuple[SimResult, TelemetryLeaves | None, np.ndarray | None]:
+    """The per-chunk loop of plain PyTorch on the trace's device, the policy
+    through its plain ``decide``, float64 accumulators on the host. Returns
+    ``(result, telemetry leaves | None, per-request latencies | None)``."""
+    dev = trace.keys.device
+    keys, nodes, is_read = trace.keys, trace.nodes, trace.is_read
+    r = keys.shape[0]
+    k, n = trace.natural_node.shape[0], cluster.num_nodes
+    if r == 0:
+        raise ValueError("run_scenario_reference: the trace holds no request")
+    rtt = cluster.rtt_matrix(dev)
+    obj = trace.object_bytes.to(torch.float32)
+    ctx = PolicyContext(rtt=rtt, object_bytes=obj, capacity_bytes=_capacity(cluster, dev),
+                        params=params)
+    store = _seed_store(_initial_hosts(trace.natural_node, k, n, static.initial_placement), k, n)
+    pstate = static.init(store, ctx)
+    contention = _contention_kwargs(cluster, static.read_mode, daemon_interval)
+    sc = _replay_scalars(cluster)
+    num_chunks = -(-r // daemon_interval)
+
+    def host(t: torch.Tensor) -> np.ndarray:
+        return t.to(torch.float64).cpu().numpy()
+
+    busy = np.zeros(n)
+    hits = reads = lat_sum = 0.0
+    moves = np.zeros(4)  # adds, drops, expiry evictions, capacity evictions
+    peak = host(_node_occupancy(store.hosts, obj))
+    per_chunk, raw = [], []
+    for c in range(num_chunks):
+        lo, hi = c * daemon_interval, min((c + 1) * daemon_interval, r)
+        ck, cn, cr = keys[lo:hi], nodes[lo:hi], is_read[lo:hi]
+        lat, read_hits = chunk_latency_ref(store.hosts, ck, cn, cr, rtt, read_mode=static.read_mode,
+                                           **sc)
+        rho = None
+        if contention is not None:
+            extra, rho = contention_extra_ms_ref(
+                store.hosts, ck, cn, cr, torch.ones_like(cr), rtt, obj, **contention)
+            lat = lat + extra
+        busy += host(torch.zeros(n, dtype=torch.float64, device=dev).index_add_(
+            0, cn.long(), lat.to(torch.float64)))
+        c_lat = float(lat.sum(dtype=torch.float64))
+        c_hits, c_reads = float(read_hits.sum()), float(cr.sum())
+        lat_sum += c_lat
+        hits += c_hits
+        reads += c_reads
+        occ = host(_node_occupancy(store.hosts, obj))
+        peak = np.maximum(peak, occ)
+        c_moves = np.zeros(4)
+        if static.is_active:
+            store = record_accesses(store, ck, cn, now=c)
+            if c % static.period == 0:
+                plan, pstate, store = policy_sweep(static, pstate, store, c, ctx, fused=False)
+                evicted = plan.capacity_evicted
+                c_moves = np.array([
+                    float(plan.to_add.sum()), float(plan.to_drop.sum()),
+                    float((plan.to_drop & plan.expired[:, None]).sum()),
+                    0.0 if evicted is None else float(evicted.sum()),
+                ])
+                moves += c_moves
+        if tcfg is not None:
+            group = cn.long() * 2 + cr.long()
+            hist = latency_histogram_ref(
+                lat, group, torch.ones_like(lat), num_groups=2 * n, num_bins=tcfg.num_bins,
+                lo=tcfg.lo_ms, hi=tcfg.hi_ms)
+            per_chunk.append(dict(
+                hist=host(hist), hits=c_hits, reads=c_reads, lat_sum=c_lat, count=float(hi - lo),
+                adds=c_moves[0], drops=c_moves[1], expiry_evictions=c_moves[2],
+                capacity_evictions=c_moves[3], occupancy=occ,
+                load_factor=np.zeros(n) if rho is None else host(rho),
+            ))
+            raw.append(host(lat))
+
+    result = SimResult(
+        throughput_ops_s=r / (float(busy.max()) / 1000.0),
+        hit_rate=hits / max(reads, 1.0),
+        mean_latency_ms=lat_sum / r,
+        node_busy_ms=busy,
+        replication_moves=float(moves[0]),
+        deletion_moves=float(moves[1]),
+        evictions=float(moves[2]),
+        capacity_evictions=float(moves[3]),
+        peak_occupancy_bytes=peak,
+    )
+    if tcfg is None:
+        return result, None, None
+    stacked = {name: np.stack([row[name] for row in per_chunk]) for name in per_chunk[0]}
+    return result, _leaves(stacked, True, num_chunks), np.concatenate(raw)
+
+
+def run_scenario_reference(
+    workload: WorkloadConfig,
+    cluster: ClusterConfig,
+    policy=None,
+    seed: int = 0,
+    daemon_interval: int = 1000,
+    *,
+    device: str | torch.device | None = None,
+    telemetry: TelemetryConfig | None = None,
+) -> SimResult | tuple[SimResult, SimTrace]:
+    """The slow-path oracle of :func:`run_scenario`: one chunk at a time in
+    plain PyTorch on ``device`` (no kernel, on the card too), the policy
+    stepped on the host, float64 accumulators, on ``generate_trace(workload,
+    seed)``. The same semantics, so the results agree with
+    ``run_scenario``'s to the f32 engine's rounding. With ``telemetry`` it
+    returns ``(SimResult, SimTrace)`` and the trace carries
+    ``raw_latency_ms``, every request's latency."""
+    _check_slice(workload, cluster, caller="run_scenario_reference")
+    tcfg = normalize_telemetry(telemetry)
+    static, params = _prepare(workload, policy, daemon_interval, "run_scenario_reference")
+    dev = resolve_device(device)
+    result, leaves, raw = _reference_engine(generate_trace(workload, seed, device=dev), cluster,
+                                            static, params, daemon_interval, tcfg)
+    if tcfg is None:
+        return result
+    return result, build_trace(leaves, tcfg, raw_latency_ms=raw)
+
+
+def confidence_interval_99(samples: np.ndarray) -> tuple:
+    """Mean ± 99% CI half-width (normal approximation, the paper's error
+    bars over repeated iterations). ``samples`` is per seed: an ``[S]``
+    vector of scalars, or an ``[S, ...]`` stack reduced along axis 0 (then
+    the mean and half-width are arrays of the trailing shape). Scalars
+    return plain floats."""
+    samples = np.asarray(samples, dtype=np.float64)
+    s = samples.shape[0]
+    mean = np.mean(samples, axis=0)
+    if s < 2:
+        ci = np.zeros_like(mean)
+    else:
+        ci = 2.576 * (np.std(samples, axis=0, ddof=1) / np.sqrt(s))
+    if mean.ndim == 0:
+        return float(mean), float(ci)
+    return mean, ci
+
+
+def _stack_leaves(leaves: list) -> TelemetryLeaves:
+    """Per-seed leaves stacked on a leading seed axis."""
+    return TelemetryLeaves(*(np.stack([np.asarray(x) for x in field]) for field in zip(*leaves)))
+
+
+def run_experiment(
+    read_fractions: tuple[float, ...] = (1.0, 0.9, 0.75, 0.5),
+    skewed: bool = False,
+    iterations: int = 5,
+    num_requests: int = 100_000,
+    cluster: ClusterConfig | None = None,
+    engine: str = "scan",
+    daemon_interval: int = 1000,
+    policies=None,
+    telemetry: TelemetryConfig | None = None,
+    *,
+    device: str | torch.device | None = None,
+    traces=None,
+    **workload_kwargs,
+) -> dict:
+    """The paper's Figure 2/3 grid, and any policy head-to-head, with 99%
+    CIs over seeds ``0 .. iterations - 1``.
+
+    policies: required list of policy instances. The result maps each
+        policy's label (``describe_policy``) to its read-fraction rows under
+        ``"policies"``; a row carries ``throughput`` and ``ci99``,
+        ``hit_rate`` (the seed mean) and ``hit_rate_ci99``,
+        ``mean_latency_ms`` and the per-seed ``SimResult``s (``"results"``).
+    engine: ``"scan"`` runs :func:`run_scenario`'s engine (the kernels on
+        the card, their plain versions on the CPU); ``"reference"`` runs
+        :func:`run_scenario_reference`'s loop.
+    telemetry: with an enabled :class:`TelemetryConfig` each row also has
+        ``p99_latency_ms`` with its ``p99_ci99`` band (over the per-seed
+        P99s), the ``quantiles`` block and the seed-merged ``trace``
+        (histograms summed over seeds).
+    device: where the runs go (``None`` means CUDA).
+    traces: optional ``(WorkloadConfig, seed) -> Trace``, the trace of
+        each seed (``run_scenario``'s ``trace=``); by default
+        ``generate_trace(workload, seed)`` on the device.
+
+    Seeds and policies run as a Python loop of engine calls, each seed's
+    trace shared by every policy; ``"num_batched_calls"`` counts the
+    engine calls (0 for the reference engine).
+    """
+    if cluster is None:
+        cluster = ClusterConfig()
+    workload_kwargs.setdefault("num_nodes", cluster.num_nodes)
+    if engine not in ("scan", "reference"):
+        raise ValueError(f"unknown engine {engine!r}")
+    tcfg = normalize_telemetry(telemetry)
+    if policies is None:
+        raise ValueError(
+            "run_experiment: policies is required — e.g. policies=["
+            "StaticPolicy(mode='remote'), RedynisPolicy()]"
+        )
+    n = cluster.num_nodes
+    named = []
+    for pol in policies:
+        pol = pol.resolve(n)
+        pol.validate(n)
+        named.append((describe_policy(pol), split_policy(pol)))
+    labels = [label for label, _ in named]
+    if len(set(labels)) != len(labels):
+        raise ValueError(
+            f"duplicate policy labels in {labels}; vary at least one hyperparameter per entry"
+        )
+    if daemon_interval < 1:
+        raise ValueError(f"run_experiment: daemon_interval={daemon_interval} must be >= 1")
+    dev = resolve_device(device)
+    engine_fn = _simulate if engine == "scan" else _reference_engine
+
+    out: dict = {
+        "skewed": skewed,
+        "read_fractions": list(read_fractions),
+        "policies": {label: [] for label in labels},
+        "num_batched_calls": 0,
+    }
+    for rf in read_fractions:
+        wl = WorkloadConfig(num_requests=num_requests, read_fraction=rf, skewed=skewed,
+                            **workload_kwargs)
+        _check_slice(wl, cluster, caller="run_experiment")
+        runs = [[] for _ in named]  # per policy: (SimResult, leaves) per seed
+        for seed in range(iterations):
+            trace = generate_trace(wl, seed, device=dev) if traces is None else traces(wl, seed)
+            trace = trace.to(dev)
+            for row, (_, (static, params)) in zip(runs, named):
+                row.append(engine_fn(trace, cluster, static, params, daemon_interval, tcfg)[:2])
+                out["num_batched_calls"] += engine == "scan"
+            del trace
+        for label, row in zip(labels, runs):
+            results = [res for res, _ in row]
+            mean, ci = confidence_interval_99(np.array([x.throughput_ops_s for x in results]))
+            hit_mean, hit_ci = confidence_interval_99(np.array([x.hit_rate for x in results]))
+            entry = {
+                "read_fraction": rf,
+                "throughput": mean,
+                "ci99": ci,
+                "hit_rate": hit_mean,
+                "hit_rate_ci99": hit_ci,
+                "mean_latency_ms": float(np.mean([x.mean_latency_ms for x in results])),
+                "results": results,
+            }
+            if tcfg is not None:
+                leaves = [lv for _, lv in row]
+                p99_mean, p99_ci = confidence_interval_99(
+                    np.array([leaves_quantile(lv, tcfg, 0.99) for lv in leaves]))
+                merged = build_trace(merge_leaves(_stack_leaves(leaves)), tcfg)
+                entry["p99_latency_ms"] = p99_mean
+                entry["p99_ci99"] = p99_ci
+                entry["quantiles"] = merged.tail_summary()
+                entry["trace"] = merged
+            out["policies"][label].append(entry)
+    return out

@@ -211,13 +211,12 @@ class _SubConfig:
     [
         (ClusterConfig(routing=object()), {}, "routing"),
         (ClusterConfig(faults=object()), {}, "faults"),
-        (ClusterConfig(capacity_bytes=4096.0), {}, "capacity_bytes"),
         (ClusterConfig(), {"telemetry": TelemetryConfig(attribution=_SubConfig())}, "attribution"),
         (ClusterConfig(), {"telemetry": TelemetryConfig(flight=_SubConfig())}, "flight"),
         (ClusterConfig(), {"trace_mode": "streamed"}, "streamed"),
         (ClusterConfig(), {"num_shards": 2}, "num_shards"),
     ],
-    ids=["routing", "faults", "capacity", "attribution", "flight", "streamed", "shards"],
+    ids=["routing", "faults", "attribution", "flight", "streamed", "shards"],
 )
 def test_out_of_slice_inputs_raise(cluster, kwargs, what):
     with pytest.raises(NotImplementedError, match=what):
@@ -283,6 +282,50 @@ def test_chunk_replay_kernel_matches_plain_version(cuda, mode, bins):
         assert int(got[i]) == int(want[i])
     if bins:
         assert torch.equal(got[5], want[5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["map", "no_local"])
+@pytest.mark.parametrize("b", [10_000, 400_000], ids=["cluster", "packed"])
+def test_chunk_replay_kernel_takes_empty_replica_rows(cuda, mode, b):
+    """Keys with no replica (a finite budget can evict a key's last one)
+    pay the worst RTT in both launch modes; whole-ms latencies, so exact."""
+    from repro_torch.kernels.chunk_replay.ops import chunk_replay, launch_shape
+    from repro_torch.kernels.chunk_replay.ref import chunk_replay_ref
+
+    rng = np.random.default_rng(2)
+    k, n = 50_000, 3
+    assert launch_shape(b, n, k)[0] == ("cluster" if b == 10_000 else "packed")
+    hosts = rng.random((k, n)) < 0.4
+    hosts[rng.random(k) < 0.3] = False
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        hosts, rng.integers(0, k, b).astype(np.int32), rng.integers(0, n, b).astype(np.int32),
+        rng.random(b) < 0.75, rng.random(b) < 0.95)]
+    kw = dict(service_ms=10.0, master=1, xfer_read_ms=2.0, xfer_write_ms=3.0, read_mode=mode,
+              num_bins=128)
+    rtt = ClusterConfig().rtt_matrix(cuda)
+    got, want = chunk_replay(*args, rtt, **kw), chunk_replay_ref(*args, rtt, **kw)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_project_capacity_on_the_card_equals_the_cpu(cuda):
+    """Lognormal sizes: the f64 prefix sums are exact, so the card admits
+    the keys the CPU admits."""
+    from repro_torch.core.costmodel import project_capacity
+
+    rng = np.random.default_rng(3)
+    k, n = 100_000, 5
+    counts = rng.integers(0, 4, (k, n))
+    total = counts.sum(1, keepdims=True)
+    f = np.where(total > 0, counts / np.maximum(total, 1), 0).astype(np.float32)
+    arrays = (rng.random((k, n)) < 0.6, rng.random((k, n)) < 0.5, f,
+              (1024 * np.exp(0.5 * rng.standard_normal(k))).astype(np.float32))
+    budget = np.float32(1024 * k / 10)
+    want = project_capacity(*(torch.from_numpy(a) for a in arrays), budget)
+    got = project_capacity(*(torch.from_numpy(a).to(cuda) for a in arrays), budget)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    assert want[1].any() and want[2].any()
 
 
 @pytest.mark.cuda

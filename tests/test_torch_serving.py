@@ -307,8 +307,12 @@ def test_placement_daemon_step_matches_jax(expiry, decay, avail):
 
 def test_placement_rejects_what_is_not_ported():
     store = metadata.create_store(4, 2, "cpu")
-    with pytest.raises(NotImplementedError, match="capacity"):
-        placement.sweep(store, 0.5, 0, capacity_bytes=torch.ones(2))
+    # A finite budget is ported (tests/test_torch_capacity.py holds it to
+    # JAX): a zero budget admits no replica.
+    plan, _ = placement.sweep(store._replace(hosts=torch.ones(4, 2, dtype=torch.bool),
+                                             live=torch.ones(4, dtype=torch.bool)),
+                              0.5, 0, capacity_bytes=torch.zeros(2))
+    assert not plan.owners.any() and plan.capacity_evicted.all()
     with pytest.raises(ValueError, match="backend"):
         placement.PlacementDaemon(2, backend="tpu")
 
