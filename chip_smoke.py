@@ -27,9 +27,16 @@ paper's size (card against the CPU port on the same traces), the policy
 head-to-head of ``benchmarks/policy_matrix.py`` and the budgets of
 ``benchmarks/capacity_sweep.py`` at 1 M keys and 10 M requests (held
 against the plain-version engine), with the capacity projection's device
-time a sweep. Phase 2 also holds ``chunk_replay`` on empty replica rows
-and ``flash_attention``'s TMA/wgmma kernel through every mask at D 128 and
-64, and phase 7 checks that every prefill layer went through it. It times
+time a sweep. Phase 10 drives the routing tier and failure injection:
+``benchmarks/directory_staleness.py`` and ``availability.py`` at their
+default sizes (card against the CPU port, and the benchmarks' own checks),
+then publish lags, a bounded router cache, a region crash and a partition
+at 10 M requests over 1 M keys, each Redynis row held against the
+plain-version engine. Phase 2 also holds ``chunk_replay`` on empty replica
+rows and on the fault path's operands (negative ``extra_ms``, refused rows,
+a dead node's column), and ``flash_attention``'s TMA/wgmma kernel through
+every mask at D 128 and 64, and phase 7 checks that every prefill layer
+went through it. It times
 each kernel (phase 9 prints the record): attention beside SDPA at every
 prefill length, the sweep on int32 and f32 counts, the histogram at the
 static path's full-size shape on its own latencies and on log-uniform
@@ -44,6 +51,7 @@ checkout. The last line of its output is the JSON device record.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -1097,6 +1105,307 @@ def _experiment_phase(torch, dev, out_dir) -> dict:
     return rec
 
 
+def _check_tiers(a, b, ctx: str) -> None:
+    """The routing and failure-injection counters of two ``SimResult``s
+    of one trace: exact (integer counts)."""
+    for f in ("router_consults", "directory_fetches", "mis_routes", "stale_consults",
+              "unavailable_reads", "unavailable_writes", "failovers", "repair_moves"):
+        assert getattr(a, f) == getattr(b, f), (ctx, f, getattr(a, f), getattr(b, f))
+
+
+def _check_tier_series(a, b, ctx: str) -> None:
+    """The per-chunk routing and failure-injection series of two
+    ``SimTrace``s of one trace: exact (counts, and f32 fractions of equal
+    counts)."""
+    for f in ("router_consults", "directory_fetches", "mis_routes", "stale_consults",
+              "stale_age_hist", "unavailable_reads", "unavailable_writes", "failovers",
+              "repair_moves", "unreachable_frac", "wiped_frac", "availability"):
+        np.testing.assert_array_equal(np.asarray(getattr(a, f)), np.asarray(getattr(b, f)),
+                                      err_msg=f"{ctx} {f}")
+
+
+def _identical(a, b, ctx: str) -> None:
+    """Two results (``SimResult`` or ``SimTrace``) bit for bit."""
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        assert (x is None) == (y is None), (ctx, f)
+        if x is not None:
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y), err_msg=f"{ctx} {f}")
+
+
+def _faults_routing_phase(torch, dev, out_dir) -> dict:
+    """Phase 10: the routing tier and failure injection.
+
+    (a) ``benchmarks/directory_staleness.py`` and ``availability.py`` at
+        their default sizes, each run on the card and through the port on
+        the CPU on the same trace, and the benchmarks' own checks;
+    (b) full width on the card: 10 M requests over 1 M keys, 1,000 chunks,
+        the publish lags, a bounded cache, a region crash and a partition,
+        each with its wall time, simulated requests/s and peak memory, seed
+        0 of every Redynis row held against the plain-version engine, and a
+        profile of each run's device time and launches a chunk.
+
+    The kernel counters are zeroed before (a) and read after (b), before any
+    plain-version run or profile. Returns the phase's record."""
+    from repro_torch.kernels.chunk_replay.ops import chunk_replay
+    from repro_torch.kernels.latency_histogram.ops import latency_histogram
+    from repro_torch.kernels.ownership_sweep.ops import ownership_sweep
+    from repro_torch.kvsim import (
+        FaultConfig,
+        FaultEvent,
+        RedynisPolicy,
+        RoutingConfig,
+        StaticPolicy,
+        TelemetryConfig,
+        blast_radius_rows,
+        diurnal_workload,
+        generate_trace,
+        region_outage,
+        run_scenario,
+        wan5_cluster,
+        wan5_workload,
+    )
+
+    rec: dict = {"paper": {}, "full": {}}
+    tcfg = TelemetryConfig()
+    expect = {"chunk_replay": 0, "ownership_sweep": 0, "latency_histogram": 0}
+
+    def card_run(wl, cl, pol, trace, interval, telemetry=tcfg):
+        """One run on the card; every routing or fault run is a chunk loop."""
+        out = run_scenario(wl, cl, pol, daemon_interval=interval, trace=trace, telemetry=telemetry)
+        chunks = -(-wl.num_requests // interval)
+        loop = pol.is_active or cl.routing is not None or cl.faults is not None
+        expect["chunk_replay"] += chunks if loop else 1
+        expect["ownership_sweep"] += chunks if isinstance(pol, RedynisPolicy) else 0
+        expect["latency_histogram"] += int(not loop and telemetry is not None)
+        return out
+
+    def held(wl, cl, pol, trace, interval, ctx):
+        """The run on the card held against the CPU port on the same trace."""
+        a, ta = card_run(wl, cl, pol, trace, interval)
+        c, tc = run_scenario(wl, cl, pol, daemon_interval=interval, trace=trace.cpu(), device="cpu",
+                             telemetry=tcfg)
+        _check_result(a, c, ctx)
+        _check_tiers(a, c, ctx)
+        _check_trace(ta, tc, ctx)
+        _check_tier_series(ta, tc, ctx)
+        return a, ta
+
+    rec["held_at_start"] = torch.cuda.memory_allocated()
+    wan5 = wan5_cluster()
+    # (b)'s traces and runs, warmed up outside the counts and the clock.
+    full = dict(num_requests=GRID_REQUESTS, num_keys=FULL_KEYS, affinity=0.8, read_fraction=0.7)
+    wl_d, wl_w = diurnal_workload(**full), wan5_workload(**full)
+    traces = {"diurnal": generate_trace(wl_d, 0, device=dev), "wan5": generate_trace(wl_w, 0, device=dev)}
+    workloads = {"diurnal": wl_d, "wan5": wl_w}
+    chunks = -(-GRID_REQUESTS // FULL_INTERVAL)
+    c0, c1 = chunks // 3, chunks * 8 // 15  # chunks [333, 533) of 1,000
+
+    def crash(mode="crash", scale=1):  # the outage, on a trace of chunks // scale chunks
+        return region_outage(0, c0 // scale, (c1 - c0) // scale, mode=mode)
+
+    bounded = RoutingConfig(publish_lag_chunks=8, cache_entries=100_000, decay=0.9)
+    runs_b = [
+        ("diurnal redynis lag 0", "diurnal", lambda s: dict(routing=RoutingConfig()), RedynisPolicy()),
+        ("diurnal redynis lag 8", "diurnal", lambda s: dict(routing=RoutingConfig(publish_lag_chunks=8)),
+         RedynisPolicy()),
+        ("diurnal redynis lag 64", "diurnal", lambda s: dict(routing=RoutingConfig(publish_lag_chunks=64)),
+         RedynisPolicy()),
+        ("diurnal redynis lag 8 cache 100000", "diurnal", lambda s: dict(routing=bounded), RedynisPolicy()),
+        ("diurnal remote lag 8 cache 100000", "diurnal", lambda s: dict(routing=bounded), StaticPolicy("remote")),
+        ("wan5 redynis crash", "wan5", lambda s: dict(faults=crash(scale=s)), RedynisPolicy()),
+        ("wan5 replicated crash", "wan5", lambda s: dict(faults=crash(scale=s)), StaticPolicy("replicated")),
+        ("wan5 remote crash", "wan5", lambda s: dict(faults=crash(scale=s)), StaticPolicy("remote")),
+        ("wan5 redynis partition", "wan5", lambda s: dict(faults=crash("partition", s)), RedynisPolicy()),
+        ("diurnal redynis lag 8 crash home 0", "diurnal",
+         lambda s: dict(faults=crash(scale=s), routing=RoutingConfig(publish_lag_chunks=8)), RedynisPolicy()),
+    ]
+    # The first 20 chunks of each shape.
+    for _, name, cl_of, pol in runs_b[:1] + runs_b[5:6]:
+        sub_r = 20 * FULL_INTERVAL
+        t = traces[name]
+        run_scenario(workloads[name]._replace(num_requests=sub_r), wan5._replace(**cl_of(50)), pol,
+                     daemon_interval=FULL_INTERVAL, telemetry=tcfg,
+                     trace=t._replace(keys=t.keys[:sub_r], nodes=t.nodes[:sub_r], is_read=t.is_read[:sub_r]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in (chunk_replay, ownership_sweep, latency_histogram):
+        fn.launches = 0
+    paper = dict(num_requests=100_000, num_keys=1_000, affinity=0.8, read_fraction=0.7)
+    interval = 200
+    checks = {}
+    t_a = time.perf_counter()
+
+    # (a) directory_staleness.py: redynis against the publish lag, diurnal wan5.
+    wl_s = diurnal_workload(**paper)
+    trace_s = generate_trace(wl_s, 0, device=dev)
+    off = card_run(wl_s, wan5, RedynisPolicy(), trace_s, interval)
+    disabled = card_run(wl_s, wan5._replace(routing=RoutingConfig(enabled=False)), RedynisPolicy(),
+                        trace_s, interval)
+    for x, y in zip(off, disabled):
+        _identical(x, y, "phase 10 routing off")
+    checks["routing_off_bitexact"] = True
+    lag_rows = {}
+    for label, routing in (("lag 0", RoutingConfig()), ("lag 8", RoutingConfig(publish_lag_chunks=8)),
+                           ("lag 64", RoutingConfig(publish_lag_chunks=64)),
+                           ("lag 8 cache 50", RoutingConfig(publish_lag_chunks=8, cache_entries=50,
+                                                            decay=0.9))):
+        a, ta = held(wl_s, wan5._replace(routing=routing), RedynisPolicy(), trace_s, interval,
+                     f"phase 10 staleness {label}")
+        lag_rows[label] = dict(p99_ms=ta.quantile(0.99), p99_read_ms=ta.quantile(0.99, "read"),
+                               mean_latency_ms=a.mean_latency_ms, mis_routes=a.mis_routes,
+                               stale_consults=a.stale_consults, directory_fetches=a.directory_fetches,
+                               router_consults=a.router_consults,
+                               peak_mis_route_rate=float(ta.mis_route_rate.max()))
+        r = lag_rows[label]
+        print(f"phase 10 staleness {label}: p99 {r['p99_ms']:.3f} ms, read p99 {r['p99_read_ms']:.3f} ms, "
+              f"mean {r['mean_latency_ms']:.4f} ms, consults {a.router_consults:.0f}, fetches "
+              f"{a.directory_fetches:.0f}, stale {a.stale_consults:.0f}, mis-routes {a.mis_routes:.0f} "
+              f"(peak rate {r['peak_mis_route_rate']:.4f}); card = CPU port")
+    ladder = [lag_rows[f"lag {lag}"] for lag in (0, 8, 64)]
+    checks["p99_read_monotone_in_lag"] = all(
+        x["p99_read_ms"] <= y["p99_read_ms"] for x, y in zip(ladder, ladder[1:]))
+    checks["mis_routes_monotone_in_lag"] = all(
+        x["mis_routes"] <= y["mis_routes"] for x, y in zip(ladder, ladder[1:]))
+    assert lag_rows["lag 0"]["mis_routes"] == 0 and lag_rows["lag 8"]["mis_routes"] > 0, lag_rows
+    assert lag_rows["lag 8 cache 50"]["directory_fetches"] > 0, lag_rows
+    rec["paper"]["staleness"] = lag_rows
+    del trace_s
+
+    # (a) availability.py: a region-0 crash over chunks [166, 266) of 500.
+    wl_a = wan5_workload(**paper)
+    trace_a = generate_trace(wl_a, 0, device=dev)
+    chunks_a = -(-wl_a.num_requests // interval)
+    start, length = chunks_a // 3, max(chunks_a // 5, 2)
+    outage = region_outage(0, start, length)
+    off = card_run(wl_a, wan5, RedynisPolicy(), trace_a, interval)
+    for faults in (FaultConfig(enabled=False), FaultConfig(),
+                   FaultConfig(events=(FaultEvent(target=1, start_chunk=10**6),))):
+        got = card_run(wl_a, wan5._replace(faults=faults), RedynisPolicy(), trace_a, interval)
+        _identical(off[0], got[0], f"phase 10 faults off {faults}")
+        for f in ("hist_group", "chunk_hist", "mean_latency_ms", "moves", "occupancy_bytes"):
+            np.testing.assert_array_equal(getattr(off[1], f), getattr(got[1], f), err_msg=f)
+    checks["fault_off_bitexact"] = checks["all_up_equals_off"] = True
+    avail_rows, blast = {}, []
+    runs_a = [("redynis", outage, RedynisPolicy()), ("static:replicated", outage, StaticPolicy("replicated")),
+              ("static:remote", outage, StaticPolicy("remote")),
+              ("redynis partition", region_outage(0, start, length, mode="partition"), RedynisPolicy())]
+    for label, faults, pol in runs_a:
+        a, ta = held(wl_a, wan5._replace(faults=faults), pol, trace_a, interval,
+                     f"phase 10 availability {label}")
+        window = ta.availability[start:start + length]
+        avail_rows[label] = dict(
+            availability_min=float(ta.availability.min()), availability_outage_mean=float(window.mean()),
+            p99_ms=ta.quantile(0.99), mean_latency_ms=a.mean_latency_ms, hit_rate=a.hit_rate,
+            unavailable_reads=a.unavailable_reads, unavailable_writes=a.unavailable_writes,
+            failovers=a.failovers, repair_moves=a.repair_moves,
+            recovery_chunks=ta.recovery_chunks(start),
+            peak_unreachable_frac=float(ta.unreachable_frac.max()),
+            peak_wiped_frac=float(ta.wiped_frac.max()))
+        if label == "redynis":
+            blast = blast_radius_rows(faults, num_chunks=chunks_a, unreachable_frac=ta.unreachable_frac,
+                                      wiped_frac=ta.wiped_frac)
+        r = avail_rows[label]
+        print(f"phase 10 availability {label}: min {r['availability_min']:.4f}, outage mean "
+              f"{r['availability_outage_mean']:.4f}, p99 {r['p99_ms']:.3f} ms, mean "
+              f"{r['mean_latency_ms']:.4f} ms, unavailable {a.unavailable_reads:.0f} reads / "
+              f"{a.unavailable_writes:.0f} writes, failovers {a.failovers:.0f}, repairs "
+              f"{a.repair_moves:.0f}, recovery {r['recovery_chunks']} chunks, peak unreachable "
+              f"{r['peak_unreachable_frac']:.4f}, wiped {r['peak_wiped_frac']:.4f}; card = CPU port")
+    ladder = []
+    for d in sorted({max(length // 4, 1), max(length // 2, 1), length}):
+        res = card_run(wl_a, wan5._replace(faults=region_outage(0, start, d)), RedynisPolicy(), trace_a,
+                       interval, telemetry=None)
+        ladder.append(dict(duration_chunks=d, unavailable_total=res.unavailable_reads + res.unavailable_writes))
+    checks["repair_asymmetry"] = (avail_rows["redynis"]["repair_moves"] > 0
+                                  and avail_rows["static:replicated"]["repair_moves"] == 0
+                                  and avail_rows["static:remote"]["repair_moves"] == 0)
+    checks["blast_radius_reported"] = bool(blast) and all(
+        np.isfinite(r["blast_radius_unreachable"]) and np.isfinite(r["blast_radius_wiped"]) for r in blast)
+    checks["unavailability_monotone_in_duration"] = all(
+        x["unavailable_total"] <= y["unavailable_total"] for x, y in zip(ladder, ladder[1:]))
+    print(f"phase 10 availability ladder (unavailable requests by outage chunks): "
+          + ", ".join(f"{r['duration_chunks']}: {r['unavailable_total']:.0f}" for r in ladder)
+          + f"; blast radius {blast}")
+    print(f"phase 10 (a) checks {json.dumps(checks)}")
+    assert all(checks.values()), checks
+    rec["paper"].update(availability=avail_rows, ladder=ladder, blast_radius=blast, checks=checks)
+    del trace_a
+
+    print(f"phase 10 (a) took {time.perf_counter() - t_a:.1f} s")
+
+    # (b) Full width on the card.
+    t_b = time.perf_counter()
+    results = {}
+    for label, name, cl_of, pol in runs_b:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res, tr = card_run(workloads[name], wan5._replace(**cl_of(1)), pol, traces[name], FULL_INTERVAL)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        assert np.isfinite(res.throughput_ops_s) and tr.hist.sum() + res.unavailable_reads \
+            + res.unavailable_writes == GRID_REQUESTS, label
+        results[label] = (res, tr)
+        rec["full"][label] = dict(
+            wall_s=wall, sim_requests_per_s=GRID_REQUESTS / wall, max_memory_allocated=peak,
+            throughput_ops_s=res.throughput_ops_s, hit_rate=res.hit_rate,
+            mean_latency_ms=res.mean_latency_ms, p99_ms=tr.quantile(0.99),
+            replication_moves=res.replication_moves,
+            **{f: getattr(res, f) for f in ("router_consults", "directory_fetches", "mis_routes",
+                                            "stale_consults", "unavailable_reads", "unavailable_writes",
+                                            "failovers", "repair_moves")})
+        print(f"phase 10 full {label}: wall {wall:.3f} s, {GRID_REQUESTS / wall:.0f} simulated req/s, "
+              f"max_memory_allocated {peak} bytes ({peak - rec['held_at_start']} of its own); "
+              f"hit_rate {res.hit_rate:.4f}, mean "
+              f"{res.mean_latency_ms:.3f} ms, p99 {tr.quantile(0.99):.3f} ms, moves "
+              f"{res.replication_moves:.0f}; consults {res.router_consults:.0f}, fetches "
+              f"{res.directory_fetches:.0f}, mis-routes {res.mis_routes:.0f}; unavailable "
+              f"{res.unavailable_reads:.0f} / {res.unavailable_writes:.0f}, failovers {res.failovers:.0f}, "
+              f"repairs {res.repair_moves:.0f}")
+    launches = {"chunk_replay": chunk_replay.launches, "ownership_sweep": ownership_sweep.launches,
+                "latency_histogram": latency_histogram.launches}
+    assert launches == expect, (launches, expect)
+    print(f"phase 10 launches {json.dumps(launches)}")
+    print(f"phase 10 held {rec['held_at_start']} bytes of earlier phases' tensors at its start")
+    rec["launches"] = launches
+    full_rows = rec["full"]
+    assert full_rows["diurnal redynis lag 0"]["mis_routes"] == 0
+    assert full_rows["diurnal redynis lag 64"]["mis_routes"] >= full_rows["diurnal redynis lag 8"]["mis_routes"] > 0
+    assert full_rows["wan5 redynis crash"]["repair_moves"] > 0
+    assert full_rows["wan5 remote crash"]["repair_moves"] == full_rows["wan5 replicated crash"]["repair_moves"] == 0
+
+    # Seed 0 of every Redynis row against the plain-version engine on the card.
+    with _plain_versions():
+        for label, name, cl_of, pol in runs_b:
+            if not isinstance(pol, RedynisPolicy):
+                continue
+            plain, ptr = run_scenario(workloads[name], wan5._replace(**cl_of(1)), pol,
+                                      daemon_interval=FULL_INTERVAL, trace=traces[name], telemetry=tcfg)
+            res, tr = results[label]
+            _check_tiers(res, plain, f"phase 10 full {label}")
+            _check_tier_series(tr, ptr, f"phase 10 full {label}")
+            rel = max(_check_result(res, plain, f"phase 10 full {label}"),
+                      _check_trace(tr, ptr, f"phase 10 full {label}"))
+            full_rows[label]["plain_max_rel_diff"] = rel
+    print(f"phase 10 (b) ok: {sum('plain_max_rel_diff' in r for r in full_rows.values())} Redynis rows "
+          f"match the plain-version engine (counters, histograms and the routing and fault series exact), "
+          f"max rel diff {max(r.get('plain_max_rel_diff', 0.0) for r in full_rows.values())}")
+
+    print(f"phase 10 (b) runs and plain-version runs took {time.perf_counter() - t_b:.1f} s")
+    # Where each run's time goes: its first 20 chunks, the outage scaled into them.
+    t_p = time.perf_counter()
+    for label, name, cl_of, pol in runs_b:
+        full_rows[label]["profile"] = _profile_window(
+            torch, traces[name], workloads[name], wan5._replace(**cl_of(chunks // 20)), pol, run_scenario,
+            out_dir, unprofiled_chunk_ms=full_rows[label]["wall_s"] * 1e3 / chunks,
+            label=f"phase 10 {label}", telemetry=tcfg, chunks=20)
+    print(f"phase 10 profiles took {time.perf_counter() - t_p:.1f} s")
+    del traces, results
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1151,7 +1460,10 @@ def main() -> int:
     def lap(phase: str) -> None:
         now = time.perf_counter()
         record["phase_s"][phase] = now - mark[1]
-        print(f"{phase} took {now - mark[1]:.1f} s ({now - mark[0]:.1f} s since the start)")
+        held = torch.cuda.memory_allocated()
+        record.setdefault("held_after", {})[phase] = held
+        print(f"{phase} took {now - mark[1]:.1f} s ({now - mark[0]:.1f} s since the start); "
+              f"{held} bytes of tensors still allocated")
         mark[1] = now
 
     # ---- phase 1: device and build -------------------------------------
@@ -1249,6 +1561,41 @@ def main() -> int:
     print(f"phase 2 chunk_replay empty replica rows ok: {ecases} cases (mask 0 on 30 % and on all "
           f"keys; map and no_local; N 3 and 5; a chunk (cluster) and a whole trace (packed)), "
           f"every output exact")
+    # The failure-injection path's operands: a failover delta down to -300 ms
+    # (negative latencies, binned to 0), a chunk of refused rows only, a down
+    # node's whole column of the map False. Both launch modes, with and
+    # without bins; whole-ms latencies, so every output is exact.
+    fcases = 0
+    rtt_w = wan5_cluster().rtt_matrix(dev)
+    for b_f, k_f, want_mode in ((10_000, 50_000, "cluster"), (1_000_000, 50_000, "packed")):
+        assert launch_shape(b_f, 5, k_f)[0] == want_mode, (b_f, k_f)
+        for case in ("negative_extra", "all_refused", "dead_column"):
+            hosts_f = rng.random((k_f, 5)) < 0.4
+            valid_f = rng.random(b_f) < 0.9
+            if case == "dead_column":
+                hosts_f[:, 0] = False
+            if case == "all_refused":
+                valid_f[:] = False
+            args = [cuda_t(hosts_f), cuda_t(rng.integers(0, k_f, b_f).astype(np.int32)),
+                    cuda_t(rng.integers(0, 5, b_f).astype(np.int32)), cuda_t(rng.random(b_f) < 0.7),
+                    cuda_t(valid_f), rtt_w]
+            extra_f = cuda_t(rng.integers(-300, 30, b_f).astype(np.float32))
+            for bins in (0, 128):
+                kw = dict(service_ms=10.0, master=0, xfer_read_ms=2.0, xfer_write_ms=3.0,
+                          read_mode="map", num_bins=bins, extra_ms=extra_f)
+                outs = [(torch.empty(b_f, device=dev), torch.empty(b_f, dtype=torch.bool, device=dev))
+                        for _ in range(2)]
+                got = chunk_replay(*args, **kw, lat_out=outs[0][0], hit_out=outs[0][1])
+                want = chunk_replay_ref(*args, **kw, lat_out=outs[1][0], hit_out=outs[1][1])
+                ctx = f"chunk_replay fault path {case} B={b_f} bins={bins}"
+                assert all(g is None and w is None or torch.equal(g, w) for g, w in zip(got, want)), ctx
+                assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1]), ctx
+                assert case != "all_refused" or (int(got[4]) == 0 and not bool(got[0].any())), ctx
+                assert case == "all_refused" or bool((outs[0][0] < 0).any()), ctx
+                fcases += 1
+    print(f"phase 2 chunk_replay fault-path operands ok: {fcases} cases (extra_ms in [-300, 30) ms, "
+          f"every row refused, a node's column all False; a chunk (cluster) and a whole trace "
+          f"(packed), bins 0 and 128), every output exact")
 
     err_sweep = 0.0
     for k, n, h, expiry in ((1_000_003, 5, 0.2, 0), (1_000_003, 5, 0.2, 3), (65_537, 3, 1 / 3, 2)):
@@ -1410,6 +1757,10 @@ def main() -> int:
           f"bf16 {err_dec[torch.bfloat16]} (scaled bar used {use_dec:.4f})")
     record["phase2_scaled_bar_used"] = dict(flash_attention=use_attn, flash_attention_tma=use_tma,
                                             flash_decode=use_dec)
+    # The cases' inputs (the serving-shape decode cache is 0.5 GB) go with
+    # the phase, so that later phases' peaks are their own.
+    del q, k, v, lengths, got, want, args, outs, hosts_f, valid_f, extra_f, traffic, sargs, gargs, logits
+    torch.cuda.empty_cache()
 
     lap("phase 2")
 
@@ -1742,7 +2093,11 @@ def main() -> int:
                                             bound_ms=hist_bytes / BW_BYTES_PER_S * 1e3,
                                             kernels_per_call=hist_calls, **extra)
 
-    del trace, lat, group, weight, allv, hosts, multi, counts, live, last
+    # ``runs``, the warm-up's sub-traces and phase 4's chunk slices (views:
+    # ``contiguous`` of a slice is the slice) still hold both 100 M-request
+    # traces, and ``x`` the latencies.
+    del trace, lat, group, weight, allv, hosts, multi, counts, live, last, runs, sub, t, x
+    del ck, cn, cr, cv, sweep_inputs, traffic
     torch.cuda.empty_cache()
 
     lap("phase 5")
@@ -2018,6 +2373,11 @@ def main() -> int:
                                    attention_at=attn_at, attention_mma_sync_ms=fa_mma,
                                    attention_encode_us=encode_us, decode_gbs=fd_bytes / fd_ms / 1e6)
     del dq, kc, vc, kct, vct, mask, sparams, smodel
+    # The serving drive's timed wrappers and the lockstep's samplers are
+    # closures over bound methods of their engines, so each engine sits in a
+    # reference cycle: without a collection their caches (15 GB each) and the
+    # params outlive the phase.
+    gc.collect()
     torch.cuda.empty_cache()
     err_fa = max(err_attn[torch.bfloat16], err_attn[torch.float32], st["attn_err"])
     err_fd = max(err_dec[torch.bfloat16], err_dec[torch.float32], st["decode_err"])
@@ -2029,16 +2389,25 @@ def main() -> int:
 
     lap("phase 8")
 
+    # ---- phase 10: the routing tier and failure injection -----------------
+    record["faults_routing"] = _faults_routing_phase(torch, dev, out_dir)
+    fr_launches = record["faults_routing"]["launches"]
+
+    lap("phase 10")
+
     # ---- phase 9: the kernel record ------------------------------------
-    # Launches: the telemetry path's run (phase 5) drives the first three,
-    # the ML-state run (phase 6) the next two, the serving drive (phase 7)
-    # the last two; phase 8's launches of the first three are on a line of
-    # their own ("phase 8 launches").
+    # Launches: the telemetry path's run (phase 5) and the routing and
+    # fault runs (phase 10) drive the first two, phase 5 the third, the
+    # ML-state run (phase 6) the next two, the serving drive (phase 7) the
+    # last two; phase 8's launches of the first three are on a line of their
+    # own ("phase 8 launches").
     kernels = [
         dict(name="chunk_replay", route="cuda",
              source="src/repro_torch/kernels/chunk_replay/csrc/chunk_replay.cu",
              replaces="src/repro/kernels/chunk_replay/kernel.py:71",
-             launches=tele_launches["chunk_replay"], max_abs_err=err_replay,
+             launches=tele_launches["chunk_replay"] + fr_launches["chunk_replay"],
+             launches_by_phase={"5": tele_launches["chunk_replay"], "10": fr_launches["chunk_replay"]},
+             max_abs_err=err_replay,
              ms=chunk_ms, plain_ms=chunk_plain,
              bound_ms=replay_bytes / BW_BYTES_PER_S * 1e3, bound_by="bytes",
              library_ms=None, whole_trace_ms=whole_ms, whole_trace_bound_ms=whole_bound,
@@ -2046,7 +2415,10 @@ def main() -> int:
         dict(name="ownership_sweep", route="cuda",
              source="src/repro_torch/kernels/ownership_sweep/csrc/ownership_sweep.cu",
              replaces="src/repro/kernels/ownership_sweep/kernel.py:38",
-             launches=tele_launches["ownership_sweep"], max_abs_err=err_sweep,
+             launches=tele_launches["ownership_sweep"] + fr_launches["ownership_sweep"],
+             launches_by_phase={"5": tele_launches["ownership_sweep"],
+                                "10": fr_launches["ownership_sweep"]},
+             max_abs_err=err_sweep,
              ms=sweep_ms, plain_ms=sweep_plain,
              bound_ms=sweep_bytes / BW_BYTES_PER_S * 1e3, bound_by="bytes",
              library_ms=None),

@@ -13,7 +13,7 @@ ctx) -> (owners, f, state)``: ``RedynisPolicy`` runs the
 projection. Every policy then goes through the same stages
 (``policy_sweep``)::
 
-    fractions -> decide -> live/expiry mask -> capacity projection -> plan
+    fractions -> decide -> live/expiry mask -> availability mask -> capacity projection -> plan
 
 so expiry and the per-node replica-byte budgets apply to every policy
 alike. ``split_policy`` divides a policy into a hashable static key and a
@@ -70,6 +70,7 @@ __all__ = [
     "policy_repr",
     "policy_sweep",
     "policy_masked_step",
+    "publish_mask",
 ]
 
 
@@ -92,12 +93,15 @@ class PolicyContext(NamedTuple):
     capacity_bytes: ``[N]`` f32 per-node replica-byte budget, or ``None``
                     when every budget is infinite (no projection stage).
     params:         this policy's dynamic hyperparameters (floats).
+    avail:          ``[N]`` bool node availability this chunk under failure
+                    injection, or ``None`` (no membership mask).
     """
 
     rtt: torch.Tensor
     object_bytes: torch.Tensor
     capacity_bytes: torch.Tensor | None
     params: dict
+    avail: torch.Tensor | None = None
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
@@ -509,7 +513,8 @@ def policy_sweep(
     policy, state, store: MetadataStore, now: int, ctx: PolicyContext, *, fused: bool = True
 ) -> tuple[PlacementPlan, object, MetadataStore]:
     """One decision pass for any policy: fractions -> ``decide`` ->
-    live/expiry mask -> capacity projection -> plan and store update, then
+    live/expiry mask -> availability mask (``ctx.avail``) -> capacity
+    projection -> plan and store update, then
     the post-sweep count decay where the policy has one. ``policy`` is a
     static key from :func:`split_policy`. ``fused=False`` takes the plain
     ``decide`` even where the policy supplies its fractions through a
@@ -529,6 +534,11 @@ def policy_sweep(
     else:
         expired = torch.zeros_like(live)
         owners = owners & live[:, None]
+    if ctx.avail is not None:
+        # Down nodes take no new replica and drop the copies they hold (a
+        # rejoining node resyncs); a crashed node's lost copies are re-seeded
+        # on live nodes here, under the same capacity projection.
+        owners = owners & ctx.avail[None, :]
 
     evicted = None
     if ctx.capacity_bytes is not None:
@@ -540,6 +550,13 @@ def policy_sweep(
         # floor(count * decay) is an identity at decay 1.0 below 2**24.
         counts = torch.floor(counts.to(torch.float32) * _f32(ctx.params["decay"], f)).to(torch.int32)
     return plan, state, store._replace(hosts=owners, live=live & ~expired, access_counts=counts)
+
+
+def publish_mask(old_hosts: torch.Tensor, new_hosts: torch.Tensor) -> torch.Tensor:
+    """``[K]`` bool: the keys whose replica row a daemon step changed, the
+    versioned publish a placement commit sends the directory tier
+    (``kvsim.routing``)."""
+    return (old_hosts != new_hosts).any(dim=-1)
 
 
 def policy_masked_step(

@@ -15,6 +15,8 @@ from repro_torch.core.hot_embedding import HotEmbeddingState
 from repro_torch.core.metadata import MetadataStore
 from repro_torch.device import resolve_device
 from repro_torch.kvsim.cluster import ClusterConfig, ServiceConfig
+from repro_torch.kvsim.faults import FaultConfig, FaultEvent
+from repro_torch.kvsim.routing import RoutingConfig
 from repro_torch.kvsim.telemetry import TelemetryConfig
 from repro_torch.kvsim.workload import Trace
 from repro_torch.models.transformer import KVCache
@@ -62,18 +64,29 @@ def store_from_numpy(access_counts, hosts, last_access, live, home, device=None)
 
 
 def cluster_from_fields(**fields) -> ClusterConfig:
-    """A ``ClusterConfig`` from a reference config's ``_asdict()``. A
-    reference ``ServiceConfig`` carries across by its fields; the fields
-    this slice does not cover (routing, failure injection, node labels)
-    must be unset."""
-    for name in ("routing", "faults", "zone_of", "region_of"):
-        if fields.get(name) is not None:
-            raise NotImplementedError(
-                f"cluster_from_fields: ClusterConfig.{name} is not ported yet"
-            )
-    service = fields.get("service")
+    """A ``ClusterConfig`` from a reference config's ``_asdict()``. The
+    reference's ``ServiceConfig``, ``RoutingConfig`` and ``FaultConfig`` (with
+    its ``FaultEvent``\\ s) carry across by their fields, the ``zone_of`` and
+    ``region_of`` labels as tuples. A field the port's ``ClusterConfig`` does
+    not have raises ``NotImplementedError`` naming it."""
+    uncovered = sorted(set(fields) - set(ClusterConfig._fields))
+    if uncovered:
+        raise NotImplementedError(
+            f"cluster_from_fields: ClusterConfig.{', '.join(uncovered)} is not ported"
+        )
+    service, routing, faults = (fields.get(name) for name in ("service", "routing", "faults"))
     if service is not None:
         fields["service"] = ServiceConfig(**service._asdict())
+    if routing is not None:
+        fields["routing"] = RoutingConfig(**routing._asdict())
+    if faults is not None:
+        fields["faults"] = FaultConfig(
+            enabled=faults.enabled,
+            events=tuple(FaultEvent(**event._asdict()) for event in faults.events),
+        )
+    for name in ("zone_of", "region_of"):
+        if fields.get(name) is not None:
+            fields[name] = tuple(int(x) for x in fields[name])
     return ClusterConfig(**fields)
 
 

@@ -61,6 +61,9 @@ __all__ = [
     "contention_wait_ref",
     "contention_extra_ms_ref",
     "contention_extra_ms_chunks_ref",
+    "routing_extra_split_ref",
+    "routing_extra_ms_ref",
+    "fault_extra_ms_ref",
 ]
 
 READ_MODES = ("map", "no_local", "ideal")
@@ -348,3 +351,134 @@ def contention_extra_ms_chunks_ref(
         extra.append(e.reshape(-1))
         rho.append(p)
     return torch.cat(extra)[:r], torch.cat(rho)
+
+
+# ---------------------------------------------------------------------------
+# Routing-tier pricing (kvsim.routing.RoutingConfig) and failure-injection
+# pricing (kvsim.faults.FaultConfig): torch pre-passes like the contention
+# one, each giving a per-request surcharge that the engines compose into
+# ``extra_ms``. The reference computes them outside its Pallas kernel too.
+# ---------------------------------------------------------------------------
+
+
+def routing_extra_split_ref(
+    hosts: torch.Tensor,  # [K, N] bool authoritative frozen map (true serving)
+    pub_hosts: torch.Tensor,  # [K, N] bool published (lagged) directory view
+    cached: torch.Tensor,  # [B] bool the consulted router caches this key
+    fresh: torch.Tensor,  # [B] bool ... at the key's current publish version
+    keys: torch.Tensor,  # [B] int
+    nodes: torch.Tensor,  # [B] int
+    is_read: torch.Tensor,  # [B] bool
+    valid: torch.Tensor,  # [B] bool
+    rtt: torch.Tensor,  # [N, N] f32
+    *,
+    read_mode: str,
+    home_node: int,
+) -> tuple[torch.Tensor, ...]:
+    """The routing pre-pass, ``(detour_ms [B] f32, fetch_ms [B] f32,
+    consults, fetches, stale, mis_routed)`` (the last four ``[B]`` bool).
+
+    A request consults its router when it needs ownership knowledge: a read
+    with no local replica under ``"map"``, every read under ``"no_local"``,
+    none under ``"ideal"``, never a write. A fresh entry routes at no extra
+    cost; a stale one routes by the published map and, where the published
+    serving node differs from the true one, pays ``(rtt[x, s_pub] +
+    rtt[s_pub, s_true]) - rtt[x, s_true]``; a miss first pays the fetch
+    ``rtt[x, home_node]`` and then the same detour."""
+    b = keys.shape[0]
+    if read_mode == "ideal":
+        zeros_f = torch.zeros(b, dtype=torch.float32, device=rtt.device)
+        zeros_b = torch.zeros(b, dtype=torch.bool, device=rtt.device)
+        return zeros_f, zeros_f.clone(), zeros_b, zeros_b.clone(), zeros_b.clone(), zeros_b.clone()
+    keys_l, nodes_l = keys.long(), nodes.long()
+    replicas = hosts[keys_l]  # [B, N]
+    local = replicas[torch.arange(b, device=rtt.device), nodes_l]
+    consult = is_read & valid if read_mode == "no_local" else is_read & ~local & valid
+    s_true = serving_node_ref(replicas, nodes, is_read, rtt, read_mode=read_mode)
+    s_pub = serving_node_ref(pub_hosts[keys_l], nodes, is_read, rtt, read_mode=read_mode)
+    mis = s_pub != s_true
+    zero = _f32(0.0, rtt)
+    detour = torch.where(mis, rtt[nodes_l, s_pub] + rtt[s_pub, s_true] - rtt[nodes_l, s_true], zero)
+    stale_or_miss = consult & ~fresh
+    detour_part = torch.where(stale_or_miss, detour, zero)
+    fetch_part = torch.where(stale_or_miss & ~cached, rtt[nodes_l, home_node], zero)
+    return (detour_part, fetch_part, consult, consult & ~cached, consult & cached & ~fresh,
+            stale_or_miss & mis)
+
+
+def routing_extra_ms_ref(hosts, pub_hosts, cached, fresh, keys, nodes, is_read, valid, rtt, *,
+                         read_mode: str, home_node: int) -> tuple[torch.Tensor, ...]:
+    """:func:`routing_extra_split_ref` with the two surcharges added:
+    ``(extra_ms [B] f32, consults, fetches, stale, mis_routed)``."""
+    detour, fetch, *flags = routing_extra_split_ref(
+        hosts, pub_hosts, cached, fresh, keys, nodes, is_read, valid, rtt,
+        read_mode=read_mode, home_node=home_node,
+    )
+    return (detour + fetch, *flags)
+
+
+def fault_extra_ms_ref(
+    hosts: torch.Tensor,  # [K, N] bool authoritative map (crash losses applied)
+    keys: torch.Tensor,  # [B] int
+    nodes: torch.Tensor,  # [B] int
+    is_read: torch.Tensor,  # [B] bool
+    valid: torch.Tensor,  # [B] bool
+    avail: torch.Tensor,  # [N] bool this chunk's node availability
+    rtt: torch.Tensor,  # [N, N] f32
+    *,
+    read_mode: str,
+    master: int,
+    xfer_write_ms,
+    wiped: torch.Tensor | None = None,  # [K] bool keys that lost every replica
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The failure pre-pass, ``(extra_ms [B] f32, unavailable [B] bool,
+    failover [B] bool)``.
+
+    A request is unavailable when its origin node is down, or when it is a
+    read whose key has copies somewhere but none visible on a live node, or
+    whose key was wiped by a crash and not re-seeded yet. Served writes
+    relay through the first live node when the master is down; ``extra_ms``
+    is that write's cost through the stand-in minus its cost through the
+    master on the live replica set (``w_deg - w_base``, negative where the
+    stand-in is nearer), so with every node up it is exactly ``+0.0``. Reads
+    need no surcharge: the engine prices them on ``hosts & avail``."""
+    b = keys.shape[0]
+    dev = rtt.device
+    keys_l, nodes_l = keys.long(), nodes.long()
+    origin_down = ~avail[nodes_l]
+    if read_mode == "ideal":
+        return (torch.zeros(b, dtype=torch.float32, device=dev), origin_down & valid,
+                torch.zeros(b, dtype=torch.bool, device=dev))
+    n = rtt.shape[0]
+    col = torch.arange(n, device=dev)[None, :]
+    replicas = hosts[keys_l]  # [B, N]
+    vis_base = replicas & (col != nodes_l[:, None]) if read_mode == "no_local" else replicas
+    vis_live = vis_base & avail[None, :]
+    read_dark = vis_base.any(dim=-1) & ~vis_live.any(dim=-1)
+    if wiped is not None:
+        read_dark = read_dark | wiped[keys_l]
+    unavailable = (origin_down | (is_read & read_dark)) & valid
+
+    live = replicas & avail[None, :]
+    hit_live = live[torch.arange(b, device=dev), nodes_l]
+    sole_local = hit_live & (live.sum(dim=-1) == 1)
+    if read_mode == "no_local":
+        sole_local = torch.zeros_like(sole_local)
+    zero, xfer = _f32(0.0, rtt), _f32(xfer_write_ms, rtt)
+
+    def write_cost(m):  # Algorithm 2's relay + broadcast through master m, as chunk_latency_ref
+        relay = torch.where(nodes_l == m, zero, rtt[nodes_l, m])
+        post = torch.where(live & (col != m), rtt[m][None, :], zero).amax(dim=-1)
+        cost = relay + post
+        cost = cost + torch.where(cost > 0, xfer, zero)
+        return torch.where(sole_local, zero, cost)
+
+    w_base = write_cost(torch.full((), master, dtype=torch.int64, device=dev))
+    # The stand-in master: the first live node (argmax takes the first maximum).
+    m_star = torch.where(avail[master], torch.full((), master, dtype=torch.int64, device=dev),
+                         avail.to(torch.int32).argmax())
+    w_deg = write_cost(m_star)
+    served_write = ~is_read & ~unavailable & valid
+    extra = torch.where(served_write, w_deg - w_base, zero)
+    failover = served_write & ~avail[master] & ~sole_local
+    return extra, unavailable, failover

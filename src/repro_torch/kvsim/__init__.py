@@ -1,6 +1,7 @@
 """The paper's testbed (§8) as a trace-driven simulator, in PyTorch:
-cluster and workload configs (with the M/M/1 ``ServiceConfig`` and per-node
-replica-byte budgets), trace generation, ``run_scenario``,
+cluster and workload configs (with the M/M/1 ``ServiceConfig``, per-node
+replica-byte budgets, the routing tier's ``RoutingConfig`` and the
+failure-injection ``FaultConfig``), trace generation, ``run_scenario``,
 ``run_experiment`` (the paper's Figure 2/3 grid with 99% CIs over seeds),
 the ``run_scenario_reference`` oracle and telemetry (``TelemetryConfig``,
 ``SimTrace``). The placement policies are re-exported for convenience."""
@@ -27,6 +28,17 @@ from repro_torch.kvsim.cluster import (
     wan5_cluster,
     wan5_edge_cluster,
 )
+from repro_torch.kvsim.faults import (
+    FAULT_KINDS,
+    FAULT_MODES,
+    FaultConfig,
+    FaultEvent,
+    blast_radius_rows,
+    compile_schedule,
+    normalize_faults,
+    region_outage,
+)
+from repro_torch.kvsim.routing import RoutingConfig, normalize_routing
 from repro_torch.kvsim.simulate import (
     SimResult,
     confidence_interval_99,
@@ -52,6 +64,16 @@ __all__ = [
     "ClusterConfig",
     "ServiceConfig",
     "normalize_service",
+    "RoutingConfig",
+    "normalize_routing",
+    "FaultConfig",
+    "FaultEvent",
+    "normalize_faults",
+    "FAULT_KINDS",
+    "FAULT_MODES",
+    "region_outage",
+    "compile_schedule",
+    "blast_radius_rows",
     "flat_rtt",
     "wan5_cluster",
     "wan5_edge_cluster",

@@ -10,9 +10,11 @@ functions themselves live in ``repro_torch.kernels.chunk_replay.ref``.
 a reference config converts field by field (``interop.cluster_from_fields``).
 ``service`` takes a :class:`ServiceConfig` (the M/M/1 contention model) and
 ``capacity_bytes`` the per-node replica-byte budgets (``wan5_edge_cluster``
-is the preset with one small edge node); the routing (``routing``) and
-failure-injection (``faults``, ``zone_of``, ``region_of``) fields are
-accepted here but rejected by ``run_scenario`` until their slices land.
+is the preset with one small edge node), ``routing`` a
+:class:`~repro_torch.kvsim.routing.RoutingConfig` (the directory tier) and
+``faults`` a :class:`~repro_torch.kvsim.faults.FaultConfig` (failure
+injection), whose zone and region events target the nodes that
+``zone_of`` / ``region_of`` label.
 The flat (``read_latency``, ``write_latency``) and geo (``*_geo``,
 ``nearest_replica_rtt``) latency functions are the config-level spelling of
 ``kernels/chunk_replay/ref.py``'s.
@@ -21,11 +23,13 @@ The flat (``read_latency``, ``write_latency``) and geo (``*_geo``,
 from __future__ import annotations
 
 import math
-from typing import Any, NamedTuple
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kvsim.faults import FaultConfig
+from repro_torch.kvsim.routing import RoutingConfig
 from repro_torch.kernels.chunk_replay.ref import (
     nearest_replica_rtt_ref,
     read_latency_ref,
@@ -129,11 +133,14 @@ class ClusterConfig(NamedTuple):
     capacity_bytes: tuple[float, ...] | float = float("inf")
     # M/M/1 contention model (ServiceConfig); None = pure-RTT latency.
     service: ServiceConfig | None = None
-    # Later slices: routing tier, failure injection.
-    routing: Any = None
+    # Routing tier (RoutingConfig); None = requests know the live map.
+    routing: RoutingConfig | None = None
+    # Failure-domain labels: zone_of[n] / region_of[n]; None = each node
+    # its own zone and region.
     zone_of: tuple[int, ...] | None = None
     region_of: tuple[int, ...] | None = None
-    faults: Any = None
+    # Failure injection (FaultConfig); None = every node always up.
+    faults: FaultConfig | None = None
 
     def rtt_matrix(self, device: str | torch.device | None = None) -> torch.Tensor:
         """The ``[N, N]`` f32 RTT matrix on ``device`` (``None`` means CUDA)."""

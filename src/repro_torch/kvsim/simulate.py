@@ -18,8 +18,8 @@ non-blocking property). Per chunk, in this order:
      rewrites the map, trimmed to the per-node replica-byte budgets when
      the cluster has a finite ``capacity_bytes``.
 
-Static policies never change the map, so their whole trace is replayed in
-one ``chunk_replay`` launch: the same sums, re-associated, as the
+Static policies never change the map, so with routing and faults off
+their whole trace is replayed in one ``chunk_replay`` launch: the same sums, re-associated, as the
 reference's static fast path does. All accumulators stay on the device and
 are read back once at the end; f32 aggregates accumulate in f32 in chunk
 order, as the reference's scan carry does.
@@ -28,6 +28,27 @@ Contention (``ClusterConfig.service``, an enabled ``ServiceConfig``): before
 step 1 each chunk runs the M/M/1 pre-pass on its frozen map
 (``contention_extra_ms_ref``), and the replay adds each request's wait as
 ``extra_ms``. On the static path the pre-pass runs over all chunks at once.
+
+Failure injection (``ClusterConfig.faults``, a ``FaultConfig`` lowered by
+``faults.compile_schedule`` to host-side ``[C, N]`` availability and crash
+timelines): at chunk start a crash wipes the crashed nodes' copies from the
+map, ``fault_extra_ms_ref`` rules each request unavailable or served and
+prices the write failover, and the chunk is replayed on the live map
+``hosts & avail`` with the served requests as ``valid``. The sweep sees
+``PolicyContext.avail``; re-seeded copies of keys that had lost every live
+copy count as ``repair_moves``. The mean latency is over served requests.
+
+Routing (``ClusterConfig.routing``, a ``RoutingConfig``): each chunk
+consults the router caches against the published, possibly lagged,
+ownership view (``kvsim.routing``) and prices mis-routes and directory
+fetches (``routing_extra_split_ref``); after the replay the caches refresh
+and the daemon's commit publishes. With faults on, the publish goes through
+a ring of at least one slot, frozen while the directory home node is down.
+
+The surcharges compose as the reference composes them, one f32 add each:
+``route = detour + fetch``, ``extra = route + contention``, ``extra =
+fault + extra``. With routing or faults on, static policies replay chunk by
+chunk too (router caches evolve, crashes change their map).
 
 Telemetry (``telemetry=TelemetryConfig()``): the run also returns a
 ``SimTrace``. On the active path ``chunk_replay`` folds each chunk's
@@ -47,13 +68,14 @@ versions on whatever device it is given, the policy through its plain
 ``decide``, and float64 host accumulators; with telemetry its trace carries
 every request's latency (``raw_latency_ms``).
 
-The port covers a materialised trace on one device with routing, faults,
-sharding and telemetry attribution off; each of those raises
-``NotImplementedError`` naming its later slice.
+The port covers a materialised trace on one device with sharding and
+telemetry attribution off; streamed traces, sharding and attribution raise
+``NotImplementedError`` naming their later slice.
 """
 
 from __future__ import annotations
 
+from collections import deque
 from typing import NamedTuple
 
 import numpy as np
@@ -65,6 +87,7 @@ from repro_torch.core.policy import (
     describe_policy,
     policy_masked_step,
     policy_sweep,
+    publish_mask,
     split_policy,
 )
 from repro_torch.device import resolve_device
@@ -73,10 +96,23 @@ from repro_torch.kernels.chunk_replay.ref import (
     chunk_latency_ref,
     contention_extra_ms_chunks_ref,
     contention_extra_ms_ref,
+    fault_extra_ms_ref,
+    routing_extra_split_ref,
 )
 from repro_torch.kernels.latency_histogram.ref import latency_histogram_ref
 from repro_torch.kvsim import telemetry as telemetry_mod
 from repro_torch.kvsim.cluster import ClusterConfig, normalize_service
+from repro_torch.kvsim.faults import compile_schedule, normalize_faults
+from repro_torch.kvsim.routing import (
+    consult_probe,
+    init_router_state,
+    normalize_routing,
+    publish_commit,
+    published_view,
+    router_cache_update,
+    router_of,
+    stale_age_fold,
+)
 from repro_torch.kvsim.telemetry import (
     STALE_AGE_BINS,
     SimTrace,
@@ -110,14 +146,17 @@ class SimResult(NamedTuple):
     evictions: float  # subset of deletions caused by key expiry
     capacity_evictions: float  # held replicas evicted by the budget projection
     peak_occupancy_bytes: np.ndarray  # [N] peak replica bytes per node
-    router_consults: float = 0.0
-    directory_fetches: float = 0.0
-    mis_routes: float = 0.0
-    stale_consults: float = 0.0
-    unavailable_reads: float = 0.0
-    unavailable_writes: float = 0.0
-    failovers: float = 0.0
-    repair_moves: float = 0.0
+    # Routing tier (zero with ClusterConfig.routing off).
+    router_consults: float = 0.0  # directory consults
+    directory_fetches: float = 0.0  # cache misses (home-node round trips)
+    mis_routes: float = 0.0  # consults detoured by a stale ownership view
+    stale_consults: float = 0.0  # consults that hit a stale cache entry
+    # Failure injection (zero with ClusterConfig.faults off). With faults on,
+    # hit_rate and mean_latency_ms cover served requests only.
+    unavailable_reads: float = 0.0  # reads refused (origin down / no live copy)
+    unavailable_writes: float = 0.0  # writes refused (origin node down)
+    failovers: float = 0.0  # writes relayed through a stand-in master
+    repair_moves: float = 0.0  # re-replications of copies lost to failures
 
 
 def _initial_hosts(
@@ -172,13 +211,54 @@ def _contention_kwargs(cluster: ClusterConfig, read_mode: str, daemon_interval: 
     )
 
 
+def _routing_kwargs(cluster: ClusterConfig, num_keys: int) -> dict | None:
+    """The routing tier's resolved knobs, or ``None`` when the cluster has
+    no enabled ``RoutingConfig``. ``num_routers = 0`` resolves to one
+    router a node; a ``cache_entries`` at or beyond the keyspace is the
+    unbounded cache (0), which never evicts."""
+    routing = normalize_routing(cluster.routing)
+    if routing is None:
+        return None
+    if routing.home_node >= cluster.num_nodes:
+        raise ValueError(
+            f"routing.home_node={routing.home_node} is not a node index "
+            f"(num_nodes={cluster.num_nodes})"
+        )
+    if routing.num_routers > cluster.num_nodes:
+        raise ValueError(
+            f"routing.num_routers={routing.num_routers} exceeds "
+            f"num_nodes={cluster.num_nodes} (routers are consulted per "
+            f"requesting node, node x -> router x % R)"
+        )
+    return dict(
+        num_routers=routing.num_routers or cluster.num_nodes,
+        cache_entries=0 if routing.cache_entries >= num_keys else routing.cache_entries,
+        publish_lag_chunks=routing.publish_lag_chunks,
+        home_node=routing.home_node,
+        decay=routing.decay,
+    )
+
+
+def _fault_kwargs(cluster: ClusterConfig, num_chunks: int) -> dict | None:
+    """The fault schedule's ``[C, N]`` ``avail`` and ``crash`` timelines as
+    host-side numpy, or ``None`` when the cluster has no enabled
+    ``FaultConfig``. ``compile_schedule`` rejects a chunk with no live
+    node."""
+    faults = normalize_faults(cluster.faults)
+    if faults is None:
+        return None
+    avail, crash = compile_schedule(
+        faults, num_nodes=cluster.num_nodes, num_chunks=num_chunks,
+        zone_of=cluster.zone_of, region_of=cluster.region_of,
+    )
+    return dict(avail=avail, crash=crash)
+
+
 def _check_slice(workload, cluster, trace_mode="materialized", num_shards=1,
                  caller="run_scenario") -> None:
     """Reject what the port does not cover yet, naming the slice that will,
     and a workload that does not fit the cluster."""
     later = [
-        (cluster.routing is not None, "ClusterConfig.routing (the routing slice)"),
-        (cluster.faults is not None, "ClusterConfig.faults (the failure-injection slice)"),
         (trace_mode == "streamed", "trace_mode='streamed' (the streamed-trace slice)"),
         (num_shards > 1, "num_shards > 1 (the key-sharded engine slice)"),
     ]
@@ -201,6 +281,12 @@ def _check_slice(workload, cluster, trace_mode="materialized", num_shards=1,
             f"capacity_bytes has {len(cluster.capacity_bytes)} entries for "
             f"num_nodes={cluster.num_nodes}"
         )
+    for name in ("zone_of", "region_of"):
+        labels = getattr(cluster, name)
+        if labels is not None and len(labels) != cluster.num_nodes:
+            raise ValueError(
+                f"{name} labels {len(labels)} nodes but num_nodes={cluster.num_nodes}"
+            )
 
 
 def _prepare(workload, policy, daemon_interval: int, caller: str) -> tuple:
@@ -278,11 +364,17 @@ def _simulate(
     f32 = dict(dtype=torch.float32, device=dev)
     i64 = dict(dtype=torch.int64, device=dev)
     moves = torch.zeros(4, **i64)  # adds, drops, expiry evictions, capacity
+    # consults, fetches, mis-routes, stale consults; unavailable reads and
+    # writes, failovers, repair moves
+    tiers = torch.zeros(8, **i64)
     contention = _contention_kwargs(cluster, read_mode, daemon_interval)
     bins = {} if tcfg is None else dict(num_bins=tcfg.num_bins, lo=tcfg.lo_ms, hi=tcfg.hi_ms)
     num_chunks = -(-r // daemon_interval)
+    routing = _routing_kwargs(cluster, k)
+    fault = _fault_kwargs(cluster, num_chunks)
+    loop = static.is_active or routing is not None or fault is not None
 
-    if not static.is_active:
+    if not loop:
         # A frozen map makes the whole request path loop-invariant: one
         # launch over the whole trace.
         extra = rho = None
@@ -312,37 +404,123 @@ def _simulate(
         lat_sum = torch.zeros((), **f32)
         hits = torch.zeros((), **i64)
         reads = torch.zeros((), **i64)
-        pstate = static.init(store, ctx)
-        per_chunk = []  # device tensors of each chunk, stacked at the end
+        no_moves = torch.zeros(4, **i64)
+        pstate = static.init(store, ctx) if static.is_active else None
+        occ = peak  # a static map's occupancy, re-sampled where the map can change
+        resample = static.is_active or fault is not None
+        if routing is not None:
+            lag = routing["publish_lag_chunks"]
+            rstate = init_router_state(
+                store.hosts, num_routers=routing["num_routers"],
+                cache_entries=routing["cache_entries"], publish_lag_chunks=lag,
+                active=static.is_active, force_ring=fault is not None,
+            )
+        if fault is not None:
+            avail_np, crash_np = fault["avail"], fault["crash"]
+            avail_all = torch.from_numpy(avail_np).to(dev)
+            crash_all = torch.from_numpy(crash_np).to(dev)
+            wiped = torch.zeros(k, dtype=torch.bool, device=dev)
+            # The reference's compiled program divides by the key count as
+            # a multiply by its f32 reciprocal.
+            inv_keys = torch.full((), float(np.float32(1.0) / np.float32(k)), **f32)
+        per_chunk = []  # dicts of each chunk's device tensors, stacked at the end
         for c in range(num_chunks):
             lo, hi = c * daemon_interval, min((c + 1) * daemon_interval, r)
             ck, cn, cr = keys[lo:hi], nodes[lo:hi], is_read[lo:hi]
             cv = valid[: hi - lo]
-            extra = rho = None
-            if contention is not None:
-                extra, rho = contention_extra_ms_ref(
-                    store.hosts, ck, cn, cr, cv, rtt, obj, **contention
+            row = {}
+            served, hosts_eff, extra = cv, store.hosts, None
+            if fault is not None:
+                avail_c = avail_all[c]
+                if crash_np[c].any():
+                    # A crash wipes the crashed nodes' copies at chunk start.
+                    post = store.hosts & ~crash_all[c][None, :]
+                    wiped = wiped | (store.hosts.any(dim=-1) & ~post.any(dim=-1))
+                    store = store._replace(hosts=post)
+                f_extra, unavail, failover = fault_extra_ms_ref(
+                    store.hosts, ck, cn, cr, cv, avail_c, rtt, read_mode=read_mode,
+                    master=scalars["master"], xfer_write_ms=scalars["xfer_write_ms"], wiped=wiped,
                 )
+                served = cv & ~unavail
+                if not avail_np[c].all():
+                    hosts_eff = store.hosts & avail_c[None, :]
+            if routing is not None:
+                # Routers price against the published view; true serving is
+                # on the live map, and refused requests consult nothing.
+                pub_hosts, pub_ver = published_view(rstate, store.hosts, c, publish_lag_chunks=lag)
+                rb = router_of(cn, routing["num_routers"])
+                ent_cached, fresh, age = consult_probe(rstate, rb, ck)
+                detour, fetch, consult, fetched, stale, mis = routing_extra_split_ref(
+                    hosts_eff, pub_hosts, ent_cached, fresh, ck, cn, cr, served, rtt,
+                    read_mode=read_mode, home_node=routing["home_node"],
+                )
+                extra = detour + fetch
+            rho = None
+            if contention is not None:
+                cont, rho = contention_extra_ms_ref(hosts_eff, ck, cn, cr, served, rtt, obj,
+                                                    **contention)
+                extra = cont if extra is None else extra + cont
+            if fault is not None:
+                extra = f_extra if extra is None else f_extra + extra
             d_busy, d_lat, d_hits, d_reads, d_count, hist = chunk_replay(
-                store.hosts, ck, cn, cr, cv, rtt, read_mode=read_mode,
+                hosts_eff, ck, cn, cr, served, rtt, read_mode=read_mode,
                 extra_ms=extra, **bins, **scalars,
             )
             busy = busy + d_busy
             lat_sum = lat_sum + d_lat
             hits += d_hits
             reads += d_reads
-            occ = _node_occupancy(store.hosts, obj)
-            peak = torch.maximum(peak, occ)
-            store = record_accesses(store, ck, cn, now=c, valid=cv)
-            stats, pstate, store = policy_masked_step(
-                static, pstate, store, c, c % static.period == 0, ctx
-            )
-            stats = torch.stack(stats)
-            moves += stats
+            if fault is not None:
+                unreach = (store.hosts.any(dim=-1) & ~hosts_eff.any(dim=-1)) | wiped
+                row["fracs"] = torch.stack([unreach.sum(), wiped.sum()]).to(torch.float32) * inv_keys
+            if resample:
+                occ = _node_occupancy(store.hosts, obj)
+                peak = torch.maximum(peak, occ)
+            if routing is not None:
+                row["routing"] = torch.stack([consult.sum(), fetched.sum(), mis.sum(), stale.sum()])
+                row["stale_age_hist"] = stale_age_fold(age, stale)
+                rstate = router_cache_update(
+                    rstate, rb, ck, consult, pub_ver,
+                    cache_entries=routing["cache_entries"], decay=routing["decay"],
+                )
+            stats, d_rep = no_moves, torch.zeros((), **i64)
+            if static.is_active:
+                # Users of a down origin are offline and leave no demand.
+                demand = cv if fault is None else cv & avail_c[cn.long()]
+                store = record_accesses(store, ck, cn, now=c, valid=demand)
+                prev_hosts = store.hosts
+                step_ctx = ctx if fault is None else ctx._replace(avail=avail_c)
+                stats, pstate, store = policy_masked_step(
+                    static, pstate, store, c, c % static.period == 0, step_ctx
+                )
+                stats = torch.stack(stats)
+                moves += stats
+                if fault is not None:
+                    # Copies the sweep made of keys that had lost every live
+                    # copy are repairs; a wiped key heals once a live node
+                    # holds it again.
+                    added = store.hosts & ~prev_hosts
+                    lost_live = prev_hosts.any(dim=-1) & ~(prev_hosts & avail_c[None, :]).any(dim=-1)
+                    d_rep = (added & (wiped | lost_live)[:, None]).sum()
+                    wiped = wiped & ~(store.hosts & avail_c[None, :]).any(dim=-1)
+                if routing is not None:
+                    rstate = publish_commit(
+                        rstate, publish_mask(prev_hosts, store.hosts), store.hosts, c,
+                        publish_lag_chunks=lag,
+                        daemon_up=None if fault is None else bool(avail_np[c, routing["home_node"]]),
+                    )
+            if fault is not None:
+                row["fault"] = torch.stack([(unavail & cr).sum(), (unavail & ~cr).sum(),
+                                            failover.sum(), d_rep])
+                tiers[4:] += row["fault"]
+            if routing is not None:
+                tiers[:4] += row["routing"]
             if tcfg is not None:
-                per_chunk.append((hist, d_hits, d_reads, d_lat, d_count, stats, occ, rho))
+                row.update(hist=hist, hits=d_hits, reads=d_reads, lat_sum=d_lat, count=d_count,
+                           stats=stats, occupancy=occ, rho=rho)
+                per_chunk.append(row)
         if tcfg is not None:
-            series = _active_series(per_chunk, n)
+            series = _loop_series(per_chunk, n)
 
     # f32 epilogue as in the reference, then ONE device-to-host copy.
     # Divisors are tensors: CUDA turns division by a Python scalar into a
@@ -350,47 +528,58 @@ def _simulate(
     r_f = torch.full((), float(r), **f32)
     tput = r_f / (busy.max() / torch.full((), 1000.0, **f32))
     hit_rate = hits.to(torch.float32) / torch.clamp_min(reads.to(torch.float32), 1.0)
-    mean_lat = lat_sum / r_f
-    parts = [torch.stack([tput, hit_rate, mean_lat]), busy, moves, peak]
+    if fault is None:
+        mean_lat = lat_sum / r_f
+    else:  # over served requests; throughput still counts every attempt
+        served_r = r_f - tiers[4].to(torch.float32) - tiers[5].to(torch.float32)
+        mean_lat = lat_sum / torch.clamp_min(served_r, 1.0)
+    parts = [torch.stack([tput, hit_rate, mean_lat]), busy, moves, peak, tiers]
     if tcfg is not None:
         parts += list(series.values())
     out = torch.cat([p.to(torch.float64).reshape(-1) for p in parts]).cpu().numpy()
     result = SimResult(
-        throughput_ops_s=float(out[0]),
-        hit_rate=float(out[1]),
-        mean_latency_ms=float(out[2]),
-        node_busy_ms=out[3 : 3 + n],
-        replication_moves=float(out[3 + n]),
-        deletion_moves=float(out[4 + n]),
-        evictions=float(out[5 + n]),
-        capacity_evictions=float(out[6 + n]),
-        peak_occupancy_bytes=out[7 + n : 7 + 2 * n],
+        float(out[0]), float(out[1]), float(out[2]), out[3 : 3 + n],
+        *(float(x) for x in out[3 + n : 7 + n]), out[7 + n : 7 + 2 * n],
+        *(float(x) for x in out[7 + 2 * n : 15 + 2 * n]),
     )
     if tcfg is None:
         return result, None
-    at = 7 + 2 * n
+    at = 15 + 2 * n
     host = {}
     for name, t in series.items():
         host[name] = out[at : at + t.numel()].reshape(tuple(t.shape))
         at += t.numel()
-    return result, _leaves(host, static.is_active, num_chunks)
+    return result, _leaves(host, loop, num_chunks)
 
 
-def _active_series(per_chunk: list, n: int) -> dict:
-    """Stack the active path's per-chunk device tensors into the ``[C, ...]``
+def _loop_series(per_chunk: list, n: int) -> dict:
+    """Stack the chunk loop's per-chunk device tensors into the ``[C, ...]``
     series (still on the device)."""
-    hist, hits, reads, lat_sum, count, stats, occ, rho = zip(*per_chunk)
-    stats = torch.stack(stats)  # [C, 4]
+    col = lambda name: [row[name] for row in per_chunk]  # noqa: E731
+    stats = torch.stack(col("stats"))  # [C, 4]
+    rho = col("rho")
     load = (
-        torch.zeros((len(occ), n), dtype=torch.float32, device=occ[0].device)
+        torch.zeros((len(rho), n), dtype=torch.float32, device=stats.device)
         if rho[0] is None else torch.stack(rho)
     )
-    return dict(
-        hist=torch.stack(hist), hits=torch.stack(hits), reads=torch.stack(reads),
-        lat_sum=torch.stack(lat_sum), count=torch.stack(count), adds=stats[:, 0],
-        drops=stats[:, 1], expiry_evictions=stats[:, 2], capacity_evictions=stats[:, 3],
-        occupancy=torch.stack(occ), load_factor=load,
+    series = dict(
+        hist=torch.stack(col("hist")), hits=torch.stack(col("hits")),
+        reads=torch.stack(col("reads")), lat_sum=torch.stack(col("lat_sum")),
+        count=torch.stack(col("count")), adds=stats[:, 0], drops=stats[:, 1],
+        expiry_evictions=stats[:, 2], capacity_evictions=stats[:, 3],
+        occupancy=torch.stack(col("occupancy")), load_factor=load,
     )
+    if "routing" in per_chunk[0]:
+        routing = torch.stack(col("routing"))  # [C, 4]
+        series.update(router_consults=routing[:, 0], directory_fetches=routing[:, 1],
+                      mis_routes=routing[:, 2], stale_consults=routing[:, 3],
+                      stale_age_hist=torch.stack(col("stale_age_hist")))
+    if "fault" in per_chunk[0]:
+        fault, fracs = torch.stack(col("fault")), torch.stack(col("fracs"))
+        series.update(unavailable_reads=fault[:, 0], unavailable_writes=fault[:, 1],
+                      failovers=fault[:, 2], repair_moves=fault[:, 3],
+                      unreachable_frac=fracs[:, 0], wiped_frac=fracs[:, 1])
+    return series
 
 
 def _static_series(tcfg, lat, hit, nodes, is_read, chunk_size, num_chunks, n, occ0, rho) -> dict:
@@ -420,21 +609,22 @@ def _static_series(tcfg, lat, hit, nodes, is_read, chunk_size, num_chunks, n, oc
     )
 
 
-def _leaves(host: dict, active: bool, num_chunks: int) -> TelemetryLeaves:
-    """The run's leaves on the host. The routing and failure-injection
-    leaves are zero-filled as the reference fills them with those tiers
-    off: per chunk on its scan path, and on its static path the routing
-    series only (the fault leaves keep their scalar default)."""
+def _leaves(host: dict, loop: bool, num_chunks: int) -> TelemetryLeaves:
+    """The run's leaves on the host. A tier that was off gets zero leaves,
+    as the reference fills them: per chunk on its chunk loop, and on its
+    static path the routing series only (the fault leaves keep their scalar
+    default)."""
     zeros_c = np.zeros(num_chunks)
-    routing = dict(
+    fill = dict(
         router_consults=zeros_c, directory_fetches=zeros_c, mis_routes=zeros_c,
         stale_consults=zeros_c, stale_age_hist=np.zeros((num_chunks, STALE_AGE_BINS)),
     )
-    faults = dict(
-        unavailable_reads=zeros_c, unavailable_writes=zeros_c, failovers=zeros_c,
-        repair_moves=zeros_c, unreachable_frac=zeros_c, wiped_frac=zeros_c,
-    ) if active else {}
-    return TelemetryLeaves(**host, **routing, **faults)
+    if loop:
+        fill.update(
+            unavailable_reads=zeros_c, unavailable_writes=zeros_c, failovers=zeros_c,
+            repair_moves=zeros_c, unreachable_frac=zeros_c, wiped_frac=zeros_c,
+        )
+    return TelemetryLeaves(**{**fill, **host})
 
 
 def _reference_engine(
@@ -443,7 +633,12 @@ def _reference_engine(
 ) -> tuple[SimResult, TelemetryLeaves | None, np.ndarray | None]:
     """The per-chunk loop of plain PyTorch on the trace's device, the policy
     through its plain ``decide``, float64 accumulators on the host. Returns
-    ``(result, telemetry leaves | None, per-request latencies | None)``."""
+    ``(result, telemetry leaves | None, per-request latencies | None)``.
+
+    With routing on and faults off the published view is the snapshot of
+    ``publish_lag_chunks`` chunks ago, kept in a history of chunk-start
+    snapshots; with faults on it comes from the publish ring, which a down
+    directory home freezes."""
     dev = trace.keys.device
     keys, nodes, is_read = trace.keys, trace.nodes, trace.is_read
     r = keys.shape[0]
@@ -459,6 +654,18 @@ def _reference_engine(
     contention = _contention_kwargs(cluster, static.read_mode, daemon_interval)
     sc = _replay_scalars(cluster)
     num_chunks = -(-r // daemon_interval)
+    routing = _routing_kwargs(cluster, k)
+    fault = _fault_kwargs(cluster, num_chunks)
+    if routing is not None:
+        lag = routing["publish_lag_chunks"]
+        rstate = init_router_state(
+            store.hosts, num_routers=routing["num_routers"],
+            cache_entries=routing["cache_entries"], publish_lag_chunks=lag,
+            active=static.is_active, force_ring=fault is not None,
+        )
+        history = deque(maxlen=lag + 1)  # chunk-start (hosts, version) snapshots
+    if fault is not None:
+        wiped = torch.zeros(k, dtype=torch.bool, device=dev)
 
     def host(t: torch.Tensor) -> np.ndarray:
         return t.to(torch.float64).cpu().numpy()
@@ -466,32 +673,85 @@ def _reference_engine(
     busy = np.zeros(n)
     hits = reads = lat_sum = 0.0
     moves = np.zeros(4)  # adds, drops, expiry evictions, capacity evictions
+    tiers = np.zeros(8)  # as _simulate's
     peak = host(_node_occupancy(store.hosts, obj))
     per_chunk, raw = [], []
     for c in range(num_chunks):
         lo, hi = c * daemon_interval, min((c + 1) * daemon_interval, r)
         ck, cn, cr = keys[lo:hi], nodes[lo:hi], is_read[lo:hi]
-        lat, read_hits = chunk_latency_ref(store.hosts, ck, cn, cr, rtt, read_mode=static.read_mode,
+        cv = torch.ones_like(cr)
+        row = {}
+        served, hosts_eff, f_extra = cv, store.hosts, None
+        if fault is not None:
+            avail_c = torch.from_numpy(fault["avail"][c]).to(dev)
+            post = store.hosts & ~torch.from_numpy(fault["crash"][c]).to(dev)[None, :]
+            wiped = wiped | (store.hosts.any(dim=-1) & ~post.any(dim=-1))
+            store = store._replace(hosts=post)
+            f_extra, unavail, failover = fault_extra_ms_ref(
+                store.hosts, ck, cn, cr, cv, avail_c, rtt, read_mode=static.read_mode,
+                master=sc["master"], xfer_write_ms=sc["xfer_write_ms"], wiped=wiped,
+            )
+            served = cv & ~unavail
+            hosts_eff = store.hosts & avail_c[None, :]
+        lat, read_hits = chunk_latency_ref(hosts_eff, ck, cn, cr, rtt, read_mode=static.read_mode,
                                            **sc)
-        rho = None
+        route = None
+        if routing is not None:
+            if not static.is_active:
+                pub_hosts, pub_ver = store.hosts, torch.zeros(k, dtype=torch.int32, device=dev)
+            elif fault is not None:
+                pub_hosts, pub_ver = published_view(rstate, store.hosts, c, publish_lag_chunks=lag)
+            else:
+                history.append((store.hosts, rstate.ver))
+                pub_hosts, pub_ver = history[0]  # the snapshot of chunk max(c - lag, 0)
+            rb = router_of(cn, routing["num_routers"])
+            ent_cached, fresh, age = consult_probe(rstate, rb, ck)
+            detour, fetch, consult, fetched, stale, mis = routing_extra_split_ref(
+                hosts_eff, pub_hosts, ent_cached, fresh, ck, cn, cr, served, rtt,
+                read_mode=static.read_mode, home_node=routing["home_node"],
+            )
+            route = detour + fetch
+        rho = extra = None
         if contention is not None:
-            extra, rho = contention_extra_ms_ref(
-                store.hosts, ck, cn, cr, torch.ones_like(cr), rtt, obj, **contention)
+            extra, rho = contention_extra_ms_ref(hosts_eff, ck, cn, cr, served, rtt, obj,
+                                                 **contention)
+        if route is not None:
+            extra = route if extra is None else route + extra
+        if f_extra is not None:
+            extra = f_extra if extra is None else f_extra + extra
+        if extra is not None:
             lat = lat + extra
+        if fault is not None:
+            lat = torch.where(served, lat, torch.zeros((), dtype=torch.float32, device=dev))
         busy += host(torch.zeros(n, dtype=torch.float64, device=dev).index_add_(
             0, cn.long(), lat.to(torch.float64)))
         c_lat = float(lat.sum(dtype=torch.float64))
-        c_hits, c_reads = float(read_hits.sum()), float(cr.sum())
+        c_hits, c_reads = float((read_hits & served).sum()), float((cr & served).sum())
         lat_sum += c_lat
         hits += c_hits
         reads += c_reads
+        if fault is not None:
+            unreach = (store.hosts.any(dim=-1) & ~hosts_eff.any(dim=-1)) | wiped
+            row["fault"] = [float((unavail & cr).sum()), float((unavail & ~cr).sum()),
+                            float(failover.sum()), 0.0]
+            row["fracs"] = [float(unreach.sum()) / k, float(wiped.sum()) / k]
         occ = host(_node_occupancy(store.hosts, obj))
         peak = np.maximum(peak, occ)
+        if routing is not None:
+            row["routing"] = [float(consult.sum()), float(fetched.sum()), float(mis.sum()),
+                              float(stale.sum())]
+            row["stale_age_hist"] = host(stale_age_fold(age, stale))
+            rstate = router_cache_update(rstate, rb, ck, consult, pub_ver,
+                                         cache_entries=routing["cache_entries"],
+                                         decay=routing["decay"])
         c_moves = np.zeros(4)
         if static.is_active:
-            store = record_accesses(store, ck, cn, now=c)
+            store = record_accesses(store, ck, cn, now=c,
+                                    valid=None if fault is None else avail_c[cn.long()])
+            prev_hosts = store.hosts
             if c % static.period == 0:
-                plan, pstate, store = policy_sweep(static, pstate, store, c, ctx, fused=False)
+                step_ctx = ctx if fault is None else ctx._replace(avail=avail_c)
+                plan, pstate, store = policy_sweep(static, pstate, store, c, step_ctx, fused=False)
                 evicted = plan.capacity_evicted
                 c_moves = np.array([
                     float(plan.to_add.sum()), float(plan.to_drop.sum()),
@@ -499,33 +759,52 @@ def _reference_engine(
                     0.0 if evicted is None else float(evicted.sum()),
                 ])
                 moves += c_moves
+            if fault is not None:
+                added = store.hosts & ~prev_hosts
+                lost_live = prev_hosts.any(dim=-1) & ~(prev_hosts & avail_c[None, :]).any(dim=-1)
+                row["fault"][3] = float((added & (wiped | lost_live)[:, None]).sum())
+                wiped = wiped & ~(store.hosts & avail_c[None, :]).any(dim=-1)
+            if routing is not None:
+                changed = publish_mask(prev_hosts, store.hosts)
+                if fault is not None:
+                    rstate = publish_commit(
+                        rstate, changed, store.hosts, c, publish_lag_chunks=lag,
+                        daemon_up=bool(fault["avail"][c, routing["home_node"]]),
+                    )
+                else:
+                    rstate = rstate._replace(ver=rstate.ver + changed.to(torch.int32))
+        tiers += np.concatenate([row.get("routing", np.zeros(4)), row.get("fault", np.zeros(4))])
         if tcfg is not None:
             group = cn.long() * 2 + cr.long()
             hist = latency_histogram_ref(
-                lat, group, torch.ones_like(lat), num_groups=2 * n, num_bins=tcfg.num_bins,
+                lat, group, served.to(torch.float32), num_groups=2 * n, num_bins=tcfg.num_bins,
                 lo=tcfg.lo_ms, hi=tcfg.hi_ms)
-            per_chunk.append(dict(
-                hist=host(hist), hits=c_hits, reads=c_reads, lat_sum=c_lat, count=float(hi - lo),
+            row.update(
+                hist=host(hist), hits=c_hits, reads=c_reads, lat_sum=c_lat,
+                count=float(hi - lo) if fault is None else float(served.sum()),
                 adds=c_moves[0], drops=c_moves[1], expiry_evictions=c_moves[2],
                 capacity_evictions=c_moves[3], occupancy=occ,
                 load_factor=np.zeros(n) if rho is None else host(rho),
-            ))
+            )
+            per_chunk.append(row)
             raw.append(host(lat))
 
+    served_r = r if fault is None else max(r - tiers[4] - tiers[5], 1.0)
     result = SimResult(
-        throughput_ops_s=r / (float(busy.max()) / 1000.0),
-        hit_rate=hits / max(reads, 1.0),
-        mean_latency_ms=lat_sum / r,
-        node_busy_ms=busy,
-        replication_moves=float(moves[0]),
-        deletion_moves=float(moves[1]),
-        evictions=float(moves[2]),
-        capacity_evictions=float(moves[3]),
-        peak_occupancy_bytes=peak,
+        r / (float(busy.max()) / 1000.0), hits / max(reads, 1.0), lat_sum / served_r, busy,
+        *(float(x) for x in moves), peak, *(float(x) for x in tiers),
     )
     if tcfg is None:
         return result, None, None
-    stacked = {name: np.stack([row[name] for row in per_chunk]) for name in per_chunk[0]}
+    stacked = {name: np.stack([np.asarray(row[name]) for row in per_chunk])
+               for name in per_chunk[0]}
+    for name, cols in (("routing", ("router_consults", "directory_fetches", "mis_routes",
+                                    "stale_consults")),
+                       ("fault", ("unavailable_reads", "unavailable_writes", "failovers",
+                                  "repair_moves")),
+                       ("fracs", ("unreachable_frac", "wiped_frac"))):
+        if name in stacked:
+            stacked.update(zip(cols, stacked.pop(name).T))
     return result, _leaves(stacked, True, num_chunks), np.concatenate(raw)
 
 
@@ -537,21 +816,24 @@ def run_scenario_reference(
     daemon_interval: int = 1000,
     *,
     device: str | torch.device | None = None,
+    trace: Trace | None = None,
     telemetry: TelemetryConfig | None = None,
 ) -> SimResult | tuple[SimResult, SimTrace]:
     """The slow-path oracle of :func:`run_scenario`: one chunk at a time in
     plain PyTorch on ``device`` (no kernel, on the card too), the policy
-    stepped on the host, float64 accumulators, on ``generate_trace(workload,
-    seed)``. The same semantics, so the results agree with
-    ``run_scenario``'s to the f32 engine's rounding. With ``telemetry`` it
-    returns ``(SimResult, SimTrace)`` and the trace carries
+    stepped on the host, float64 accumulators, on ``trace`` or else
+    ``generate_trace(workload, seed)``. The same semantics, so the results
+    agree with ``run_scenario``'s to the f32 engine's rounding. With
+    ``telemetry`` it returns ``(SimResult, SimTrace)`` and the trace carries
     ``raw_latency_ms``, every request's latency."""
     _check_slice(workload, cluster, caller="run_scenario_reference")
     tcfg = normalize_telemetry(telemetry)
     static, params = _prepare(workload, policy, daemon_interval, "run_scenario_reference")
     dev = resolve_device(device)
-    result, leaves, raw = _reference_engine(generate_trace(workload, seed, device=dev), cluster,
-                                            static, params, daemon_interval, tcfg)
+    if trace is None:
+        trace = generate_trace(workload, seed, device=dev)
+    result, leaves, raw = _reference_engine(trace.to(dev), cluster, static, params,
+                                            daemon_interval, tcfg)
     if tcfg is None:
         return result
     return result, build_trace(leaves, tcfg, raw_latency_ms=raw)

@@ -6,11 +6,14 @@ Per chunk the engine folds every request's latency into a ``[2N, B]``
 log-bin histogram whose group id is ``node * 2 + is_read``; the global,
 per-node and read/write views are row-sums of it, so histograms merge
 across chunks and runs by summation. The fold runs on the device: inside
-the ``chunk_replay`` kernel on the active-policy path, and in one
+the ``chunk_replay`` kernel on the chunk loop, and in one
 ``latency_histogram`` launch over the whole trace on the static path
-(:func:`trace_histogram`). The per-chunk series (hit rate, mean and P99
-latency, moves, occupancy, load factor) come back to the host once, at the
-end of the run, and :func:`build_trace` turns them into a :class:`SimTrace`.
+(:func:`trace_histogram`). With failure injection on, only served requests
+are binned. The per-chunk series (hit rate, mean and P99 latency, moves,
+occupancy, load factor, the routing tier's consults and staleness ages,
+the availability and blast-radius counters) come back to the host once, at
+the end of the run, and :func:`build_trace` turns them into a
+:class:`SimTrace`.
 
 Quantiles are interpolated from the log-spaced histogram in numpy on the
 host; bins have constant relative width ``(hi/lo)**(1/(B-2))``, so an
@@ -111,9 +114,9 @@ def normalize_telemetry(telemetry: TelemetryConfig | None) -> TelemetryConfig | 
 class TelemetryLeaves(NamedTuple):
     """Raw per-chunk accumulators, chunk axis first, as numpy arrays after
     the run's one readback. Every field is a sum over requests except the
-    point samples ``occupancy`` and ``load_factor``. The routing and
-    failure-injection leaves are zero, as in the reference with those
-    tiers off (scalar ``0.0`` where its static path leaves them unset)."""
+    point samples ``occupancy``, ``load_factor``, ``unreachable_frac`` and
+    ``wiped_frac``. A tier that is off has zero leaves, as in the reference
+    (the fault leaves a scalar ``0.0`` on the static whole-trace path)."""
 
     hist: Any  # [C, 2N, B] grouped latency histogram per chunk
     hits: Any  # [C] read hits
@@ -126,17 +129,17 @@ class TelemetryLeaves(NamedTuple):
     capacity_evictions: Any  # [C] held replicas evicted by a budget
     occupancy: Any  # [C, N] replica bytes on the chunk's frozen map
     load_factor: Any = 0.0  # [C, N] serving-node rho (zeros: contention off)
-    router_consults: Any = 0.0
-    directory_fetches: Any = 0.0
-    mis_routes: Any = 0.0
-    stale_consults: Any = 0.0
-    stale_age_hist: Any = 0.0
-    unavailable_reads: Any = 0.0
-    unavailable_writes: Any = 0.0
-    failovers: Any = 0.0
-    repair_moves: Any = 0.0
-    unreachable_frac: Any = 0.0
-    wiped_frac: Any = 0.0
+    router_consults: Any = 0.0  # [C] directory consults
+    directory_fetches: Any = 0.0  # [C] cache misses
+    mis_routes: Any = 0.0  # [C] consults detoured by a stale view
+    stale_consults: Any = 0.0  # [C] consults of a stale entry
+    stale_age_hist: Any = 0.0  # [C, STALE_AGE_BINS] version gaps of stale consults
+    unavailable_reads: Any = 0.0  # [C] reads refused
+    unavailable_writes: Any = 0.0  # [C] writes refused
+    failovers: Any = 0.0  # [C] writes through a stand-in master
+    repair_moves: Any = 0.0  # [C] re-seeded copies of keys with no live copy
+    unreachable_frac: Any = 0.0  # [C] share of keys with no live replica
+    wiped_frac: Any = 0.0  # [C] share of keys whose every replica a crash destroyed
 
 
 # How each leaf merges across a batch axis (seeds, policy rows): "sum"
@@ -282,9 +285,9 @@ class SimTrace(NamedTuple):
     odd rows reads); ``hist``, ``hist_read``, ``hist_write`` and
     ``hist_node`` are row-sums. ``load_factor`` is the per-chunk
     serving-node rho (zeros with contention off). The routing and
-    failure-injection series are zero (those tiers are later slices);
-    ``effective_hit_rate`` then equals ``hit_rate``. ``raw_latency_ms``
-    stays ``None``: only the reference engine (a later slice) fills it.
+    failure-injection series are zero with their tier off;
+    ``effective_hit_rate`` counts unavailable reads as misses.
+    ``raw_latency_ms`` is filled by ``run_scenario_reference`` only.
     """
 
     edges: np.ndarray  # [B+1] bin edges (ms): [0, lo, ..., hi, inf]
@@ -363,6 +366,35 @@ class SimTrace(NamedTuple):
     def tail_summary(self, split="all") -> dict:
         """P50/P90/P95/P99/P99.9 as a dict."""
         return quantile_summary(self._select(split), self.edges)
+
+    # -- routing tier and availability --------------------------------------
+
+    @property
+    def mis_route_rate(self) -> np.ndarray:
+        """``[C]`` share of each chunk's directory consults that a stale
+        ownership view detoured (0 where nothing consulted)."""
+        return self.mis_routes / np.maximum(self.router_consults, 1.0)
+
+    @property
+    def availability(self) -> np.ndarray:
+        """``[C]`` share of each chunk's attempted requests that were served
+        (1.0 where nothing was attempted, and everywhere with faults off)."""
+        unav = np.asarray(self.unavailable_reads, np.float64) + np.asarray(
+            self.unavailable_writes, np.float64)
+        attempted = self.requests + unav
+        return np.where(attempted > 0, self.requests / np.maximum(attempted, 1.0), 1.0)
+
+    def recovery_chunks(self, outage_start: int, target_frac: float = 0.95) -> int:
+        """Chunks from ``outage_start`` until the effective hit rate first
+        recovers to ``target_frac`` of its pre-outage median (the median,
+        so that an adaptive policy's cold start does not drag the baseline
+        down); -1 if the trace ends first."""
+        eff = self.effective_hit_rate
+        baseline = float(np.median(eff[:outage_start])) if outage_start > 0 else 1.0
+        ok = eff[outage_start:] >= target_frac * baseline
+        if not ok.any():
+            return -1
+        return int(np.argmax(ok))
 
     # -- convergence / oscillation ------------------------------------------
 

@@ -160,9 +160,12 @@ def test_reference_engine_routes_and_raises_like_the_port():
             for seed, got in enumerate(row["results"]):
                 want = tk.run_scenario_reference(wl, tk.ClusterConfig(), pol, seed=seed, device="cpu")
                 assert got.hit_rate == want.hit_rate and got.throughput_ops_s == want.throughput_ops_s
-    with pytest.raises(NotImplementedError, match="routing"):
-        tk.run_scenario_reference(tk.WorkloadConfig(num_requests=100), tk.ClusterConfig(routing=object()),
-                                  tk.RedynisPolicy(), device="cpu")
+    # routing is ported; with it on, attribution (a later slice) still raises
+    attribution = telemetry_from_fields(**jk.TelemetryConfig(attribution=jk.AttributionConfig())._asdict())
+    with pytest.raises(NotImplementedError, match="attribution"):
+        tk.run_scenario_reference(tk.WorkloadConfig(num_requests=100),
+                                  tk.ClusterConfig(routing=tk.RoutingConfig()), tk.RedynisPolicy(),
+                                  device="cpu", telemetry=attribution)
 
 
 def test_port_imports_neither_jax_nor_the_reference_package():

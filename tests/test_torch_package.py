@@ -36,12 +36,16 @@ from repro_torch.models.params import ParamSpec, dense_init, init_params  # noqa
 from repro_torch.serving import SessionRouter  # noqa: E402
 from repro_torch.kvsim import (  # noqa: E402
     ClusterConfig,
+    FaultConfig,
+    FaultEvent,
     RedynisPolicy,
+    RoutingConfig,
     ServiceConfig,
     StaticPolicy,
     TelemetryConfig,
     WorkloadConfig,
     generate_trace,
+    region_outage,
     run_scenario,
     wan5_cluster,
 )
@@ -62,6 +66,8 @@ MODULES = [
     "repro_torch.kvsim.workload",
     "repro_torch.kvsim.simulate",
     "repro_torch.kvsim.telemetry",
+    "repro_torch.kvsim.routing",
+    "repro_torch.kvsim.faults",
     "repro_torch.kernels._build",
     "repro_torch.kernels.chunk_replay.ops",
     "repro_torch.kernels.chunk_replay.ref",
@@ -209,8 +215,10 @@ class _SubConfig:
 @pytest.mark.parametrize(
     "cluster,kwargs,what",
     [
-        (ClusterConfig(routing=object()), {}, "routing"),
-        (ClusterConfig(faults=object()), {}, "faults"),
+        # the routing and failure-injection tiers are ported; with them on,
+        # the inputs of later slices still raise
+        (ClusterConfig(routing=RoutingConfig()), {"trace_mode": "streamed"}, "streamed"),
+        (ClusterConfig(faults=region_outage(0, 0, 1)), {"num_shards": 2}, "num_shards"),
         (ClusterConfig(), {"telemetry": TelemetryConfig(attribution=_SubConfig())}, "attribution"),
         (ClusterConfig(), {"telemetry": TelemetryConfig(flight=_SubConfig())}, "flight"),
         (ClusterConfig(), {"trace_mode": "streamed"}, "streamed"),
@@ -232,8 +240,24 @@ def test_interop_rejects_uncovered_cluster_fields():
     assert cluster_from_fields(**ClusterConfig()._asdict()) == ClusterConfig()
     carried = cluster_from_fields(service=ServiceConfig(serve_bytes_per_ms=128.0))
     assert carried.service == ServiceConfig(serve_bytes_per_ms=128.0)
-    with pytest.raises(NotImplementedError, match="routing"):
-        cluster_from_fields(routing=object())
+    with pytest.raises(NotImplementedError, match="sharding"):
+        cluster_from_fields(sharding=object())
+
+
+def test_interop_carries_routing_and_faults():
+    """The routing and failure-injection fields carry across by their
+    fields, and a run with both tiers on goes through."""
+    from repro_torch.interop import cluster_from_fields
+
+    faults = FaultConfig(events=(FaultEvent("zone", 1, 2, 3, "partition"),))
+    fields = dict(ClusterConfig()._asdict(), routing=RoutingConfig(publish_lag_chunks=2),
+                  faults=faults, zone_of=[0, 1, 1], region_of=(0, 0, 1))
+    carried = cluster_from_fields(**fields)
+    assert carried.routing == RoutingConfig(publish_lag_chunks=2) and carried.faults == faults
+    assert carried.zone_of == (0, 1, 1) and carried.region_of == (0, 0, 1)
+    res = run_scenario(WorkloadConfig(num_requests=2_000, num_keys=50), carried, RedynisPolicy(),
+                       daemon_interval=200, device="cpu")
+    assert res.router_consults > 0 and res.unavailable_reads > 0
 
 
 # ---------------------------------------------------------------------------
@@ -306,6 +330,47 @@ def test_chunk_replay_kernel_takes_empty_replica_rows(cuda, mode, b):
     rtt = ClusterConfig().rtt_matrix(cuda)
     got, want = chunk_replay(*args, rtt, **kw), chunk_replay_ref(*args, rtt, **kw)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bins", [0, 128])
+@pytest.mark.parametrize("b", [10_000, 400_000], ids=["cluster", "packed"])
+@pytest.mark.parametrize("case", ["negative_extra", "all_refused", "dead_column"])
+def test_chunk_replay_kernel_takes_fault_path_operands(cuda, case, b, bins):
+    """The failure-injection path's operands: a failover delta down to
+    -300 ms (negative latencies bin to 0), a chunk whose every row is
+    refused (``valid`` all False), and a map with one node's column all
+    False (a down node under ``hosts & avail``). Whole-ms latencies, so
+    every output is exact, per request too."""
+    from repro_torch.kernels.chunk_replay.ops import chunk_replay, launch_shape
+    from repro_torch.kernels.chunk_replay.ref import chunk_replay_ref
+
+    rng = np.random.default_rng(4)
+    k, n = 50_000, 5
+    assert launch_shape(b, n, k)[0] == ("cluster" if b == 10_000 else "packed")
+    hosts = rng.random((k, n)) < 0.4
+    valid = rng.random(b) < 0.9
+    if case == "dead_column":
+        hosts[:, 0] = False
+    if case == "all_refused":
+        valid[:] = False
+    extra = rng.integers(-300, 30, b).astype(np.float32)
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        hosts, rng.integers(0, k, b).astype(np.int32), rng.integers(0, n, b).astype(np.int32),
+        rng.random(b) < 0.7, valid)]
+    outs = [(torch.empty(b, device=cuda), torch.empty(b, dtype=torch.bool, device=cuda))
+            for _ in range(2)]
+    kw = dict(service_ms=10.0, master=0, xfer_read_ms=2.0, xfer_write_ms=3.0, read_mode="map",
+              num_bins=bins, extra_ms=torch.from_numpy(extra).to(cuda))
+    rtt = wan5_cluster().rtt_matrix(cuda)
+    got = chunk_replay(*args, rtt, **kw, lat_out=outs[0][0], hit_out=outs[0][1])
+    want = chunk_replay_ref(*args, rtt, **kw, lat_out=outs[1][0], hit_out=outs[1][1])
+    assert all(g is None and w is None or torch.equal(g, w) for g, w in zip(got, want))
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    if case == "all_refused":
+        assert int(got[4]) == 0 and not got[0].any()
+    else:
+        assert bool((outs[0][0] < 0).any())
 
 
 @pytest.mark.cuda
