@@ -42,7 +42,17 @@ prefill length, the sweep on int32 and f32 counts, the histogram at the
 static path's full-size shape on its own latencies and on log-uniform
 ones, in the flat form and in 997-row chunks. Phase 2 holds the
 histogram's threshold count against the bin rule on all 2**32 f32 bit
-patterns at three settings. Every phase raises on a
+patterns at five settings (two of them the cost attribution's), the
+attribution fold (80 groups a launch) and the ``trace_window`` kernel (a
+window of a trace from its threefry stream; uniform and skewed, one and five
+nodes, diurnal, a window past the trace and one at 2**30) against their plain
+versions. Phase 11 drives cost attribution, the flight recorder and streamed
+traces: ``benchmarks/latency_attribution.py`` at its defaults (card against
+the CPU port, the component-sum check, the exports byte for byte), its four
+policies at 1 M keys and 10 M requests (against the plain-version engine),
+static policies at 100 M requests on the whole-trace path, and a streamed
+100 M-request Redynis run against the materialized one, bit for bit, with
+their peak memory. Every phase raises on a
 mismatch and prints
 its duration; the script exits non-zero without a CUDA device or outside a
 checkout. The last line of its output is the JSON device record.
@@ -62,6 +72,11 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 BW_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+# 32-bit integer instructions a second, at most: the data sheet's 67 TFLOP/s
+# f32 is 128 lanes an SM issuing a fused multiply-add (two operations) each
+# clock, and an SM issues at most 128 thread-instructions a clock (four
+# schedulers of 32 lanes), integer ones on its ALU and FMA pipes together.
+INT32_OPS_PER_S = 67e12 / 2
 F32_OPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores (NVIDIA data sheet)
 FULL_REQUESTS = 100_000_000
 FULL_KEYS = 1_000_000
@@ -188,9 +203,11 @@ def _plain_histogram(lat, group, weight, *, rows_per_chunk=None, **kw):
     return latency_histogram_chunks_ref(lat, group, weight, rows_per_chunk=rows_per_chunk, **kw)
 
 
-# (lo, hi, B) of tests/test_torch_telemetry.py::HIST_GRID whose bin rules
-# phase 2 checks on every f32 bit pattern.
-RULE_CHECKS = ((1.0, 10_000.0, 128), (5.0, 500.0, 32), (0.1, 1e6, 128))
+# (lo, hi, B) of tests/test_torch_telemetry.py::HIST_GRID, then the cost
+# attribution's rules (AttributionConfig's 0.01 ms floor, 64 and 96 bins),
+# whose bin rules phase 2 checks on every f32 bit pattern.
+RULE_CHECKS = ((1.0, 10_000.0, 128), (5.0, 500.0, 32), (0.1, 1e6, 128),
+               (0.01, 10_000.0, 64), (0.01, 10_000.0, 96))
 
 
 def _histogram_cases(torch, dev, rng) -> tuple[int, float, list, dict]:
@@ -294,6 +311,90 @@ def _histogram_cases(torch, dev, rng) -> tuple[int, float, list, dict]:
     return cases, err, edge_bins, rule
 
 
+def _attribution_fold_cases(torch, dev, rng) -> float:
+    """Hold the attribution fold on the card against its plain version: a
+    chunk's ``[8, 2N, Ba]`` histograms in one ``latency_histogram`` launch
+    of ``8 * 2N`` = 80 groups (N 5) and a trace's per-chunk form (a launch a
+    component), at Ba 64 and 96 on the attribution rule (lo 0.01, hi 1e4);
+    components log-uniform over [1e-3, 1e5] ms with zeros (unpaid) and the
+    decade and rule edges, 0/1 weights: exact. Returns the largest error (0)."""
+    from repro_torch.kvsim.telemetry import (
+        AttributionConfig,
+        attribution_chunk_hist,
+        attribution_trace_hist,
+    )
+
+    cases = 0
+    for num_bins in (64, 96):
+        acfg = AttributionConfig(num_bins=num_bins)
+        for r, rows_per_chunk in ((10_000, None), (1_000_003, 10_000)):
+            comps = np.exp(rng.uniform(np.log(1e-3), np.log(1e5), (8, r))).astype(np.float32)
+            comps[rng.random((8, r)) < 0.4] = 0.0
+            comps[:, :6] = [0.01, 0.1, 1.0, 10.0, 100.0, 10_000.0]
+            group = rng.integers(0, 10, r).astype(np.int32)
+            weight = (rng.random(r) < 0.95).astype(np.float32)
+            cpu = [torch.from_numpy(a) for a in (comps, group, weight)]
+            card = [t.to(dev) for t in cpu]
+            if rows_per_chunk is None:
+                got = attribution_chunk_hist(*card, acfg, 5)
+                want = attribution_chunk_hist(*card, acfg, 5, histogram=_plain_histogram)
+            else:
+                got = attribution_trace_hist(*card, acfg, 5, rows_per_chunk=rows_per_chunk)
+                with _plain_versions():
+                    want = attribution_trace_hist(*card, acfg, 5, rows_per_chunk=rows_per_chunk)
+            assert torch.equal(got, want), ("attribution fold", num_bins, r)
+            cases += 1
+    print(f"phase 2 latency_histogram attribution fold ok: {cases} cases (Ba 64 and 96, lo 0.01, "
+          f"hi 1e4; a chunk in one launch of 80 groups, a 1 M-row trace in per-chunk launches a "
+          f"component), exact")
+    return 0.0
+
+
+def _window_cases():
+    """``(label, workload, seed, start, count)`` of phase 2's ``trace_window``
+    cases: uniform and skewed, region weights, diurnal, read fractions 0.5
+    and 1.0, one and five nodes, a window past the end of its trace, one at
+    position 2**30."""
+    from repro_torch.kvsim import WorkloadConfig, diurnal_workload, wan5_workload
+
+    return [
+        ("uniform read 0.5", WorkloadConfig(num_requests=1_000_003, num_keys=100_000, read_fraction=0.5),
+         0, 0, 1_000_003),
+        ("skewed one node", WorkloadConfig(num_requests=1_000_000, num_keys=999, num_nodes=1, skewed=True,
+                                           affinity=0.3, read_fraction=0.8), 1, 7, 999_993),
+        ("wan5 read 1.0", wan5_workload(num_requests=100_000_000, num_keys=1_000_000, affinity=0.8,
+                                        read_fraction=1.0), 2, 10_000, 10_000),
+        ("wan5 chunk", wan5_workload(num_requests=100_000_000, num_keys=1_000_000, read_fraction=0.9),
+         0, 99_990_000, 10_000),
+        ("diurnal past the end", diurnal_workload(num_requests=1_000_000, num_keys=50_000, affinity=0.7,
+                                                  read_fraction=0.7), 3, 995_000, 10_000),
+        ("diurnal at 2**30", diurnal_workload(num_requests=2**31 - 1, num_keys=1_000_000, affinity=0.8,
+                                              read_fraction=0.9), 4, 2**30, 1_000_001),
+    ]
+
+
+def _trace_window_cases(torch, dev) -> list:
+    """Hold ``trace_window`` against its plain version on the card (the
+    same draws in torch ops, on the card too) on :func:`_window_cases`:
+    keys, nodes and read flags exact. Returns the cases' labels."""
+    from repro_torch.kernels.trace_window.ops import trace_window
+    from repro_torch.kernels.trace_window.ref import trace_window_ref
+    from repro_torch.kvsim.workload import generate_key_state, window_params
+
+    labels = []
+    for label, wl, seed, start, count in _window_cases():
+        params = window_params(wl, seed)
+        natural = generate_key_state(wl, seed, device=dev)[0]
+        got = trace_window(start, count, params, natural)
+        want = trace_window_ref(start, count, params, natural)
+        for name, g, w in zip(("keys", "nodes", "is_read"), got, want):
+            assert torch.equal(g, w), (label, name)
+        labels.append(label)
+    print(f"phase 2 trace_window ok: {len(labels)} cases ({'; '.join(labels)}), keys, nodes and "
+          f"read flags exact")
+    return labels
+
+
 def _check_result(a, b, ctx: str) -> float:
     """Hold two ``SimResult``s of one trace to the engine tolerances: move
     counts (capacity evictions too) and hit rate exact, the f32 aggregates
@@ -334,14 +435,21 @@ def _profile_window(torch, trace, wl, cl, policy, run_scenario, out_dir,
     the first ``chunks`` chunks of the full-size trace against the full
     1 M-key store. Prints the device time per chunk, its share of the
     unprofiled wall time per chunk, the host launches per chunk, and the
-    top kernels by device time and operations by host time."""
+    top kernels by device time and operations by host time. With ``trace``
+    ``None`` the run is streamed (its windows drawn on the card, the same
+    positions as the full trace's first chunks where the workload has no
+    diurnal rotation)."""
     kw = {} if telemetry is None else dict(telemetry=telemetry)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     sub_r = chunks * FULL_INTERVAL
-    sub = trace._replace(keys=trace.keys[:sub_r], nodes=trace.nodes[:sub_r],
-                         is_read=trace.is_read[:sub_r])
+    if trace is None:
+        kw["trace_mode"] = "streamed"
+        sub = None
+    else:
+        sub = trace._replace(keys=trace.keys[:sub_r], nodes=trace.nodes[:sub_r],
+                             is_read=trace.is_read[:sub_r])
     sub_wl = wl._replace(num_requests=sub_r)
     run_scenario(sub_wl, cl, policy, daemon_interval=FULL_INTERVAL, trace=sub, **kw)
     torch.cuda.synchronize()
@@ -1406,6 +1514,335 @@ def _faults_routing_phase(torch, dev, out_dir) -> dict:
     return rec
 
 
+def _check_attribution(a, b, ctx: str, exact_vals: bool = True) -> None:
+    """Hold the attribution and flight fields of two ``SimTrace``s of one
+    trace: component histograms, flight records exact (integer plane, and the
+    float plane of equal components added in one order); the per-chunk
+    component sums to rtol 1e-6 (f64 sums rounded once, in each device's
+    order)."""
+    np.testing.assert_array_equal(a.attr_hist_group, b.attr_hist_group, err_msg=f"{ctx} attr_hist_group")
+    np.testing.assert_array_equal(a.flight_meta, b.flight_meta, err_msg=f"{ctx} flight_meta")
+    if exact_vals:
+        np.testing.assert_array_equal(a.flight_vals, b.flight_vals, err_msg=f"{ctx} flight_vals")
+    np.testing.assert_allclose(a.attr_chunk_sum_ms, b.attr_chunk_sum_ms, rtol=1e-6, atol=1e-9,
+                               err_msg=f"{ctx} attr_chunk_sum_ms")
+
+
+def _attribution_stream_phase(torch, dev, out_dir) -> dict:
+    """Phase 11: cost attribution, the flight recorder and streamed traces.
+
+    (a) ``benchmarks/latency_attribution.py`` at its defaults (wan5, 30,000
+        requests, interval 1,000, contention and a 2-chunk-lag 256-entry
+        router cache, 96 bins, 8 stride samples a chunk), its four policies
+        and a reservoir-mode Redynis run, each on the card and through the
+        CPU port: counts, histograms and flight records equal, the
+        component-sum check true, the JSON-lines and Chrome-trace exports
+        byte for byte;
+    (b) the same configuration at 1 M keys, 10 M requests, interval 10,000
+        (1,000 chunks), a 256,000-entry cache, each policy held against the
+        plain-version engine; static ``remote`` and ``replicated`` with
+        contention only at 100 M requests on the whole-trace path;
+    (c) ``generate_trace`` on the card against the CPU port at 10 M requests
+        (diurnal wan5, lognormal sizes), and Redynis at 100 M requests over
+        1 M keys streamed against materialized, every result and leaf bit
+        for bit, with wall time and peak memory for each.
+
+    The kernel counters are zeroed before (a) and read after (c), before any
+    plain-version run or profile. Returns the phase's record."""
+    from repro_torch.kernels.chunk_replay.ops import chunk_replay
+    from repro_torch.kernels.latency_histogram.ops import latency_histogram
+    from repro_torch.kernels.ownership_sweep.ops import ownership_sweep
+    from repro_torch.kernels.trace_window.ops import trace_window
+    from repro_torch.kernels.trace_window.ref import trace_window_ref
+    from repro_torch.kvsim import (
+        AttributionConfig,
+        FlightRecorderConfig,
+        RedynisPolicy,
+        RoutingConfig,
+        ServiceConfig,
+        TelemetryConfig,
+        describe_policy,
+        diurnal_workload,
+        generate_trace,
+        parse_policy,
+        run_scenario,
+        wan5_cluster,
+        wan5_workload,
+        write_chrome_trace,
+        write_jsonl,
+    )
+    from repro_torch.kvsim.workload import generate_key_state, window_params
+
+    rec: dict = {"paper": {}, "full": {}, "stream": {}}
+    service = ServiceConfig(serve_bytes_per_ms=128.0, capacity_factor=2.0)
+    specs = ("remote", "replicated", "redynis", "costgreedy")
+    bench = dict(num_keys=1_000, read_fraction=0.9, affinity=0.8)  # benchmarks/common.py's wan5
+
+    def attr_cfg(mode="stride"):
+        return TelemetryConfig(num_bins=96, attribution=AttributionConfig(num_bins=96),
+                               flight=FlightRecorderConfig(samples_per_chunk=8, mode=mode))
+
+    expect = {"chunk_replay": 0, "ownership_sweep": 0, "latency_histogram": 0, "trace_window": 0}
+
+    def card_run(wl, cl, pol, interval, telemetry, trace=None, trace_mode="materialized"):
+        """One run on the card, its launches added to ``expect``."""
+        out = run_scenario(wl, cl, pol, daemon_interval=interval, trace=trace, telemetry=telemetry,
+                           trace_mode=trace_mode)
+        chunks = -(-wl.num_requests // interval)
+        loop = (pol.is_active or cl.routing is not None or cl.faults is not None
+                or trace_mode == "streamed")
+        attributed = telemetry is not None and telemetry.attribution is not None
+        expect["chunk_replay"] += chunks if loop else 1
+        expect["ownership_sweep"] += chunks if isinstance(pol, RedynisPolicy) else 0
+        if telemetry is not None:
+            expect["latency_histogram"] += (chunks if attributed else 0) if loop else 1 + 8 * attributed
+        expect["trace_window"] += chunks if trace_mode == "streamed" else int(trace is None)
+        return out
+
+    rec["held_at_start"] = torch.cuda.memory_allocated()
+    # Warm-ups outside the counts and the clock: a few chunks of each shape.
+    warm_cl = wan5_cluster()._replace(service=service, routing=RoutingConfig(publish_lag_chunks=2,
+                                                                             cache_entries=256))
+    run_scenario(wan5_workload(num_requests=3_000, **bench), warm_cl, RedynisPolicy(),
+                 daemon_interval=1_000, telemetry=attr_cfg())
+    run_scenario(wan5_workload(num_requests=30_000, num_keys=1_000_000), wan5_cluster(), RedynisPolicy(),
+                 daemon_interval=FULL_INTERVAL, telemetry=TelemetryConfig(), trace_mode="streamed")
+    torch.cuda.synchronize()
+    for fn in (chunk_replay, ownership_sweep, latency_histogram, trace_window):
+        fn.launches = 0
+    t_a = time.perf_counter()
+
+    # (a) latency_attribution.py at its defaults, card against the CPU port.
+    wl_a = wan5_workload(num_requests=30_000, **bench)
+    cl_a = warm_cl
+    checks, rows = {}, {}
+    runs_a = [(describe_policy(parse_policy(sp).resolve(5)), parse_policy(sp), "stride") for sp in specs]
+    runs_a.append(("redynis reservoir", RedynisPolicy(), "reservoir"))
+    for label, pol, mode in runs_a:
+        a, ta = card_run(wl_a, cl_a, pol, 1_000, attr_cfg(mode))
+        c, tc = run_scenario(wl_a, cl_a, pol, daemon_interval=1_000, telemetry=attr_cfg(mode), device="cpu")
+        ctx = f"phase 11 (a) {label}"
+        # Attribution and the flight recorder off: the same run, bit for bit,
+        # without their fields.
+        off, toff = card_run(wl_a, cl_a, pol, 1_000, TelemetryConfig(num_bins=96))
+        _identical(off, a, ctx + " attribution off")
+        for name in toff._fields:
+            if getattr(toff, name) is not None:
+                np.testing.assert_array_equal(getattr(toff, name), getattr(ta, name), err_msg=ctx + name)
+        _check_result(a, c, ctx)
+        _check_tiers(a, c, ctx)
+        _check_trace(ta, tc, ctx, load_rtol=1e-6)
+        _check_attribution(ta, tc, ctx)
+        attr = ta.attribution
+        comp_sum = sum(v["mean_ms"] for v in attr.values())
+        checks[f"component_sum_reconstructs_total/{label}"] = bool(
+            abs(comp_sum - a.mean_latency_ms) <= 1e-3 * max(a.mean_latency_ms, 1.0))
+        records = ta.flight_records()
+        assert records == tc.flight_records(), ctx
+        exports = {}
+        for device, tr in (("card", ta), ("cpu", tc)):
+            for name, writer in (("jsonl", write_jsonl), ("chrome", write_chrome_trace)):
+                path = out_dir / f"phase11_{label.replace(' ', '_').replace(':', '_')}_{device}.{name}"
+                writer(tr.flight_records(), str(path))
+                exports[(device, name)] = path.read_bytes()
+        checks[f"exports_equal/{label}"] = all(exports[("card", x)] == exports[("cpu", x)]
+                                               for x in ("jsonl", "chrome"))
+        top = max((x for x in attr if x != "service"), key=lambda x: attr[x]["mean_ms"])
+        rows[label] = dict(mean_latency_ms=a.mean_latency_ms, component_sum_ms=comp_sum,
+                           hit_rate=a.hit_rate, records=len(records), top_component=top,
+                           **{f"{x}_ms": attr[x]["mean_ms"] for x in attr})
+        print(f"phase 11 (a) {label}: mean {a.mean_latency_ms:.4f} ms, component sum {comp_sum:.4f} ms, "
+              f"top {top} {attr[top]['mean_ms']:.4f} ms, detour "
+              f"{attr['routing_detour']['mean_ms']:.4f} ms, fetch {attr['directory_fetch']['mean_ms']:.4f} ms, "
+              f"broadcast {attr['write_broadcast']['mean_ms']:.4f} ms, {len(records)} flight records; "
+              f"card = CPU port")
+    print(f"phase 11 (a) checks {json.dumps(checks)}")
+    assert all(checks.values()), checks
+    rec["paper"] = dict(rows=rows, checks=checks, wall_s=time.perf_counter() - t_a)
+    print(f"phase 11 (a) took {time.perf_counter() - t_a:.1f} s")
+
+    # (b) Full width: 1 M keys, 10 M requests, 1,000 chunks, each policy held
+    # against the plain-version engine; static policies with contention only
+    # at 100 M requests on the whole-trace path.
+    t_b = time.perf_counter()
+    wl_b = wan5_workload(num_requests=GRID_REQUESTS, num_keys=FULL_KEYS, read_fraction=0.9, affinity=0.8)
+    cl_b = wan5_cluster()._replace(service=service, routing=RoutingConfig(publish_lag_chunks=2,
+                                                                          cache_entries=256_000))
+    trace_b = generate_trace(wl_b, 0, device=dev)
+    expect["trace_window"] += 1
+    full = {}
+    wl_s = wan5_workload(num_requests=FULL_REQUESTS, num_keys=FULL_KEYS, read_fraction=0.9, affinity=0.8)
+    cl_s = wan5_cluster()._replace(service=service)
+    runs_b = [(describe_policy(parse_policy(sp).resolve(5)), wl_b, cl_b, parse_policy(sp)) for sp in specs]
+    runs_b += [(f"{sp} 100M static", wl_s, cl_s, parse_policy(sp)) for sp in ("remote", "replicated")]
+    trace_s = None
+    outs = {}
+    for label, wl, cl, pol in runs_b:
+        if wl is wl_s and trace_s is None:
+            trace = trace_b = None
+            torch.cuda.empty_cache()
+            trace_s = generate_trace(wl_s, 0, device=dev)
+            expect["trace_window"] += 1
+        trace = trace_s if wl is wl_s else trace_b
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res, tr = card_run(wl, cl, pol, FULL_INTERVAL, attr_cfg(), trace=trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        attr = tr.attribution
+        comp_sum = sum(v["mean_ms"] for v in attr.values())
+        assert abs(comp_sum - res.mean_latency_ms) <= 1e-3 * max(res.mean_latency_ms, 1.0), label
+        assert tr.hist.sum() == wl.num_requests and tr.flight_meta.shape[1] == 8, label
+        with _plain_versions():
+            plain, ptr = run_scenario(wl, cl, pol, daemon_interval=FULL_INTERVAL, trace=trace,
+                                      telemetry=attr_cfg())
+        ctx = f"phase 11 (b) {label}"
+        rel = max(_check_result(res, plain, ctx), _check_trace(tr, ptr, ctx, load_rtol=1e-6))
+        _check_tiers(res, plain, ctx)
+        _check_attribution(tr, ptr, ctx)
+        full[label] = dict(wall_s=wall, sim_requests_per_s=wl.num_requests / wall, max_memory_allocated=peak,
+                           mean_latency_ms=res.mean_latency_ms, component_sum_ms=comp_sum,
+                           hit_rate=res.hit_rate, plain_max_rel_diff=rel,
+                           **{f"{x}_ms": attr[x]["mean_ms"] for x in attr})
+        print(f"phase 11 (b) {label}: wall {wall:.3f} s, {wl.num_requests / wall:.0f} simulated req/s, "
+              f"max_memory_allocated {peak} bytes; mean {res.mean_latency_ms:.4f} ms = component sum "
+              f"{comp_sum:.4f} ms; read_rtt {attr['read_rtt']['mean_ms']:.4f}, broadcast "
+              f"{attr['write_broadcast']['mean_ms']:.4f}, contention {attr['contention_wait']['mean_ms']:.4f}, "
+              f"detour {attr['routing_detour']['mean_ms']:.4f}, fetch {attr['directory_fetch']['mean_ms']:.4f} "
+              f"ms; matches the plain-version engine (histograms, counts and flight records exact), "
+              f"max rel diff {rel}")
+        del plain, ptr
+    del trace_s
+    torch.cuda.empty_cache()
+    rec["full"] = full
+    print(f"phase 11 (b) took {time.perf_counter() - t_b:.1f} s")
+
+    # (c) Streamed traces.
+    t_c = time.perf_counter()
+    wl_g = diurnal_workload(num_requests=GRID_REQUESTS, num_keys=FULL_KEYS, affinity=0.8, read_fraction=0.7,
+                            object_bytes_sigma=1.0)
+    t0 = time.perf_counter()
+    g_card = generate_trace(wl_g, 5, device=dev)
+    torch.cuda.synchronize()
+    card_gen_s = time.perf_counter() - t0
+    expect["trace_window"] += 1
+    t0 = time.perf_counter()
+    g_cpu = generate_trace(wl_g, 5, device="cpu")
+    cpu_gen_s = time.perf_counter() - t0
+    for name in g_card._fields:
+        assert torch.equal(getattr(g_card, name).cpu(), getattr(g_cpu, name)), ("generate_trace", name)
+    del g_card, g_cpu
+    print(f"phase 11 (c) generate_trace ({GRID_REQUESTS} requests, diurnal wan5, lognormal sizes): card "
+          f"{card_gen_s:.3f} s = CPU port {cpu_gen_s:.3f} s, every field exact")
+    wl_r = wan5_workload(num_requests=FULL_REQUESTS, num_keys=FULL_KEYS, read_fraction=0.9)
+    tcfg = TelemetryConfig()
+    stream = {}
+    results = {}
+    for mode in ("materialized", "streamed"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        results[mode] = card_run(wl_r, wan5_cluster(), RedynisPolicy(), FULL_INTERVAL, tcfg,
+                                 trace_mode=mode)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        stream[mode] = dict(wall_s=wall, sim_requests_per_s=FULL_REQUESTS / wall, own_peak_bytes=peak,
+                            hit_rate=results[mode][0].hit_rate)
+        print(f"phase 11 (c) redynis {FULL_REQUESTS} requests {mode}: wall {wall:.3f} s "
+              f"({FULL_REQUESTS / wall:.0f} simulated req/s, trace generation included), "
+              f"max_memory_allocated {peak} bytes of its own")
+    for a, b in zip(results["materialized"], results["streamed"]):
+        _identical(a, b, "phase 11 (c) streamed against materialized")
+    # The materialized trace is 9 bytes a request (keys, nodes, read flags);
+    # streamed, no [R] buffer exists, so its peak is lower by nearly that.
+    saved = stream["materialized"]["own_peak_bytes"] - stream["streamed"]["own_peak_bytes"]
+    assert saved > 8 * FULL_REQUESTS, stream
+    print(f"phase 11 (c) streamed = materialized: every SimResult field and SimTrace leaf bit for bit; "
+          f"streamed peak {stream['streamed']['own_peak_bytes']} bytes, materialized "
+          f"{stream['materialized']['own_peak_bytes']} (the [R] trace: {9 * FULL_REQUESTS} bytes)")
+    rec["stream"] = dict(runs=stream, generate_card_s=card_gen_s, generate_cpu_s=cpu_gen_s)
+    launches = {"chunk_replay": chunk_replay.launches, "ownership_sweep": ownership_sweep.launches,
+                "latency_histogram": latency_histogram.launches, "trace_window": trace_window.launches}
+    assert launches == expect, (launches, expect)
+    print(f"phase 11 launches {json.dumps(launches)}")
+    rec["launches"] = launches
+    print(f"phase 11 (c) took {time.perf_counter() - t_c:.1f} s")
+
+    # trace_window at the main path's shapes: a streamed chunk's window (10,000
+    # positions of the 100 M-request trace) and the whole trace in one launch.
+    params = window_params(wl_r, 0)
+    natural = generate_key_state(wl_r, 0, device=dev)[0]
+    one = (50 * FULL_INTERVAL, FULL_INTERVAL)
+    got, want = trace_window(*one, params, natural), trace_window_ref(*one, params, natural)
+    assert all(torch.equal(g, w) for g, w in zip(got, want)), "trace_window chunk"
+    win_ms = _device_ms(lambda: trace_window(*one, params, natural), torch)
+    win_plain = _device_ms(lambda: trace_window_ref(*one, params, natural), torch, reps=3, iters=5)
+    whole_ms = _device_ms(lambda: trace_window(0, FULL_REQUESTS, params, natural), torch, reps=3, iters=3)
+    win_calls = _kernels_per_call(torch, lambda: trace_window(*one, params, natural), trace_window)
+    # The bound: bytes (9 written and a 4-byte natural-node read a position)
+    # at 3.35 TB/s against integer operations at the card's int32 rate,
+    # counted from the source for this window's draws (a cold draw only where
+    # the hot coin says cold).
+    cold = int((got[0] >= params.draws[1][0]).sum())  # keys at or past n_hot
+    tw_ops = _trace_window_ops(FULL_INTERVAL, cold, skewed=True, diurnal=False)
+    tw_bytes = FULL_INTERVAL * 13
+    tw_bound = max(tw_bytes / BW_BYTES_PER_S, tw_ops / INT32_OPS_PER_S) * 1e3
+    whole_cold = int((trace_window(0, FULL_REQUESTS, params, natural)[0] >= params.draws[1][0]).sum())
+    trace_window.launches -= 1  # a measurement launch, not the path's
+    whole_bound = max(FULL_REQUESTS * 13 / BW_BYTES_PER_S,
+                      _trace_window_ops(FULL_REQUESTS, whole_cold, True, False) / INT32_OPS_PER_S) * 1e3
+    print(f"phase 11 trace_window ({FULL_INTERVAL} positions): kernel {win_ms:.4f} ms, plain "
+          f"{win_plain:.4f} ms, bound {tw_bound:.6f} ms ({'operations' if tw_ops / INT32_OPS_PER_S >= tw_bytes / BW_BYTES_PER_S else 'bytes'}: "
+          f"{tw_ops} int32 ops, {cold} cold draws), {tw_bound / win_ms:.4f} of it; whole trace "
+          f"({FULL_REQUESTS} positions, one launch) {whole_ms:.4f} ms, bound {whole_bound:.4f} ms "
+          f"({whole_bound / whole_ms:.4f} of it); per call: host {win_calls['host_launches']} launches, "
+          f"{win_calls['device_events']}")
+    assert win_calls["host_launches"] == win_calls["counted"] == 1, win_calls
+    rec["trace_window"] = dict(ms=win_ms, plain_ms=win_plain, bound_ms=tw_bound,
+                               bound_by="operations" if tw_ops / INT32_OPS_PER_S >= tw_bytes / BW_BYTES_PER_S
+                               else "bytes", ops=tw_ops, bytes=tw_bytes, whole_trace_ms=whole_ms,
+                               whole_trace_bound_ms=whole_bound, kernels_per_call=win_calls)
+    del natural, got, want
+
+    # Launches a chunk: Redynis with telemetry, with attribution and the
+    # flight recorder, and streamed, 20 chunks each in one profiler window.
+    t_p = time.perf_counter()
+    trace_r = generate_trace(wl_r._replace(num_requests=20 * FULL_INTERVAL), 0, device=dev)
+    per_chunk_ms = stream["materialized"]["wall_s"] * 1e3 / -(-FULL_REQUESTS // FULL_INTERVAL)
+    rec["profiles"] = {}
+    for label, telemetry, trace in (("telemetry", tcfg, trace_r), ("attribution", attr_cfg(), trace_r),
+                                    ("streamed", tcfg, None)):
+        rec["profiles"][label] = _profile_window(
+            torch, trace, wl_r, wan5_cluster(), RedynisPolicy(), run_scenario, out_dir,
+            unprofiled_chunk_ms=per_chunk_ms, label=f"phase 11 {label}", telemetry=telemetry, chunks=20)
+    print("phase 11 launches a chunk: " + ", ".join(
+        f"{k} {v['launches_per_chunk']:.1f}" for k, v in rec["profiles"].items()))
+    print(f"phase 11 profiles took {time.perf_counter() - t_p:.1f} s")
+    del trace_r
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _trace_window_ops(positions: int, cold: int, skewed: bool, diurnal: bool) -> int:
+    """The fewest 32-bit instructions ``trace_window``'s source can compile
+    to: a threefry block is 74 (2 key adds; 20 rounds of an add, a rotate as
+    one funnel shift and an xor; 5 injections of a two- and a three-input
+    add; the parity key as one three-input xor; the output xor); a draw 6
+    (three remainders counted one each, a multiply, two adds), a coin 4
+    (shift, or, the f32 subtract, the compare), the node 5 and the diurnal
+    phase 4. A position takes the key draw, the shift draw, the coins (hot
+    where skewed, stay, read) and the node; a cold position the cold draw
+    too."""
+    block, draw, coin = 74, 6, 4
+    per = 2 * (2 * block + draw) + (3 if skewed else 2) * (block + coin) + 5 + 4 * diurnal
+    return positions * per + cold * (2 * block + draw)
+
+
+def main() -> int:
+    import torch
 def main() -> int:
     import torch
 
@@ -1618,6 +2055,8 @@ def main() -> int:
           "f32 patterns: " + ", ".join(f"(lo {lo}, hi {hi}, B {b}) {bad} mismatches"
                                        for (lo, hi, b), bad in rule_checks.items()))
     record["histogram_rule_mismatches"] = [[*k, v] for k, v in rule_checks.items()]
+    err_hist = max(err_hist, _attribution_fold_cases(torch, dev, rng))
+    record["trace_window_cases"] = _trace_window_cases(torch, dev)
 
     # hot_gather: the reference kernel test's shapes (tests/test_kernels.py),
     # a row of 6 bytes (2-byte copy units), both table dtypes, and the
@@ -2395,18 +2834,28 @@ def main() -> int:
 
     lap("phase 10")
 
+    # ---- phase 11: cost attribution, the flight recorder, streamed traces --
+    record["attribution_stream"] = _attribution_stream_phase(torch, dev, out_dir)
+    as_launches = record["attribution_stream"]["launches"]
+    tw_rec = record["attribution_stream"]["trace_window"]
+
+    lap("phase 11")
+
     # ---- phase 9: the kernel record ------------------------------------
-    # Launches: the telemetry path's run (phase 5) and the routing and
-    # fault runs (phase 10) drive the first two, phase 5 the third, the
-    # ML-state run (phase 6) the next two, the serving drive (phase 7) the
-    # last two; phase 8's launches of the first three are on a line of their
-    # own ("phase 8 launches").
+    # Launches: the telemetry path's run (phase 5), the routing and fault
+    # runs (phase 10) and the attribution and streamed runs (phase 11) drive
+    # the first three, the ML-state run (phase 6) the next two, the serving
+    # drive (phase 7) the two after, phase 11 the last (a port-only kernel);
+    # phase 8's launches of the first three are on a line of their own
+    # ("phase 8 launches").
     kernels = [
         dict(name="chunk_replay", route="cuda",
              source="src/repro_torch/kernels/chunk_replay/csrc/chunk_replay.cu",
              replaces="src/repro/kernels/chunk_replay/kernel.py:71",
-             launches=tele_launches["chunk_replay"] + fr_launches["chunk_replay"],
-             launches_by_phase={"5": tele_launches["chunk_replay"], "10": fr_launches["chunk_replay"]},
+             launches=tele_launches["chunk_replay"] + fr_launches["chunk_replay"]
+             + as_launches["chunk_replay"],
+             launches_by_phase={"5": tele_launches["chunk_replay"], "10": fr_launches["chunk_replay"],
+                                "11": as_launches["chunk_replay"]},
              max_abs_err=err_replay,
              ms=chunk_ms, plain_ms=chunk_plain,
              bound_ms=replay_bytes / BW_BYTES_PER_S * 1e3, bound_by="bytes",
@@ -2415,9 +2864,11 @@ def main() -> int:
         dict(name="ownership_sweep", route="cuda",
              source="src/repro_torch/kernels/ownership_sweep/csrc/ownership_sweep.cu",
              replaces="src/repro/kernels/ownership_sweep/kernel.py:38",
-             launches=tele_launches["ownership_sweep"] + fr_launches["ownership_sweep"],
+             launches=tele_launches["ownership_sweep"] + fr_launches["ownership_sweep"]
+             + as_launches["ownership_sweep"],
              launches_by_phase={"5": tele_launches["ownership_sweep"],
-                                "10": fr_launches["ownership_sweep"]},
+                                "10": fr_launches["ownership_sweep"],
+                                "11": as_launches["ownership_sweep"]},
              max_abs_err=err_sweep,
              ms=sweep_ms, plain_ms=sweep_plain,
              bound_ms=sweep_bytes / BW_BYTES_PER_S * 1e3, bound_by="bytes",
@@ -2425,7 +2876,10 @@ def main() -> int:
         dict(name="latency_histogram", route="cuda",
              source="src/repro_torch/kernels/latency_histogram/csrc/latency_histogram.cu",
              replaces="src/repro/kernels/latency_histogram/kernel.py:38",
-             launches=tele_launches["latency_histogram"], max_abs_err=err_hist,
+             launches=tele_launches["latency_histogram"] + as_launches["latency_histogram"],
+             launches_by_phase={"5": tele_launches["latency_histogram"],
+                                "11": as_launches["latency_histogram"]},
+             max_abs_err=err_hist,
              ms=hist_ms, plain_ms=hist_plain,
              bound_ms=hist_bytes / BW_BYTES_PER_S * 1e3, bound_by="bytes",
              library_ms=None, kernels_per_call=hist_calls["host_launches"]),
@@ -2458,6 +2912,15 @@ def main() -> int:
              ms=fd_ms, plain_ms=fd_plain, bound_ms=fd_bound,
              bound_by="bytes" if fd_bytes / BW_BYTES_PER_S >= fd_flops / BF16_OPS_PER_S else "operations",
              library_ms=fd_lib),
+        dict(name="trace_window", route="cuda",
+             source="src/repro_torch/kernels/trace_window/csrc/trace_window.cu",
+             replaces="none: port-only (the reference draws traces with jax.random in XLA, "
+                      "src/repro/kvsim/workload.py:172 generate_trace, :288 _request_window)",
+             launches=as_launches["trace_window"], max_abs_err=0.0,
+             ms=tw_rec["ms"], plain_ms=tw_rec["plain_ms"], bound_ms=tw_rec["bound_ms"],
+             bound_by=tw_rec["bound_by"], library_ms=None,
+             whole_trace_ms=tw_rec["whole_trace_ms"], whole_trace_bound_ms=tw_rec["whole_trace_bound_ms"],
+             kernels_per_call=tw_rec["kernels_per_call"]["host_launches"]),
     ]
     record["kernels"] = kernels
     record["ml_launches"] = ml_launches

@@ -17,7 +17,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kvsim.cluster import ClusterConfig, ServiceConfig
 from repro_torch.kvsim.faults import FaultConfig, FaultEvent
 from repro_torch.kvsim.routing import RoutingConfig
-from repro_torch.kvsim.telemetry import TelemetryConfig
+from repro_torch.kvsim.telemetry import AttributionConfig, FlightRecorderConfig, TelemetryConfig
 from repro_torch.kvsim.workload import Trace
 from repro_torch.models.transformer import KVCache
 
@@ -91,9 +91,12 @@ def cluster_from_fields(**fields) -> ClusterConfig:
 
 
 def telemetry_from_fields(**fields) -> TelemetryConfig:
-    """A ``TelemetryConfig`` from a reference config's ``_asdict()``. The
-    attribution and flight-recorder sub-configs carry across as they are:
-    ``run_scenario`` raises while one is enabled (a later slice)."""
+    """A ``TelemetryConfig`` from a reference config's ``_asdict()``; its
+    ``AttributionConfig`` and ``FlightRecorderConfig`` carry across by their
+    fields."""
+    for name, cls in (("attribution", AttributionConfig), ("flight", FlightRecorderConfig)):
+        if fields.get(name) is not None:
+            fields[name] = cls(**fields[name]._asdict())
     return TelemetryConfig(**fields)
 
 

@@ -15,7 +15,9 @@ Flags, per kernel (``flags``): all but ``flash_attention`` are built with
 ``-fmad=false`` and no ``--use_fast_math`` (IEEE division stays the
 default). The simulator and ML-state kernels must give their plain
 versions' f32 bits in the latency, fraction and gate expressions, where a
-fused multiply-add would round once where the plain version rounds twice;
+fused multiply-add would round once where the plain version rounds twice
+(``trace_window``'s one float subtract is exact, but it keeps the flags of
+the bit-exact kernels);
 ``flash_decode`` keeps the flags it was measured with. ``flash_attention``
 is held to a tolerance, not to bits, and its online softmax is
 multiply-adds (``s * scale * log2(e) - m``, ``l * alpha + sum``, the
@@ -42,7 +44,7 @@ KERNEL_SOURCES = {
     name: _KERNELS_DIR / name / "csrc" / f"{name}.cu"
     for name in (
         "chunk_replay", "ownership_sweep", "latency_histogram", "moe_router", "hot_gather",
-        "flash_attention", "flash_decode",
+        "flash_attention", "flash_decode", "trace_window",
     )
 }
 INCLUDE_DIR = _KERNELS_DIR / "csrc"  # headers shared between kernels

@@ -50,6 +50,9 @@ from repro_torch.kernels.latency_histogram.ref import bin_index
 
 __all__ = [
     "READ_MODES",
+    "COMPONENTS",
+    "NUM_COMPONENTS",
+    "chunk_components_ref",
     "nearest_replica_rtt_ref",
     "read_latency_ref",
     "write_latency_ref",
@@ -67,6 +70,30 @@ __all__ = [
 ]
 
 READ_MODES = ("map", "no_local", "ideal")
+
+# The additive latency taxonomy of cost attribution, in row order:
+#   service         the fixed per-request service cost
+#   read_rtt        RTT to the nearest visible replica (reads)
+#   write_relay     relay hop to the master propagator (writes)
+#   write_broadcast the master's post to the farthest other owner (writes)
+#   transfer        payload transfer charge (a remote read, a write whose
+#                   relay and post cross a link)
+#   contention_wait M/M/1 residence-time excess (contention_extra_ms_ref)
+#   routing_detour  stale-directory forward hop and redirect
+#   directory_fetch router cache-miss round trip to the home node
+# The rows of a request sum to its latency; a row is zero where the request
+# did not pay that component.
+COMPONENTS = (
+    "service",
+    "read_rtt",
+    "write_relay",
+    "write_broadcast",
+    "transfer",
+    "contention_wait",
+    "routing_detour",
+    "directory_fetch",
+)
+NUM_COMPONENTS = len(COMPONENTS)
 SLAB_ROWS = 1 << 22  # rows per slab of the whole-trace contention pre-pass
 
 
@@ -155,6 +182,80 @@ def chunk_latency_ref(
         service_ms=service_ms, master=master, xfer_ms=xfer_write_ms,
     )
     return torch.where(is_read, r_lat, w_lat), hit & is_read
+
+
+def chunk_components_ref(
+    hosts: torch.Tensor,  # [K, N] bool frozen replica map
+    keys: torch.Tensor,  # [B] int
+    nodes: torch.Tensor,  # [B] int
+    is_read: torch.Tensor,  # [B] bool
+    rtt: torch.Tensor,  # [N, N] f32
+    *,
+    service_ms,
+    master: int,
+    xfer_read_ms,
+    xfer_write_ms,
+    read_mode: str,
+    contention_ms: torch.Tensor | None = None,  # [B] f32 (contention_extra_ms_ref)
+    routing_detour_ms: torch.Tensor | None = None,  # [B] f32 (routing_extra_split_ref)
+    directory_fetch_ms: torch.Tensor | None = None,  # [B] f32 (routing_extra_split_ref)
+    avail: torch.Tensor | None = None,  # [N] bool (fault failover)
+) -> torch.Tensor:
+    """Per-request latency cut along :data:`COMPONENTS`: ``[NUM_COMPONENTS,
+    B]`` f32.
+
+    The same sub-expressions as :func:`chunk_latency_ref` (the same f32 bits
+    each), routed into their rows: the read path's nearest RTT and transfer
+    charge; the write path's relay, post and transfer charge, each zero for
+    a sole local owner. So a request's rows sum to its latency plus its
+    surcharges, up to f32 re-association (the write path rounds ``(relay +
+    post) + xfer`` in one order). The pre-pass surcharges drop into their
+    rows as given; an absent one is a zero row.
+
+    With faults on the caller passes the availability-masked map and the
+    chunk's ``avail``: the write legs then go through the master that
+    ``fault_extra_ms_ref`` elects (``master`` if it is up, else the first
+    live node), so the rows take in the failover delta the engines add
+    through ``extra_ms``."""
+    b = keys.shape[0]
+    dev = rtt.device
+    zeros = torch.zeros(b, dtype=torch.float32, device=dev)
+    service = _f32(service_ms, rtt).expand(b)
+    if read_mode == "ideal":
+        read_rtt = write_relay = write_broadcast = transfer = zeros
+    else:
+        n = rtt.shape[0]
+        zero = _f32(0.0, rtt)
+        keys_l, nodes_l = keys.long(), nodes.long()
+        rows = torch.arange(b, device=dev)
+        col = torch.arange(n, device=dev)[None, :]
+        replicas = hosts[keys_l]  # [B, N]
+        hit = replicas[rows, nodes_l]
+        read_replicas = replicas & (col != nodes_l[:, None]) if read_mode == "no_local" else replicas
+        nearest = nearest_replica_rtt_ref(rtt, read_replicas, nodes)
+        has_local = read_replicas[rows, nodes_l]
+        r_xfer = torch.where(has_local, zero, _f32(xfer_read_ms, rtt))
+        sole_local = hit & (replicas.sum(dim=-1) == 1)
+        if read_mode == "no_local":
+            sole_local = torch.zeros_like(sole_local)
+        if avail is None:
+            w_master = torch.full((), master, dtype=torch.int64, device=dev)
+        else:
+            w_master = torch.where(avail[master], torch.full((), master, dtype=torch.int64, device=dev),
+                                   avail.to(torch.int32).argmax())
+        relay = torch.where(nodes_l == w_master, zero, rtt[nodes_l, w_master])
+        post = torch.where(replicas & (col != w_master), rtt[w_master][None, :], zero).amax(dim=-1)
+        w_xfer = torch.where(relay + post > 0, _f32(xfer_write_ms, rtt), zero)
+        paid = ~sole_local
+        read_rtt = torch.where(is_read, nearest, zero)
+        write_relay = torch.where(is_read, zero, torch.where(paid, relay, zero))
+        write_broadcast = torch.where(is_read, zero, torch.where(paid, post, zero))
+        transfer = torch.where(is_read, r_xfer, torch.where(paid, w_xfer, zero))
+    rows8 = [service, read_rtt, write_relay, write_broadcast, transfer,
+             zeros if contention_ms is None else contention_ms,
+             zeros if routing_detour_ms is None else routing_detour_ms,
+             zeros if directory_fetch_ms is None else directory_fetch_ms]
+    return torch.stack([x.to(torch.float32) for x in rows8])
 
 
 def chunk_replay_ref(

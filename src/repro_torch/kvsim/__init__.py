@@ -3,8 +3,13 @@ cluster and workload configs (with the M/M/1 ``ServiceConfig``, per-node
 replica-byte budgets, the routing tier's ``RoutingConfig`` and the
 failure-injection ``FaultConfig``), trace generation, ``run_scenario``,
 ``run_experiment`` (the paper's Figure 2/3 grid with 99% CIs over seeds),
-the ``run_scenario_reference`` oracle and telemetry (``TelemetryConfig``,
-``SimTrace``). The placement policies are re-exported for convenience."""
+the ``run_scenario_reference`` oracle, telemetry (``TelemetryConfig``,
+``SimTrace``) with cost attribution and the flight recorder
+(``AttributionConfig``, ``FlightRecorderConfig``; export through
+``write_jsonl`` and ``write_chrome_trace``), and streamed traces
+(``generate_key_state``, ``generate_trace_chunk``,
+``run_scenario(..., trace_mode="streamed")``). The placement policies are
+re-exported for convenience."""
 
 from repro_torch.core.policy import (
     POLICIES,
@@ -40,27 +45,45 @@ from repro_torch.kvsim.faults import (
 )
 from repro_torch.kvsim.routing import RoutingConfig, normalize_routing
 from repro_torch.kvsim.simulate import (
+    TRACE_MODES,
     SimResult,
     confidence_interval_99,
     run_experiment,
     run_scenario,
     run_scenario_reference,
 )
-from repro_torch.kvsim.telemetry import SimTrace, TelemetryConfig, histogram_quantile
+from repro_torch.kvsim.telemetry import (
+    COMPONENTS,
+    NUM_COMPONENTS,
+    QUANTILE_LABELS,
+    AttributionConfig,
+    FlightRecorderConfig,
+    SimTrace,
+    TelemetryConfig,
+    histogram_quantile,
+)
+from repro_torch.kvsim.tracing import chrome_trace_events, write_chrome_trace, write_jsonl
 from repro_torch.kvsim.workload import (
     Trace,
+    TraceChunk,
     WorkloadConfig,
     diurnal_workload,
+    generate_key_state,
     generate_trace,
+    generate_trace_chunk,
     wan5_workload,
 )
 
 __all__ = [
     "Trace",
+    "TraceChunk",
     "WorkloadConfig",
     "generate_trace",
+    "generate_trace_chunk",
+    "generate_key_state",
     "wan5_workload",
     "diurnal_workload",
+    "TRACE_MODES",
     "ClusterConfig",
     "ServiceConfig",
     "normalize_service",
@@ -82,7 +105,15 @@ __all__ = [
     "SimResult",
     "SimTrace",
     "TelemetryConfig",
+    "AttributionConfig",
+    "FlightRecorderConfig",
+    "COMPONENTS",
+    "NUM_COMPONENTS",
     "histogram_quantile",
+    "QUANTILE_LABELS",
+    "chrome_trace_events",
+    "write_chrome_trace",
+    "write_jsonl",
     "run_scenario",
     "run_scenario_reference",
     "run_experiment",

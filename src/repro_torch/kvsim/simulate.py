@@ -63,14 +63,31 @@ Throughput model: nodes serve their request streams concurrently;
 per-node busy time = Σ latency of requests arriving there; makespan = max
 over nodes; throughput = R / makespan.
 
+Cost attribution and the flight recorder (``TelemetryConfig(attribution=
+AttributionConfig(), flight=FlightRecorderConfig())``): each chunk is
+priced once more through ``chunk_components_ref`` on the same frozen,
+availability-masked map with the same contention, detour and fetch
+surcharges, masked by the served requests; one ``latency_histogram``
+launch folds its ``[8, 2N, Ba]`` component histograms, an f64 row sum its
+component sums, and the flight recorder gathers its sampled requests'
+identities and components (positions for every chunk drawn before the
+loop). On the static path the same runs over the whole trace at once.
+With both off the engine runs the code it ran without them.
+
+Streamed traces (``trace_mode="streamed"``): the per-key state is drawn
+once and each chunk's requests are drawn on the device at chunk start
+(``trace_window``, one launch a chunk on the card), so no ``[R]`` buffer
+exists; the windows equal the materialised trace's slices, so every result
+does too. A streamed run always takes the chunk loop.
+
 ``run_scenario_reference`` replays chunk by chunk with the kernels' plain
 versions on whatever device it is given, the policy through its plain
 ``decide``, and float64 host accumulators; with telemetry its trace carries
-every request's latency (``raw_latency_ms``).
+every request's latency (``raw_latency_ms``) and, with attribution or the
+flight recorder, every request's components (``raw_components``).
 
-The port covers a materialised trace on one device with sharding and
-telemetry attribution off; streamed traces, sharding and attribution raise
-``NotImplementedError`` naming their later slice.
+The port covers one device; sharding (``num_shards > 1``) raises
+``NotImplementedError`` naming its later slice.
 """
 
 from __future__ import annotations
@@ -93,6 +110,9 @@ from repro_torch.core.policy import (
 from repro_torch.device import resolve_device
 from repro_torch.kernels.chunk_replay.ops import chunk_replay
 from repro_torch.kernels.chunk_replay.ref import (
+    NUM_COMPONENTS,
+    SLAB_ROWS,
+    chunk_components_ref,
     chunk_latency_ref,
     contention_extra_ms_chunks_ref,
     contention_extra_ms_ref,
@@ -100,6 +120,9 @@ from repro_torch.kernels.chunk_replay.ref import (
     routing_extra_split_ref,
 )
 from repro_torch.kernels.latency_histogram.ref import latency_histogram_ref
+from repro_torch.kernels.trace_window.ops import trace_window
+from repro_torch.kernels.trace_window.ref import WindowParams
+from repro_torch.kvsim import prng
 from repro_torch.kvsim import telemetry as telemetry_mod
 from repro_torch.kvsim.cluster import ClusterConfig, normalize_service
 from repro_torch.kvsim.faults import compile_schedule, normalize_faults
@@ -123,15 +146,34 @@ from repro_torch.kvsim.telemetry import (
     merge_leaves,
     normalize_telemetry,
 )
-from repro_torch.kvsim.workload import Trace, WorkloadConfig, generate_trace
+from repro_torch.kvsim.workload import (
+    Trace,
+    WorkloadConfig,
+    generate_key_state,
+    generate_trace,
+    window_params,
+)
 
 __all__ = [
+    "TRACE_MODES",
     "SimResult",
     "run_scenario",
     "run_scenario_reference",
     "run_experiment",
     "confidence_interval_99",
 ]
+
+TRACE_MODES = ("materialized", "streamed")
+FLIGHT_SEED = 0x9E37  # PRNGKey of the flight recorder's reservoir offsets
+
+
+class _Stream(NamedTuple):
+    """A streamed trace: the per-key state and what draws any window."""
+
+    natural_node: torch.Tensor  # [K] int32
+    object_bytes: torch.Tensor  # [K] f32
+    params: WindowParams
+    num_requests: int
 
 
 class SimResult(NamedTuple):
@@ -258,15 +300,12 @@ def _check_slice(workload, cluster, trace_mode="materialized", num_shards=1,
                  caller="run_scenario") -> None:
     """Reject what the port does not cover yet, naming the slice that will,
     and a workload that does not fit the cluster."""
-    later = [
-        (trace_mode == "streamed", "trace_mode='streamed' (the streamed-trace slice)"),
-        (num_shards > 1, "num_shards > 1 (the key-sharded engine slice)"),
-    ]
-    for hit, what in later:
-        if hit:
-            raise NotImplementedError(f"{caller}: {what} is not ported yet")
-    if trace_mode != "materialized":
-        raise ValueError(f"{caller}: unknown trace_mode={trace_mode!r}")
+    if num_shards > 1:
+        raise NotImplementedError(
+            f"{caller}: num_shards > 1 (the key-sharded engine slice) is not ported yet"
+        )
+    if trace_mode not in TRACE_MODES:
+        raise ValueError(f"{caller}: trace_mode={trace_mode!r}; expected one of {TRACE_MODES}")
     if workload.num_nodes != cluster.num_nodes:
         raise ValueError(
             f"workload has {workload.num_nodes} nodes but cluster topology "
@@ -326,6 +365,8 @@ def run_scenario(
 
     ``trace`` replays a trace built elsewhere (``interop.trace_from_numpy``);
     otherwise ``generate_trace(workload, seed)`` draws one on the device.
+    ``trace_mode="streamed"`` draws each chunk's requests at chunk start
+    instead (the same results, no ``[R]`` buffer; it takes no ``trace``).
     ``device=None`` runs on CUDA and raises without a card; the CPU runs only
     when asked for (``device="cpu"``), through the kernels' plain versions.
     With an enabled ``telemetry`` the call returns ``(SimResult, SimTrace)``.
@@ -334,21 +375,81 @@ def run_scenario(
     tcfg = normalize_telemetry(telemetry)
     static, params = _prepare(workload, policy, daemon_interval, "run_scenario")
     dev = resolve_device(device)
-    if trace is None:
-        trace = generate_trace(workload, seed, device=dev)
-    result, leaves = _simulate(trace.to(dev), cluster, static, params, daemon_interval, tcfg)
+    if trace_mode == "streamed":
+        if trace is not None:
+            raise ValueError("run_scenario: trace_mode='streamed' draws its own trace; pass no trace=")
+        natural, sizes = generate_key_state(workload, seed, device=dev)
+        source = _Stream(natural, sizes, window_params(workload, seed), workload.num_requests)
+    else:
+        if trace is None:
+            trace = generate_trace(workload, seed, device=dev)
+        source = trace.to(dev)
+    result, leaves = _simulate(source, cluster, static, params, daemon_interval, tcfg)
     return result if tcfg is None else (result, build_trace(leaves, tcfg))
 
 
+def _flight_positions(fcfg, num_chunks: int, chunk_size: int, device: torch.device) -> torch.Tensor:
+    """In-chunk sample offsets ``[C, S]`` int64 of every chunk: ``"stride"``
+    the same equally spaced offsets each chunk; ``"reservoir"``
+    ``randint(fold_in(PRNGKey(0x9E37), chunk), (S,), 0, chunk_size)``, all
+    chunks' keys and draws in one batch."""
+    s = fcfg.samples_per_chunk
+    if fcfg.mode == "stride":
+        stride = max(chunk_size // s, 1)
+        row = (torch.arange(s, dtype=torch.int64, device=device) * stride) % chunk_size
+        return row.expand(num_chunks, s)
+    k0, k1 = prng.fold_in(prng.prng_key(FLIGHT_SEED),
+                          torch.arange(num_chunks, dtype=torch.int64, device=device))
+    pos = torch.arange(s, dtype=torch.int64, device=device)[None, :]
+    return prng.randint((k0[:, None], k1[:, None]), pos, 0, chunk_size).to(torch.int64)
+
+
+def _flight_total(scomps: torch.Tensor) -> torch.Tensor:
+    """The flight recorder's total: the component rows (leading axis) added
+    one after another, as the reference's compiled sum adds them."""
+    total = scomps[0]
+    for row in scomps[1:]:
+        total = total + row
+    return total
+
+
+def _flight_sample(idx, base: int, keys, nodes, is_read, served, comps, router):
+    """Flight records ``(meta [..., 5] int32, vals [..., 9] f32)`` of the
+    rows ``idx`` (any shape) of ``keys``, ``nodes``, ``is_read`` and
+    ``comps [8, rows]``, whose row 0 is trace position ``base``; an index
+    past the rows or an unserved request (``served`` ``None``: all served)
+    leaves its slot zero, valid bit clear. ``router`` is ``[rows]`` or
+    ``None``."""
+    rows = keys.shape[0]
+    jc = idx.clamp_max(rows - 1)
+    own = idx < rows
+    if served is not None:
+        own = own & served[jc]
+    rcol = torch.full_like(jc, -1) if router is None else router[jc].long()
+    meta = torch.stack([base + idx, keys[jc].long(), nodes[jc].long(), rcol, is_read[jc].long() | 2],
+                       dim=-1)
+    meta = torch.where(own[..., None], meta, torch.zeros((), dtype=torch.int64, device=jc.device))
+    scomps = torch.where(own[None], comps[:, jc], torch.zeros((), dtype=torch.float32,
+                                                             device=jc.device))
+    vals = torch.cat([_flight_total(scomps)[None], scomps]).movedim(0, -1)
+    return meta.to(torch.int32), vals
+
+
 def _simulate(
-    trace: Trace, cluster: ClusterConfig, static, params: dict, daemon_interval: int,
+    trace: Trace | _Stream, cluster: ClusterConfig, static, params: dict, daemon_interval: int,
     tcfg: TelemetryConfig | None,
 ) -> tuple[SimResult, TelemetryLeaves | None]:
     """The engine on the trace's device: the run's ``SimResult`` and, with
-    ``tcfg``, its telemetry leaves on the host."""
-    dev = trace.keys.device
-    keys, nodes, is_read = trace.keys, trace.nodes, trace.is_read
-    r = keys.shape[0]
+    ``tcfg``, its telemetry leaves on the host. ``trace`` is a materialised
+    ``Trace`` or a ``_Stream``."""
+    dev = trace.natural_node.device
+    streamed = isinstance(trace, _Stream)
+    if streamed:
+        keys = nodes = is_read = None
+        r = trace.num_requests
+    else:
+        keys, nodes, is_read = trace.keys, trace.nodes, trace.is_read
+        r = keys.shape[0]
     k, n = trace.natural_node.shape[0], cluster.num_nodes
     if r == 0:
         raise ValueError("run_scenario: the trace holds no request")
@@ -372,7 +473,10 @@ def _simulate(
     num_chunks = -(-r // daemon_interval)
     routing = _routing_kwargs(cluster, k)
     fault = _fault_kwargs(cluster, num_chunks)
-    loop = static.is_active or routing is not None or fault is not None
+    acfg = None if tcfg is None else tcfg.attribution
+    fcfg = None if tcfg is None else tcfg.flight
+    fpos = None if fcfg is None else _flight_positions(fcfg, num_chunks, daemon_interval, dev)
+    loop = static.is_active or routing is not None or fault is not None or streamed
 
     if not loop:
         # A frozen map makes the whole request path loop-invariant: one
@@ -396,6 +500,10 @@ def _simulate(
             series = _static_series(
                 tcfg, lat, hit, nodes, is_read, daemon_interval, num_chunks, n, peak, rho
             )
+            if acfg is not None or fcfg is not None:
+                series.update(_static_attribution(
+                    store.hosts, keys, nodes, is_read, rtt, read_mode, scalars, extra, acfg, fpos,
+                    daemon_interval, n))
     else:
         ctx = PolicyContext(rtt=rtt, object_bytes=obj, capacity_bytes=_capacity(cluster, dev),
                             params=params)
@@ -426,10 +534,17 @@ def _simulate(
         per_chunk = []  # dicts of each chunk's device tensors, stacked at the end
         for c in range(num_chunks):
             lo, hi = c * daemon_interval, min((c + 1) * daemon_interval, r)
-            ck, cn, cr = keys[lo:hi], nodes[lo:hi], is_read[lo:hi]
+            if streamed:
+                # The chunk's window, drawn at chunk start; a final window
+                # past R is cut to its valid rows.
+                ck, cn, cr = (x[: hi - lo] for x in trace_window(
+                    lo, daemon_interval, trace.params, trace.natural_node))
+            else:
+                ck, cn, cr = keys[lo:hi], nodes[lo:hi], is_read[lo:hi]
             cv = valid[: hi - lo]
             row = {}
             served, hosts_eff, extra = cv, store.hosts, None
+            avail_c = cont = detour = fetch = None
             if fault is not None:
                 avail_c = avail_all[c]
                 if crash_np[c].any():
@@ -462,6 +577,20 @@ def _simulate(
                 extra = cont if extra is None else extra + cont
             if fault is not None:
                 extra = f_extra if extra is None else f_extra + extra
+            if acfg is not None or fcfg is not None:
+                comps = chunk_components_ref(
+                    hosts_eff, ck, cn, cr, rtt, read_mode=read_mode, contention_ms=cont,
+                    routing_detour_ms=detour, directory_fetch_ms=fetch, avail=avail_c, **scalars,
+                )
+                comps = torch.where(served[None, :], comps, torch.zeros((), **f32))
+                if acfg is not None:
+                    row["attr_hist"] = telemetry_mod.attribution_chunk_hist(
+                        comps, (cn * 2 + cr.to(torch.int32)).to(torch.int32),
+                        served.to(torch.float32), acfg, n)
+                    row["attr_sum"] = comps.sum(dim=1, dtype=torch.float64).float()
+                if fcfg is not None:
+                    row["flight_meta"], row["flight_vals"] = _flight_sample(
+                        fpos[c], lo, ck, cn, cr, served, comps, None if routing is None else rb)
             d_busy, d_lat, d_hits, d_reads, d_count, hist = chunk_replay(
                 hosts_eff, ck, cn, cr, served, rtt, read_mode=read_mode,
                 extra_ms=extra, **bins, **scalars,
@@ -579,7 +708,51 @@ def _loop_series(per_chunk: list, n: int) -> dict:
         series.update(unavailable_reads=fault[:, 0], unavailable_writes=fault[:, 1],
                       failovers=fault[:, 2], repair_moves=fault[:, 3],
                       unreachable_frac=fracs[:, 0], wiped_frac=fracs[:, 1])
+    for name in ("attr_hist", "attr_sum", "flight_meta", "flight_vals"):
+        if name in per_chunk[0]:
+            series[name] = torch.stack(col(name))
     return series
+
+
+def _chunk_sums(x: torch.Tensor, chunk_size: int) -> torch.Tensor:
+    """``[..., R]`` summed over chunks of ``chunk_size`` along the last axis
+    (the last chunk may be short), in f64 rounded once to f32: ``[..., C]``."""
+    r = x.shape[-1]
+    full = r // chunk_size * chunk_size
+    sums = [x[..., :full].reshape(*x.shape[:-1], -1, chunk_size).sum(dim=-1, dtype=torch.float64)]
+    if full < r:
+        sums.append(x[..., full:].sum(dim=-1, keepdim=True, dtype=torch.float64))
+    return torch.cat(sums, dim=-1).float()
+
+
+def _static_attribution(hosts, keys, nodes, is_read, rtt, read_mode, scalars, extra, acfg, fpos,
+                        chunk_size: int, n: int) -> dict:
+    """The static path's attribution and flight leaves over the whole trace
+    (still on the device): the components in slabs of ``SLAB_ROWS``
+    requests against the frozen map (contention the only surcharge: routing
+    and faults always take the chunk loop), then the per-chunk component
+    histograms and sums, and every chunk's flight records at once."""
+    r = keys.shape[0]
+    comps = torch.empty((NUM_COMPONENTS, r), dtype=torch.float32, device=keys.device)
+    for lo in range(0, r, SLAB_ROWS):
+        hi = min(lo + SLAB_ROWS, r)
+        comps[:, lo:hi] = chunk_components_ref(
+            hosts, keys[lo:hi], nodes[lo:hi], is_read[lo:hi], rtt, read_mode=read_mode,
+            contention_ms=None if extra is None else extra[lo:hi], **scalars,
+        )
+    out = {}
+    if acfg is not None:
+        group = (nodes * 2 + is_read.to(torch.int32)).to(torch.int32)
+        weight = torch.ones(r, dtype=torch.float32, device=keys.device)
+        out["attr_hist"] = telemetry_mod.attribution_trace_hist(comps, group, weight, acfg, n,
+                                                                rows_per_chunk=chunk_size)
+        out["attr_sum"] = _chunk_sums(comps, chunk_size).T
+        del group, weight
+    if fpos is not None:
+        chunk0 = torch.arange(fpos.shape[0], dtype=torch.int64, device=keys.device)[:, None]
+        out["flight_meta"], out["flight_vals"] = _flight_sample(
+            chunk0 * chunk_size + fpos, 0, keys, nodes, is_read, None, comps, None)
+    return out
 
 
 def _static_series(tcfg, lat, hit, nodes, is_read, chunk_size, num_chunks, n, occ0, rho) -> dict:
@@ -630,10 +803,12 @@ def _leaves(host: dict, loop: bool, num_chunks: int) -> TelemetryLeaves:
 def _reference_engine(
     trace: Trace, cluster: ClusterConfig, static, params: dict, daemon_interval: int,
     tcfg: TelemetryConfig | None,
-) -> tuple[SimResult, TelemetryLeaves | None, np.ndarray | None]:
+) -> tuple[SimResult, TelemetryLeaves | None, np.ndarray | None, np.ndarray | None]:
     """The per-chunk loop of plain PyTorch on the trace's device, the policy
     through its plain ``decide``, float64 accumulators on the host. Returns
-    ``(result, telemetry leaves | None, per-request latencies | None)``.
+    ``(result, telemetry leaves | None, per-request latencies | None,
+    per-request components [NUM_COMPONENTS, R] | None)``; the flight
+    totals and component sums are f64 sums of the f32 components.
 
     With routing on and faults off the published view is the snapshot of
     ``publish_lag_chunks`` chunks ago, kept in a history of chunk-start
@@ -666,6 +841,10 @@ def _reference_engine(
         history = deque(maxlen=lag + 1)  # chunk-start (hosts, version) snapshots
     if fault is not None:
         wiped = torch.zeros(k, dtype=torch.bool, device=dev)
+    acfg = None if tcfg is None else tcfg.attribution
+    fcfg = None if tcfg is None else tcfg.flight
+    if fcfg is not None:
+        fpos = _flight_positions(fcfg, num_chunks, daemon_interval, dev)
 
     def host(t: torch.Tensor) -> np.ndarray:
         return t.to(torch.float64).cpu().numpy()
@@ -675,13 +854,14 @@ def _reference_engine(
     moves = np.zeros(4)  # adds, drops, expiry evictions, capacity evictions
     tiers = np.zeros(8)  # as _simulate's
     peak = host(_node_occupancy(store.hosts, obj))
-    per_chunk, raw = [], []
+    per_chunk, raw, raw_comps = [], [], []
     for c in range(num_chunks):
         lo, hi = c * daemon_interval, min((c + 1) * daemon_interval, r)
         ck, cn, cr = keys[lo:hi], nodes[lo:hi], is_read[lo:hi]
         cv = torch.ones_like(cr)
         row = {}
         served, hosts_eff, f_extra = cv, store.hosts, None
+        avail_c = detour = fetch = None
         if fault is not None:
             avail_c = torch.from_numpy(fault["avail"][c]).to(dev)
             post = store.hosts & ~torch.from_numpy(fault["crash"][c]).to(dev)[None, :]
@@ -715,6 +895,15 @@ def _reference_engine(
         if contention is not None:
             extra, rho = contention_extra_ms_ref(hosts_eff, ck, cn, cr, served, rtt, obj,
                                                  **contention)
+        comps = None
+        if acfg is not None or fcfg is not None:
+            comps = chunk_components_ref(
+                hosts_eff, ck, cn, cr, rtt, read_mode=static.read_mode, contention_ms=extra,
+                routing_detour_ms=detour, directory_fetch_ms=fetch, avail=avail_c, **sc,
+            )
+            if fault is not None:
+                comps = torch.where(served[None, :], comps,
+                                    torch.zeros((), dtype=torch.float32, device=dev))
         if route is not None:
             extra = route if extra is None else route + extra
         if f_extra is not None:
@@ -786,8 +975,19 @@ def _reference_engine(
                 capacity_evictions=c_moves[3], occupancy=occ,
                 load_factor=np.zeros(n) if rho is None else host(rho),
             )
+            if acfg is not None:
+                row["attr_hist"] = host(telemetry_mod.attribution_chunk_hist(
+                    comps, group.to(torch.int32), served.to(torch.float32), acfg, n,
+                    histogram=latency_histogram_ref))
+                row["attr_sum"] = host(comps).sum(axis=1)
+            if fcfg is not None:  # f64 components: the totals are f64 sums
+                meta, vals = _flight_sample(fpos[c], lo, ck, cn, cr, served, comps.double(),
+                                            None if routing is None else rb)
+                row["flight_meta"], row["flight_vals"] = host(meta), host(vals)
             per_chunk.append(row)
             raw.append(host(lat))
+            if comps is not None:
+                raw_comps.append(host(comps))
 
     served_r = r if fault is None else max(r - tiers[4] - tiers[5], 1.0)
     result = SimResult(
@@ -795,7 +995,7 @@ def _reference_engine(
         *(float(x) for x in moves), peak, *(float(x) for x in tiers),
     )
     if tcfg is None:
-        return result, None, None
+        return result, None, None, None
     stacked = {name: np.stack([np.asarray(row[name]) for row in per_chunk])
                for name in per_chunk[0]}
     for name, cols in (("routing", ("router_consults", "directory_fetches", "mis_routes",
@@ -805,7 +1005,8 @@ def _reference_engine(
                        ("fracs", ("unreachable_frac", "wiped_frac"))):
         if name in stacked:
             stacked.update(zip(cols, stacked.pop(name).T))
-    return result, _leaves(stacked, True, num_chunks), np.concatenate(raw)
+    raw_c = np.concatenate(raw_comps, axis=1) if raw_comps else None
+    return result, _leaves(stacked, True, num_chunks), np.concatenate(raw), raw_c
 
 
 def run_scenario_reference(
@@ -825,18 +1026,19 @@ def run_scenario_reference(
     ``generate_trace(workload, seed)``. The same semantics, so the results
     agree with ``run_scenario``'s to the f32 engine's rounding. With
     ``telemetry`` it returns ``(SimResult, SimTrace)`` and the trace carries
-    ``raw_latency_ms``, every request's latency."""
+    ``raw_latency_ms``, every request's latency, and with attribution or the
+    flight recorder ``raw_components``, every request's components."""
     _check_slice(workload, cluster, caller="run_scenario_reference")
     tcfg = normalize_telemetry(telemetry)
     static, params = _prepare(workload, policy, daemon_interval, "run_scenario_reference")
     dev = resolve_device(device)
     if trace is None:
         trace = generate_trace(workload, seed, device=dev)
-    result, leaves, raw = _reference_engine(trace.to(dev), cluster, static, params,
-                                            daemon_interval, tcfg)
+    result, leaves, raw, raw_c = _reference_engine(trace.to(dev), cluster, static, params,
+                                                   daemon_interval, tcfg)
     if tcfg is None:
         return result
-    return result, build_trace(leaves, tcfg, raw_latency_ms=raw)
+    return result, build_trace(leaves, tcfg, raw_latency_ms=raw, raw_components=raw_c)
 
 
 def confidence_interval_99(samples: np.ndarray) -> tuple:
@@ -858,8 +1060,10 @@ def confidence_interval_99(samples: np.ndarray) -> tuple:
 
 
 def _stack_leaves(leaves: list) -> TelemetryLeaves:
-    """Per-seed leaves stacked on a leading seed axis."""
-    return TelemetryLeaves(*(np.stack([np.asarray(x) for x in field]) for field in zip(*leaves)))
+    """Per-seed leaves stacked on a leading seed axis (``None`` leaves, a
+    sub-config off, stay ``None``)."""
+    return TelemetryLeaves(*(None if field[0] is None else np.stack([np.asarray(x) for x in field])
+                             for field in zip(*leaves)))
 
 
 def run_experiment(

@@ -1,6 +1,6 @@
-"""Telemetry: grouped latency histograms and per-chunk convergence series
-(counterpart of ``src/repro/kvsim/telemetry.py``, without cost attribution
-and the flight recorder, which come with a later slice).
+"""Telemetry: grouped latency histograms, per-chunk convergence series,
+cost attribution and the flight recorder (counterpart of
+``src/repro/kvsim/telemetry.py``).
 
 Per chunk the engine folds every request's latency into a ``[2N, B]``
 log-bin histogram whose group id is ``node * 2 + is_read``; the global,
@@ -15,6 +15,17 @@ the availability and blast-radius counters) come back to the host once, at
 the end of the run, and :func:`build_trace` turns them into a
 :class:`SimTrace`.
 
+Cost attribution (``AttributionConfig``) cuts every request's latency
+along the eight rows of ``COMPONENTS`` (``chunk_components_ref``) and folds
+per-component ``[2N, Ba]`` histograms, each weighted by ``component > 0``
+(a row counts the requests that paid it), and per-chunk component sums.
+The fold goes through ``latency_histogram`` with the component as a 0/1
+weight (:func:`attribution_chunk_hist`, :func:`attribution_trace_hist`), so
+on the card it is the CUDA kernel at the attribution's own bin rule. The
+flight recorder (``FlightRecorderConfig``) keeps ``samples_per_chunk``
+sampled requests a chunk: an integer plane (:data:`FLIGHT_META_FIELDS`)
+and a float plane (the total, then the eight components).
+
 Quantiles are interpolated from the log-spaced histogram in numpy on the
 host; bins have constant relative width ``(hi/lo)**(1/(B-2))``, so an
 interpolated quantile is within one bin width of the exact order
@@ -28,10 +39,13 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.chunk_replay.ref import COMPONENTS, NUM_COMPONENTS
 from repro_torch.kernels.latency_histogram.ops import latency_histogram
 from repro_torch.kernels.latency_histogram.ref import bin_edges
 
 __all__ = [
+    "AttributionConfig",
+    "FlightRecorderConfig",
     "TelemetryConfig",
     "TelemetryLeaves",
     "LEAF_KINDS",
@@ -39,6 +53,8 @@ __all__ = [
     "STALE_AGE_BINS",
     "chunk_histogram",
     "trace_histogram",
+    "attribution_chunk_hist",
+    "attribution_trace_hist",
     "merge_leaves",
     "build_trace",
     "leaves_quantile",
@@ -47,13 +63,69 @@ __all__ = [
     "quantile_summary",
     "normalize_telemetry",
     "QUANTILE_LABELS",
+    "COMPONENTS",
+    "NUM_COMPONENTS",
+    "FLIGHT_SAMPLING_MODES",
+    "FLIGHT_META_FIELDS",
 ]
 
 TELEMETRY_BACKENDS = ("jax", "pallas")
+FLIGHT_SAMPLING_MODES = ("stride", "reservoir")
+
+# Columns of the flight recorder's integer plane: ``flags`` is bit 0 =
+# is_read, bit 1 = valid (clear for an unsampled or unserved slot).
+FLIGHT_META_FIELDS = ("pos", "key", "node", "router", "flags")
 STALE_AGE_BINS = 16  # width of the routing tier's (zero-filled) age histogram
 
 # The canonical report quantiles: label -> q.
 QUANTILE_LABELS = {"p50": 0.5, "p90": 0.9, "p95": 0.95, "p99": 0.99, "p999": 0.999}
+
+
+class AttributionConfig(NamedTuple):
+    """Cost-attribution knobs: per-component ``[2N, num_bins]`` histograms
+    on their own log bins (the default floor of 0.01 ms sits two decades
+    below the total's, as single legs are often sub-millisecond) and
+    per-chunk component sums. Off (``None`` on the telemetry config) by
+    default."""
+
+    enabled: bool = True
+    num_bins: int = 64
+    lo_ms: float = 0.01
+    hi_ms: float = 10_000.0
+
+    def validate(self) -> None:
+        if self.num_bins < 4:
+            raise ValueError(f"attribution num_bins must be >= 4, got {self.num_bins}")
+        if not (0.0 < self.lo_ms < self.hi_ms):
+            raise ValueError(
+                f"attribution needs 0 < lo_ms < hi_ms, got lo_ms={self.lo_ms} hi_ms={self.hi_ms}"
+            )
+
+    def edges(self) -> np.ndarray:
+        """Host-side ``[num_bins + 1]`` bin edges: ``[0, lo, ..., hi, inf]``."""
+        return bin_edges(self.lo_ms, self.hi_ms, self.num_bins)
+
+
+class FlightRecorderConfig(NamedTuple):
+    """Sampled per-request records: ``samples_per_chunk`` a chunk, at fixed
+    equally spaced in-chunk offsets (``"stride"``) or at offsets drawn from
+    ``fold_in(PRNGKey(0x9E37), chunk)`` (``"reservoir"``), the same in
+    every engine. Export with ``kvsim.tracing``."""
+
+    enabled: bool = True
+    samples_per_chunk: int = 8
+    mode: str = "stride"
+
+    def validate(self) -> None:
+        if self.samples_per_chunk < 1:
+            raise ValueError(
+                f"flight samples_per_chunk must be >= 1, got {self.samples_per_chunk}"
+            )
+        if self.mode not in FLIGHT_SAMPLING_MODES:
+            raise ValueError(
+                f"unknown flight sampling mode {self.mode!r}; expected one of "
+                f"{FLIGHT_SAMPLING_MODES}"
+            )
 
 
 class TelemetryConfig(NamedTuple):
@@ -66,8 +138,8 @@ class TelemetryConfig(NamedTuple):
     validated so that a reference config carries across field by field,
     but it selects nothing: the device does, as in every ``ops.py`` (the
     CUDA kernels for tensors on the card, the plain versions on the CPU).
-    ``attribution`` and ``flight`` belong to the attribution slice and
-    raise ``NotImplementedError`` when enabled.
+    ``attribution`` and ``flight`` turn on cost attribution and the flight
+    recorder.
     """
 
     enabled: bool = True
@@ -75,8 +147,8 @@ class TelemetryConfig(NamedTuple):
     lo_ms: float = 1.0
     hi_ms: float = 10_000.0
     backend: str = "jax"
-    attribution: Any = None
-    flight: Any = None
+    attribution: AttributionConfig | None = None
+    flight: FlightRecorderConfig | None = None
 
     def validate(self) -> None:
         if self.num_bins < 4:
@@ -97,18 +169,20 @@ class TelemetryConfig(NamedTuple):
 
 def normalize_telemetry(telemetry: TelemetryConfig | None) -> TelemetryConfig | None:
     """``None`` and ``enabled=False`` both mean no telemetry; an enabled
-    config is validated. A disabled attribution or flight sub-config counts
-    as absent, as in the reference; an enabled one is not ported yet."""
+    config is validated. A disabled attribution or flight sub-config
+    collapses to ``None`` (its off state), an enabled one is validated."""
     if telemetry is None or not telemetry.enabled:
         return None
     telemetry.validate()
+    subs = {}
     for name in ("attribution", "flight"):
         sub = getattr(telemetry, name)
-        if sub is not None and getattr(sub, "enabled", True):
-            raise NotImplementedError(
-                f"TelemetryConfig.{name} is not ported yet (the attribution slice)"
-            )
-    return telemetry._replace(attribution=None, flight=None)
+        if sub is not None and not sub.enabled:
+            sub = None
+        if sub is not None:
+            sub.validate()
+        subs[name] = sub
+    return telemetry._replace(**subs)
 
 
 class TelemetryLeaves(NamedTuple):
@@ -116,7 +190,8 @@ class TelemetryLeaves(NamedTuple):
     the run's one readback. Every field is a sum over requests except the
     point samples ``occupancy``, ``load_factor``, ``unreachable_frac`` and
     ``wiped_frac``. A tier that is off has zero leaves, as in the reference
-    (the fault leaves a scalar ``0.0`` on the static whole-trace path)."""
+    (the fault leaves a scalar ``0.0`` on the static whole-trace path); an
+    attribution or flight leaf is ``None`` with its sub-config off."""
 
     hist: Any  # [C, 2N, B] grouped latency histogram per chunk
     hits: Any  # [C] read hits
@@ -140,10 +215,15 @@ class TelemetryLeaves(NamedTuple):
     repair_moves: Any = 0.0  # [C] re-seeded copies of keys with no live copy
     unreachable_frac: Any = 0.0  # [C] share of keys with no live replica
     wiped_frac: Any = 0.0  # [C] share of keys whose every replica a crash destroyed
+    attr_hist: Any = None  # [C, NUM_COMPONENTS, 2N, Ba] component counts
+    attr_sum: Any = None  # [C, NUM_COMPONENTS] summed ms
+    flight_meta: Any = None  # [C, S, 5] int (FLIGHT_META_FIELDS)
+    flight_vals: Any = None  # [C, S, 1 + NUM_COMPONENTS] total, then components
 
 
 # How each leaf merges across a batch axis (seeds, policy rows): "sum"
-# leaves add, "mean" point samples average.
+# leaves add, "mean" point samples average, "records" keep row 0's samples
+# (a merged trace carries seed 0's flight records).
 LEAF_KINDS = {
     "hist": "sum",
     "hits": "sum",
@@ -167,6 +247,10 @@ LEAF_KINDS = {
     "repair_moves": "sum",
     "unreachable_frac": "mean",
     "wiped_frac": "mean",
+    "attr_hist": "sum",
+    "attr_sum": "sum",
+    "flight_meta": "records",
+    "flight_vals": "records",
 }
 
 
@@ -201,19 +285,79 @@ def trace_histogram(
     )
 
 
+def attribution_chunk_hist(
+    comps: torch.Tensor,  # [NUM_COMPONENTS, B] f32 per-request components (masked)
+    group: torch.Tensor,  # [B] int32 group id = node * 2 + is_read
+    weight: torch.Tensor,  # [B] f32, 0 masks a row
+    acfg: AttributionConfig,
+    num_nodes: int,
+    histogram=None,
+) -> torch.Tensor:
+    """One chunk's ``[NUM_COMPONENTS, 2N, Ba]`` per-component histograms,
+    each row weighted by ``component > 0``, in one ``latency_histogram``
+    call with ``NUM_COMPONENTS * 2N`` groups (group ``c * 2N + g``): a chunk
+    is small, so the ``[NUM_COMPONENTS * B]`` group and weight vectors cost
+    little, and the fold is one launch on the card. ``histogram`` replaces
+    the wrapper (the reference engine passes the plain version)."""
+    ncomp, b = comps.shape
+    g = 2 * num_nodes
+    offs = torch.arange(ncomp, dtype=torch.int32, device=comps.device)[:, None] * g
+    hist = (histogram or latency_histogram)(
+        comps.reshape(-1), (offs + group.to(torch.int32)[None, :]).reshape(-1),
+        (weight.to(torch.float32)[None, :] * (comps > 0).to(torch.float32)).reshape(-1),
+        num_groups=ncomp * g, num_bins=acfg.num_bins, lo=acfg.lo_ms, hi=acfg.hi_ms,
+    )
+    return hist.reshape(ncomp, g, acfg.num_bins)
+
+
+def attribution_trace_hist(
+    comps: torch.Tensor,  # [NUM_COMPONENTS, R] f32 whole-trace components (masked)
+    group: torch.Tensor,  # [R] int32 group id = node * 2 + is_read
+    weight: torch.Tensor,  # [R] f32, 0 masks a row
+    acfg: AttributionConfig,
+    num_nodes: int,
+    rows_per_chunk: int,
+) -> torch.Tensor:
+    """The whole trace's ``[C, NUM_COMPONENTS, 2N, Ba]`` per-chunk
+    attribution histograms: one per-chunk ``latency_histogram`` call a
+    component (``NUM_COMPONENTS`` launches on the card), stacked. Not one
+    call over ``NUM_COMPONENTS * 2N`` groups as a chunk takes: that needs
+    ``[NUM_COMPONENTS * R]`` group and weight vectors, 6.4 GB beside the
+    3.2 GB of components at 10**8 requests, where a component a call reads
+    its row of ``comps`` in place, shares ``group`` and makes one ``[R]``
+    weight (0.4 GB) at a time. Counts are integers: the same as ``C``
+    :func:`attribution_chunk_hist` calls."""
+    rows = []
+    for comp in comps:
+        w = weight.to(torch.float32) * (comp > 0).to(torch.float32)
+        rows.append(latency_histogram(
+            comp, group, w, num_groups=2 * num_nodes, num_bins=acfg.num_bins,
+            lo=acfg.lo_ms, hi=acfg.hi_ms, rows_per_chunk=rows_per_chunk,
+        ))
+        del w
+    return torch.stack(rows, dim=1)
+
+
 def merge_leaves(leaves: TelemetryLeaves, axis: int = 0) -> TelemetryLeaves:
     """Merge a batch axis away, leaf by leaf per :data:`LEAF_KINDS`:
-    "sum" leaves add, "mean" point samples average."""
+    "sum" leaves add, "mean" point samples average, "records" keep batch
+    row 0; ``None`` leaves (a sub-config off) pass through."""
     n = np.asarray(leaves.occupancy).shape[axis]
     merged = {}
     for name, kind in LEAF_KINDS.items():
-        a = np.asarray(getattr(leaves, name), dtype=np.float64)
+        leaf = getattr(leaves, name)
+        if leaf is None:
+            merged[name] = None
+            continue
+        a = np.asarray(leaf, dtype=np.float64)
         if a.ndim == 0:
             merged[name] = a
         elif kind == "sum":
             merged[name] = a.sum(axis=axis)
-        else:
+        elif kind == "mean":
             merged[name] = a.sum(axis=axis) / n
+        else:
+            merged[name] = np.take(a, 0, axis=axis)
     return TelemetryLeaves(**merged)
 
 
@@ -287,7 +431,9 @@ class SimTrace(NamedTuple):
     serving-node rho (zeros with contention off). The routing and
     failure-injection series are zero with their tier off;
     ``effective_hit_rate`` counts unavailable reads as misses.
-    ``raw_latency_ms`` is filled by ``run_scenario_reference`` only.
+    ``raw_latency_ms`` and ``raw_components`` are filled by
+    ``run_scenario_reference`` only. The attribution and flight fields are
+    ``None`` with their sub-config off.
     """
 
     edges: np.ndarray  # [B+1] bin edges (ms): [0, lo, ..., hi, inf]
@@ -316,6 +462,13 @@ class SimTrace(NamedTuple):
     unreachable_frac: np.ndarray | None = None
     wiped_frac: np.ndarray | None = None
     effective_hit_rate: np.ndarray | None = None
+    attr_edges: np.ndarray | None = None  # [Ba+1] component bin edges (ms)
+    attr_hist_group: np.ndarray | None = None  # [NUM_COMPONENTS, 2N, Ba]
+    attr_chunk_sum_ms: np.ndarray | None = None  # [C, NUM_COMPONENTS]
+    attr_chunk_mean_ms: np.ndarray | None = None  # [C, NUM_COMPONENTS] a request
+    flight_meta: np.ndarray | None = None  # [C, S, 5] (FLIGHT_META_FIELDS)
+    flight_vals: np.ndarray | None = None  # [C, S, 1 + NUM_COMPONENTS]
+    raw_components: np.ndarray | None = None  # [NUM_COMPONENTS, R] f64, reference engine
 
     # -- histogram views (row-sums of hist_group) ---------------------------
 
@@ -367,6 +520,76 @@ class SimTrace(NamedTuple):
         """P50/P90/P95/P99/P99.9 as a dict."""
         return quantile_summary(self._select(split), self.edges)
 
+    # -- cost attribution and the flight recorder ---------------------------
+
+    def _attr_rows(self, component) -> np.ndarray:
+        if self.attr_hist_group is None:
+            raise ValueError("attribution requires TelemetryConfig(attribution=AttributionConfig())")
+        i = component if isinstance(component, (int, np.integer)) else COMPONENTS.index(component)
+        return self.attr_hist_group[int(i)]  # [2N, Ba]
+
+    def component_hist(self, component, split="all") -> np.ndarray:
+        """One component's ``[Ba]`` histogram (by name or index); ``split``
+        as in :meth:`quantile`."""
+        rows = self._attr_rows(component)
+        if isinstance(split, (int, np.integer)):
+            return rows[int(split) * 2:int(split) * 2 + 2].sum(axis=0)
+        return {"all": rows.sum(axis=0), "read": rows[1::2].sum(axis=0),
+                "write": rows[0::2].sum(axis=0)}[split]
+
+    def component_quantile(self, component, q: float, split="all") -> float:
+        """Interpolated quantile of one component over the requests that
+        paid it."""
+        return histogram_quantile(self.component_hist(component, split), self.attr_edges, q)
+
+    @property
+    def attribution(self) -> dict:
+        """For each :data:`COMPONENTS` name: ``count`` (requests that paid
+        it), ``mean_ms`` (over all counted requests, so the means add up to
+        the run's mean latency), ``share`` of the total, and P50–P99.9 over
+        the paying requests."""
+        if self.attr_hist_group is None:
+            raise ValueError("attribution requires TelemetryConfig(attribution=AttributionConfig())")
+        total_requests = float(self.requests.sum())
+        comp_sums = self.attr_chunk_sum_ms.sum(axis=0)
+        total_ms = float(comp_sums.sum())
+        out = {}
+        for i, name in enumerate(COMPONENTS):
+            hist = self.attr_hist_group[i].sum(axis=0)
+            out[name] = {
+                "count": float(hist.sum()),
+                "mean_ms": float(comp_sums[i]) / max(total_requests, 1.0),
+                "share": float(comp_sums[i]) / max(total_ms, 1e-300),
+                **{label: histogram_quantile(hist, self.attr_edges, q)
+                   for label, q in QUANTILE_LABELS.items()},
+            }
+        return out
+
+    def flight_records(self) -> list[dict]:
+        """The flight recorder's valid samples as dicts, ordered by trace
+        position: the :data:`FLIGHT_META_FIELDS` integers (``router`` -1
+        with no routing tier), ``is_read``, ``chunk``, ``total_ms`` and the
+        per-component ``components``."""
+        if self.flight_meta is None:
+            raise ValueError("flight_records requires TelemetryConfig(flight=FlightRecorderConfig())")
+        meta = np.asarray(self.flight_meta, np.int64)
+        vals = np.asarray(self.flight_vals, np.float64)
+        records = []
+        for c in range(meta.shape[0]):
+            for s in range(meta.shape[1]):
+                pos, key, node, router, flags = meta[c, s]
+                if not (flags >> 1) & 1:
+                    continue
+                records.append({
+                    "pos": int(pos), "chunk": int(c), "key": int(key), "node": int(node),
+                    "router": int(router), "is_read": bool(flags & 1),
+                    "total_ms": float(vals[c, s, 0]),
+                    "components": {name: float(vals[c, s, 1 + i])
+                                   for i, name in enumerate(COMPONENTS)},
+                })
+        records.sort(key=lambda r: r["pos"])
+        return records
+
     # -- routing tier and availability --------------------------------------
 
     @property
@@ -412,7 +635,8 @@ class SimTrace(NamedTuple):
 
 
 def build_trace(
-    leaves: TelemetryLeaves, cfg: TelemetryConfig, raw_latency_ms: np.ndarray | None = None
+    leaves: TelemetryLeaves, cfg: TelemetryConfig, raw_latency_ms: np.ndarray | None = None,
+    raw_components: np.ndarray | None = None,
 ) -> SimTrace:
     """A :class:`SimTrace` from chunk-leading leaves (one run's, or a
     merged aggregate from :func:`merge_leaves`)."""
@@ -423,7 +647,19 @@ def build_trace(
     reads = f64(leaves.reads)
     count = f64(leaves.count)
     hits = f64(leaves.hits)
+    attr = {}
+    if cfg.attribution is not None and leaves.attr_hist is not None:
+        attr_sum = f64(leaves.attr_sum)  # [C, NUM_COMPONENTS]
+        attr.update(attr_edges=cfg.attribution.edges(),
+                    attr_hist_group=f64(leaves.attr_hist).sum(axis=0),
+                    attr_chunk_sum_ms=attr_sum,
+                    attr_chunk_mean_ms=attr_sum / np.maximum(count, 1.0)[:, None])
+    if cfg.flight is not None and leaves.flight_meta is not None:
+        attr.update(flight_meta=np.asarray(leaves.flight_meta, np.int64),
+                    flight_vals=f64(leaves.flight_vals))
     return SimTrace(
+        **attr,
+        raw_components=raw_components,
         edges=edges,
         hist_group=hist_c.sum(axis=0),
         chunk_hist=chunk_hist,

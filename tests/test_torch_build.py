@@ -22,9 +22,10 @@ from repro_torch.kernels.chunk_replay import ops as cr_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.latency_histogram import ops as lh_ops  # noqa: E402
 from repro_torch.kernels.moe_router import ops as mr_ops  # noqa: E402
+from repro_torch.kernels.trace_window import ops as tw_ops  # noqa: E402
 
 BIT_EXACT = ("chunk_replay", "ownership_sweep", "latency_histogram", "moe_router", "hot_gather",
-             "flash_decode")
+             "flash_decode", "trace_window")
 
 
 @pytest.mark.parametrize("name", BIT_EXACT)
@@ -234,9 +235,24 @@ def _c_params(source: str, fn: str) -> list:
     ("latency_histogram", "latency_histogram_resident", lh_ops._RESIDENT_ARGTYPES),
     ("latency_histogram", "latency_histogram_thresholds_launch", lh_ops._THRESHOLD_ARGTYPES),
     ("latency_histogram", "latency_histogram_check_launch", lh_ops._CHECK_ARGTYPES),
+    ("trace_window", "trace_window_launch", tw_ops._ARGTYPES),
 ])
 def test_ctypes_argument_lists_match_the_c_launch_functions(kernel, fn, argtypes):
     """A pointer passed where the C side reads an int (or the reverse)
     shifts every later argument: the lists must agree type by type."""
     source = _build.KERNEL_SOURCES[kernel].read_text()
     assert _c_params(source, fn) == list(argtypes)
+
+
+def test_trace_window_words_match_the_kernel_layout():
+    """The wrapper hands the kernel 27 u32 words (18 key words, then the
+    three draws' spans, multipliers and minvals), as ``kWords`` reads them."""
+    from repro_torch.kvsim.workload import WorkloadConfig, window_params
+
+    source = _build.KERNEL_SOURCES["trace_window"].read_text()
+    assert re.search(r"constexpr int kWords = 27;", source)
+    assert re.search(rf"constexpr int kThreads = {tw_ops.THREADS};", source)
+    params = window_params(WorkloadConfig(num_keys=100, skewed=True, num_nodes=5), 3)
+    words = params.words()
+    assert len(words) == 27 and all(0 <= w < 2**32 for w in words)
+    assert words[18:21] == [d[1] for d in params.draws] and words[24:] == [d[0] for d in params.draws]

@@ -160,12 +160,17 @@ def test_reference_engine_routes_and_raises_like_the_port():
             for seed, got in enumerate(row["results"]):
                 want = tk.run_scenario_reference(wl, tk.ClusterConfig(), pol, seed=seed, device="cpu")
                 assert got.hit_rate == want.hit_rate and got.throughput_ops_s == want.throughput_ops_s
-    # routing is ported; with it on, attribution (a later slice) still raises
+    # routing and attribution are ported: with both on, the reference engine
+    # gives the chunk engine's component counts and the scan's mean latency
     attribution = telemetry_from_fields(**jk.TelemetryConfig(attribution=jk.AttributionConfig())._asdict())
-    with pytest.raises(NotImplementedError, match="attribution"):
-        tk.run_scenario_reference(tk.WorkloadConfig(num_requests=100),
-                                  tk.ClusterConfig(routing=tk.RoutingConfig()), tk.RedynisPolicy(),
-                                  device="cpu", telemetry=attribution)
+    args = (tk.WorkloadConfig(num_requests=1_000, num_keys=50),
+            tk.ClusterConfig(routing=tk.RoutingConfig(publish_lag_chunks=1)), tk.RedynisPolicy())
+    kw = dict(daemon_interval=100, device="cpu", telemetry=attribution)
+    ref_res, ref_tr = tk.run_scenario_reference(*args, **kw)
+    res, tr = tk.run_scenario(*args, **kw)
+    np.testing.assert_array_equal(ref_tr.attr_hist_group, tr.attr_hist_group)
+    assert ref_res.mean_latency_ms == pytest.approx(res.mean_latency_ms, rel=1e-6)
+    assert ref_res.router_consults == res.router_consults > 0
 
 
 def test_port_imports_neither_jax_nor_the_reference_package():

@@ -1,8 +1,9 @@
 """Package rules of the port, and its kernels on the card.
 
 The CPU cases check that ``repro_torch`` stands alone (no JAX, nothing of
-``repro``), that its entry points refuse to fall back to the CPU, and that
-inputs outside this slice raise ``NotImplementedError``. The ``cuda`` cases
+``repro``), that its entry points refuse to fall back to the CPU, that
+inputs outside the port raise ``NotImplementedError``, and that inputs
+which raised before their slice was ported now run. The ``cuda`` cases
 hold each CUDA kernel against its plain version; they skip where there is
 no card and run on one with ``python -m pytest -m cuda tests/test_torch_package.py``.
 """
@@ -35,9 +36,11 @@ from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.models.params import ParamSpec, dense_init, init_params  # noqa: E402
 from repro_torch.serving import SessionRouter  # noqa: E402
 from repro_torch.kvsim import (  # noqa: E402
+    AttributionConfig,
     ClusterConfig,
     FaultConfig,
     FaultEvent,
+    FlightRecorderConfig,
     RedynisPolicy,
     RoutingConfig,
     ServiceConfig,
@@ -68,7 +71,11 @@ MODULES = [
     "repro_torch.kvsim.telemetry",
     "repro_torch.kvsim.routing",
     "repro_torch.kvsim.faults",
+    "repro_torch.kvsim.prng",
+    "repro_torch.kvsim.tracing",
     "repro_torch.kernels._build",
+    "repro_torch.kernels.trace_window.ops",
+    "repro_torch.kernels.trace_window.ref",
     "repro_torch.kernels.chunk_replay.ops",
     "repro_torch.kernels.chunk_replay.ref",
     "repro_torch.kernels.latency_histogram.ops",
@@ -206,32 +213,44 @@ def test_tensor_builders_default_to_cuda(make):
             make(None)
 
 
-class _SubConfig:
-    """Stands in for the reference's AttributionConfig/FlightRecorderConfig."""
-
-    enabled = True
-
-
 @pytest.mark.parametrize(
     "cluster,kwargs,what",
     [
-        # the routing and failure-injection tiers are ported; with them on,
-        # the inputs of later slices still raise
-        (ClusterConfig(routing=RoutingConfig()), {"trace_mode": "streamed"}, "streamed"),
+        # streamed traces (with the routing tier on, too), attribution and the
+        # flight recorder are ported: they run, and give the results of the
+        # run without them; sharding (a later slice) still raises
+        (ClusterConfig(routing=RoutingConfig()), {"trace_mode": "streamed"}, None),
         (ClusterConfig(faults=region_outage(0, 0, 1)), {"num_shards": 2}, "num_shards"),
-        (ClusterConfig(), {"telemetry": TelemetryConfig(attribution=_SubConfig())}, "attribution"),
-        (ClusterConfig(), {"telemetry": TelemetryConfig(flight=_SubConfig())}, "flight"),
-        (ClusterConfig(), {"trace_mode": "streamed"}, "streamed"),
+        (ClusterConfig(), {"telemetry": TelemetryConfig(attribution=AttributionConfig())}, None),
+        (ClusterConfig(), {"telemetry": TelemetryConfig(flight=FlightRecorderConfig())}, None),
+        (ClusterConfig(), {"trace_mode": "streamed"}, None),
         (ClusterConfig(), {"num_shards": 2}, "num_shards"),
     ],
     ids=["routing", "faults", "attribution", "flight", "streamed", "shards"],
 )
 def test_out_of_slice_inputs_raise(cluster, kwargs, what):
-    with pytest.raises(NotImplementedError, match=what):
-        run_scenario(
-            WorkloadConfig(num_requests=100, num_keys=10), cluster, RedynisPolicy(),
-            device="cpu", **kwargs,
-        )
+    """Inputs of a later slice raise ``NotImplementedError``; those that
+    raised before their slice (streamed traces, attribution, the flight
+    recorder) give the results of the run without them, bit for bit."""
+    def run(**kw):
+        return run_scenario(WorkloadConfig(num_requests=1_000, num_keys=10), cluster,
+                            RedynisPolicy(), daemon_interval=150, device="cpu", **kw)
+
+    if what is not None:
+        with pytest.raises(NotImplementedError, match=what):
+            run(**kwargs)
+        return
+    got = run(**kwargs)
+    if "telemetry" in kwargs:
+        (got, tr), (want, tw) = got, run(telemetry=TelemetryConfig())
+        for f in ("hist_group", "chunk_hist", "mean_latency_ms", "moves", "router_consults"):
+            np.testing.assert_array_equal(getattr(tr, f), getattr(tw, f), err_msg=f)
+        assert (tr.attr_hist_group is None) != (tr.flight_meta is None)
+    else:
+        want = run()
+    for f in want._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(got, f)), np.asarray(getattr(want, f)),
+                                      err_msg=f)
 
 
 def test_interop_rejects_uncovered_cluster_fields():
@@ -1025,3 +1044,63 @@ def test_serving_on_card_matches_cpu(cuda):
     assert len(got) == len(want) == 8  # two admits and six steps
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=2e-2, rtol=2e-2)
+
+
+def _window_cases():
+    """(workload, start, count) of the ``trace_window`` cases: uniform and
+    skewed, region weights, diurnal, read fractions 0.5 and 1.0, one and
+    five nodes, a window past the trace, a window at 2**30."""
+    from repro_torch.kvsim.workload import diurnal_workload, wan5_workload
+
+    return {
+        "uniform": (WorkloadConfig(num_requests=100_000, num_keys=5_000, read_fraction=0.5), 0, 100_000),
+        "one_node": (WorkloadConfig(num_requests=50_000, num_keys=999, num_nodes=1, skewed=True,
+                                    affinity=0.3), 123, 40_000),
+        "wan5": (wan5_workload(num_requests=1_000_000, num_keys=100_000, affinity=0.8,
+                               read_fraction=1.0), 10_000, 30_000),
+        "diurnal_past_end": (diurnal_workload(num_requests=25_000, num_keys=2_000, affinity=0.7,
+                                              read_fraction=0.7), 20_000, 10_000),
+        "far": (diurnal_workload(num_requests=2**31 - 1, num_keys=1_000_000, affinity=0.8,
+                                 read_fraction=0.9), 2**30, 65_537),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["uniform", "one_node", "wan5", "diurnal_past_end", "far"])
+def test_trace_window_kernel_matches_plain_version(cuda, case):
+    from repro_torch.kernels.trace_window.ops import trace_window
+    from repro_torch.kernels.trace_window.ref import trace_window_ref
+    from repro_torch.kvsim.workload import generate_key_state, window_params
+
+    wl, start, count = _window_cases()[case]
+    params = window_params(wl, 7)
+    natural = generate_key_state(wl, 7, device="cpu")[0]
+    got = trace_window(start, count, params, natural.to(cuda))
+    want = trace_window_ref(start, count, params, natural)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w), case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_bins", [64, 96])
+def test_attribution_fold_through_latency_histogram_matches_plain_version(cuda, num_bins):
+    """The attribution fold on the card (the ``latency_histogram`` kernel at
+    the attribution bin rule, 8 x 2N groups a chunk; per-chunk launches a
+    component over a trace) against the plain version, and the rule's
+    threshold count against ``bin_of`` on every float."""
+    from repro_torch.kernels.latency_histogram.ops import check_bin_rule
+    from repro_torch.kvsim.telemetry import attribution_chunk_hist, attribution_trace_hist
+
+    rng = np.random.default_rng(num_bins)
+    r, n = 40_000, 5
+    comps = np.exp(rng.uniform(np.log(1e-3), np.log(1e5), (8, r))).astype(np.float32)
+    comps[rng.random((8, r)) < 0.3] = 0.0
+    group = rng.integers(0, 2 * n, r).astype(np.int32)
+    weight = (rng.random(r) < 0.9).astype(np.float32)
+    acfg = AttributionConfig(num_bins=num_bins)
+    cpu = [torch.from_numpy(a) for a in (comps, group, weight)]
+    dev = [t.to(cuda) for t in cpu]
+    assert torch.equal(attribution_chunk_hist(*dev, acfg, n).cpu(), attribution_chunk_hist(*cpu, acfg, n))
+    assert torch.equal(attribution_trace_hist(*dev, acfg, n, rows_per_chunk=9_999).cpu(),
+                       attribution_trace_hist(*cpu, acfg, n, rows_per_chunk=9_999))
+    assert check_bin_rule(acfg.lo_ms, acfg.hi_ms, num_bins, cuda) == (0, None)
