@@ -52,10 +52,17 @@ the CPU port, the component-sum check, the exports byte for byte), its four
 policies at 1 M keys and 10 M requests (against the plain-version engine),
 static policies at 100 M requests on the whole-trace path, and a streamed
 100 M-request Redynis run against the materialized one, bit for bit, with
-their peak memory. Every phase raises on a
-mismatch and prints
-its duration; the script exits non-zero without a CUDA device or outside a
-checkout. The last line of its output is the JSON device record.
+their peak memory. Phase 12 drives the key-sharded engine on ranks that
+share the card (``repro_torch.spmd.run_ranks``, gloo): the sharded test
+scenario at 2 and 4 ranks against the CPU port's one-rank run, the
+streamed trendline shape of ``benchmarks/engine_throughput.py`` at 10**7
+keys on 2 ranks (routing off, on, and with a bounded cache) against the
+card's one-rank run, with wall time, launches and collectives a chunk and
+each rank's peak memory, and ``publish_and_fill`` on 2 ranks at 10**6
+objects against its one-process path. Every phase raises on a mismatch
+and prints its duration; the script exits non-zero without a CUDA device
+or outside a checkout. The last line of its output is the JSON device
+record.
 """
 
 from __future__ import annotations
@@ -81,6 +88,15 @@ F32_OPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores (NVIDIA data
 FULL_REQUESTS = 100_000_000
 FULL_KEYS = 1_000_000
 FULL_INTERVAL = 10_000
+# Phase 12: benchmarks/engine_throughput.py's trendline shape at its spec
+# scale of 10**7 keys; reduced: 10**8 -> 4 x 10**6 requests (400 chunks),
+# interval 1,000 -> 10,000, for the time limit (at 10**7 requests the phase
+# took 163 s). The bounded cache runs the admission fold.
+SHARD_KEYS = 10_000_000
+SHARD_REQUESTS = 4_000_000
+SHARD_INTERVAL = 10_000
+SHARD_CACHE = 100_000
+PUBLISH_OBJECTS, PUBLISH_PAYLOAD, PUBLISH_SLOTS = 1_000_000, 64, 1024
 # Phase 8: benchmarks/policy_matrix.py's eight specs and the sixth family,
 # on benchmarks/common.py's WAN5_WORKLOAD_KWARGS; capacity_sweep.py's
 # budgets (KiB) at 1,000 times its keys.
@@ -395,16 +411,18 @@ def _trace_window_cases(torch, dev) -> list:
     return labels
 
 
-def _check_result(a, b, ctx: str) -> float:
+def _check_result(a, b, ctx: str, rtol: float = 1e-5) -> float:
     """Hold two ``SimResult``s of one trace to the engine tolerances: move
     counts (capacity evictions too) and hit rate exact, the f32 aggregates
-    to rtol 1e-5. Returns the largest relative difference of the latter."""
+    to ``rtol`` (1e-5; 1e-4 between a sharded run, whose ranks' partial
+    sums re-associate, and a one-rank run). Returns the largest relative
+    difference of the latter."""
     for f in ("replication_moves", "deletion_moves", "evictions", "capacity_evictions", "hit_rate"):
         assert getattr(a, f) == getattr(b, f), (ctx, f, getattr(a, f), getattr(b, f))
     rel = 0.0
     for f in ("throughput_ops_s", "mean_latency_ms", "node_busy_ms", "peak_occupancy_bytes"):
         x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
-        np.testing.assert_allclose(x, y, rtol=1e-5, err_msg=f"{ctx} {f}")
+        np.testing.assert_allclose(x, y, rtol=rtol, err_msg=f"{ctx} {f}")
         rel = max(rel, float(np.max(np.abs(x - y) / np.maximum(np.abs(y), 1e-30))))
     return rel
 
@@ -413,7 +431,7 @@ def _check_result(a, b, ctx: str) -> float:
 def _plain_versions():
     """Route the engine through the kernels' plain PyTorch versions (on the
     card), the yardstick for a whole run."""
-    import repro_torch.kernels.ownership_sweep.ops as sweep_ops  # core/placement.py::sweep imports it per call
+    from repro_torch.kernels.ownership_sweep import ops as sweep_ops  # core/placement.py::sweep imports it per call
     import repro_torch.kvsim.simulate as sim_mod
     import repro_torch.kvsim.telemetry as telemetry_mod
     from repro_torch.kernels.chunk_replay.ref import chunk_replay_ref
@@ -1826,6 +1844,305 @@ def _attribution_stream_phase(torch, dev, out_dir) -> dict:
     return rec
 
 
+def _shard_rank(jobs: list) -> list:
+    """Phase 12 on one rank of a ``spmd.run_ranks`` group sharing the card:
+    each job is ``("scenario", args, kwargs, chunks)`` (one timed
+    ``run_scenario`` call, its kernel launches and collectives counted on
+    this rank), ``("profile", args, kwargs, chunks)`` (host kernel launches
+    a chunk, ``torch.profiler`` over that call) or ``("publish", spec)``
+    (``publish_and_fill`` over the group, its inputs made on the card from a
+    seed). Returns one record a job."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.chunk_replay.ops import chunk_replay
+    from repro_torch.kernels.latency_histogram.ops import latency_histogram
+    from repro_torch.kernels.ownership_sweep.ops import ownership_sweep
+    from repro_torch.kernels.trace_window.ops import trace_window
+    from repro_torch.kvsim import run_scenario
+
+    kernels = dict(chunk_replay=chunk_replay, ownership_sweep=ownership_sweep,
+                   latency_histogram=latency_histogram, trace_window=trace_window)
+    all_reduce = dist.all_reduce
+
+    def counted(*a, **kw):  # every fold of the port is one all_reduce
+        counted.calls += 1
+        return all_reduce(*a, **kw)
+
+    counted.calls = 0
+    dist.all_reduce = counted
+    out = []
+    try:
+        for job in jobs:
+            if job[0] == "publish":
+                out.append(_publish_job(torch, job[1], dist.get_rank(), dist.group.WORLD))
+                continue
+            _, args, kw, chunks = job
+            if job[0] == "profile":  # after the same shape's timed run: warm
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    run_scenario(*args, **kw)
+                    torch.cuda.synchronize()
+                launches = sum(e.count for e in prof.key_averages()
+                               if e.key.startswith("cudaLaunchKernel"))
+                out.append(dict(launches_per_chunk=launches / chunks))
+                continue
+            for fn in kernels.values():
+                fn.launches = 0
+            counted.calls = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            got = run_scenario(*args, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            out.append(dict(result=got, wall_s=wall, collectives_per_chunk=counted.calls / chunks,
+                            launches={name: fn.launches for name, fn in kernels.items()},
+                            peak_bytes=torch.cuda.max_memory_allocated() - held))
+    finally:
+        dist.all_reduce = all_reduce
+    return out
+
+
+def _publish_inputs(torch, spec: dict):
+    """``publish_and_fill``'s inputs at ``spec``'s size, made on the card
+    from ``spec["seed"]`` (the same on every process): a random plan over
+    ``objects`` objects on two ranks (homes alternate), its moves and the
+    ``[objects, payload]`` f32 objects."""
+    from repro_torch.core import PlacementPlan, plan_moves
+
+    k, d = spec["objects"], spec["payload"]
+    gen = torch.Generator(device="cuda").manual_seed(spec["seed"])
+    dev = torch.device("cuda")
+    home = torch.arange(k, device=dev) % 2
+    owners = torch.rand((k, 2), generator=gen, device=dev) < 0.6
+    owners[torch.arange(k, device=dev), home] = True
+    prev = torch.rand((k, 2), generator=gen, device=dev) < 0.3
+    plan = PlacementPlan(owners=owners, to_add=owners & ~prev, to_drop=prev & ~owners,
+                         expired=torch.zeros(k, dtype=torch.bool, device=dev))
+    # The lowest wanted ids are the hottest, so that many desired slots are
+    # among the published objects (the lowest added ids).
+    moves = plan_moves(plan, home, spec["slots"], spec["slots"], 4.0 * d,
+                       priority=-torch.arange(k, dtype=torch.float32, device=dev))
+    objects = torch.randn((k, d), generator=gen, device=dev)
+    return home, moves, objects
+
+
+def _publish_job(torch, spec: dict, rank: int, group) -> dict:
+    """One rank's ``publish_and_fill`` over ``group`` at ``spec``'s size:
+    its home shard only, a cache already holding some desired objects."""
+    from repro_torch.core import ReplicaCache, publish_and_fill
+
+    home, moves, objects = _publish_inputs(torch, spec)
+    mine = (home == rank).nonzero().flatten()
+    cache = _publish_cache(torch, moves, rank, spec["payload"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = publish_and_fill(ReplicaCache(*cache), moves, objects[mine].contiguous(),
+                           mine.to(torch.int32), rank, group=group)
+    torch.cuda.synchronize()
+    return dict(ids=got.ids.cpu(), data=got.data.cpu(), wall_s=time.perf_counter() - t0)
+
+
+def _publish_cache(torch, moves, rank: int, payload: int) -> tuple:
+    """A rank's cache before the move: every other desired slot already
+    holds its object (a stale copy, -1 elsewhere)."""
+    ids = moves.slot_ids[rank].clone()
+    ids[1::2] = -1
+    data = torch.full((ids.shape[0], payload), -1.0, device=ids.device)
+    return ids, data
+
+
+def _sharded_phase(torch, dev, out_dir) -> dict:
+    """Phase 12: the key-sharded engine (``run_scenario(num_shards=S)``)
+    on ranks that share the card (``spmd.run_ranks``, gloo).
+
+    (a) ``tests/test_sharded_engine.py``'s scenario (wan5, 20,000 requests,
+        500 keys, contention and telemetry on, interval 1,000), Redynis and
+        static ``local`` at 2 and 4 ranks, and at 501 keys on 2 ranks, held
+        against the CPU port's one-rank run;
+    (b) ``benchmarks/engine_throughput.py``'s trendline shape (skewed wan5,
+        Redynis, streamed) at 10**7 keys and 4 x 10**6 requests (interval
+        10,000) on 2 ranks, routing off, on
+        (``RoutingConfig(publish_lag_chunks=8)``) and on with a bounded
+        100,000-entry cache, each held against the card's one-rank run of
+        the same shape; wall time, kernel launches and collectives a chunk
+        and each rank's own peak memory;
+    (c) ``publish_and_fill`` on 2 ranks at 10**6 objects of 64 f32, held
+        against the ``group=None`` path on the card.
+
+    Returns the phase's record; its ``launches`` are the sharded runs'
+    kernel launches, summed over the ranks."""
+    from repro_torch.core import ReplicaCache, publish_and_fill
+    from repro_torch.kvsim import (
+        RedynisPolicy,
+        RoutingConfig,
+        ServiceConfig,
+        StaticPolicy,
+        TelemetryConfig,
+        WorkloadConfig,
+        run_scenario,
+        wan5_cluster,
+        wan5_workload,
+    )
+    from repro_torch.spmd import run_ranks
+
+    rec: dict = {}
+    launches = dict.fromkeys(("chunk_replay", "ownership_sweep", "latency_histogram",
+                              "trace_window"), 0)
+
+    # (a) the paper-size scenario at 2 and 4 ranks
+    cl_a = wan5_cluster()._replace(service=ServiceConfig(enabled=True))
+    kw_a = dict(seed=3, daemon_interval=1000, telemetry=TelemetryConfig())
+    cases_a = {2: [(500, "redynis"), (500, "local"), (501, "redynis"), (501, "local")],
+               4: [(500, "redynis"), (500, "local")]}
+
+    def policy_of(name):
+        return RedynisPolicy() if name == "redynis" else StaticPolicy(mode=name)
+
+    chunks_a = 20
+    jobs_2, rec["a"] = [], {}
+    for shards, cases in cases_a.items():
+        jobs = [("scenario", (wan5_workload(num_requests=20_000, num_keys=keys), cl_a, policy_of(p)),
+                 dict(kw_a, num_shards=shards), chunks_a) for keys, p in cases]
+        if shards == 2:
+            jobs_2 = jobs
+            continue
+        t0 = time.perf_counter()
+        ranks = run_ranks(_shard_rank, shards, jobs, timeout=300)
+        rec["a"][f"{shards}_ranks_s"] = time.perf_counter() - t0
+        _check_sharded_a(ranks, cases, shards, cl_a, kw_a, policy_of, launches, rec["a"], chunks_a)
+
+    # (b) the trendline shape at 10**7 keys, and (c), on the 2-rank launch of (a)
+    wl_b = WorkloadConfig(num_requests=SHARD_REQUESTS, num_keys=SHARD_KEYS, skewed=True,
+                          read_fraction=0.9, **WAN5_WORKLOAD_KWARGS)
+    clusters_b = {
+        "routing_off": wan5_cluster(),
+        "routing_on": wan5_cluster(routing=RoutingConfig(publish_lag_chunks=8)),
+        "routing_bounded": wan5_cluster(routing=RoutingConfig(publish_lag_chunks=8,
+                                                              cache_entries=SHARD_CACHE)),
+    }
+    kw_b = dict(daemon_interval=SHARD_INTERVAL, trace_mode="streamed")
+    chunks_b = -(-SHARD_REQUESTS // SHARD_INTERVAL)
+    prof_chunks = 50
+    wl_prof = wl_b._replace(num_requests=prof_chunks * SHARD_INTERVAL)
+    jobs_b = [("scenario", (wl_b, c, RedynisPolicy()), dict(kw_b, num_shards=2), chunks_b)
+              for c in clusters_b.values()]
+    jobs_b += [("profile", (wl_prof, c, RedynisPolicy()), dict(kw_b, num_shards=2), prof_chunks)
+               for c in clusters_b.values()]
+    spec = dict(seed=12, objects=PUBLISH_OBJECTS, payload=PUBLISH_PAYLOAD, slots=PUBLISH_SLOTS)
+    warm = ("scenario", (wl_b._replace(num_requests=4 * SHARD_INTERVAL), clusters_b["routing_bounded"],
+                         RedynisPolicy()), dict(kw_b, num_shards=2), 4)
+    t0 = time.perf_counter()
+    ranks = run_ranks(_shard_rank, 2, jobs_2 + [warm] + jobs_b + [("publish", spec)], timeout=900)
+    rec["two_ranks_s"] = time.perf_counter() - t0
+    _check_sharded_a(ranks, cases_a[2], 2, cl_a, kw_a, policy_of, launches, rec["a"], chunks_a)
+    at = len(jobs_2) + 1
+    rec["b"] = {}
+    for i, (label, c) in enumerate(clusters_b.items()):
+        # The card's one-rank run of the same shape, after a short warm one.
+        run_scenario(wl_b._replace(num_requests=4 * SHARD_INTERVAL), c, RedynisPolicy(), **kw_b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        one = run_scenario(wl_b, c, RedynisPolicy(), **kw_b)
+        torch.cuda.synchronize()
+        one_wall = time.perf_counter() - t1
+        one_peak = torch.cuda.max_memory_allocated() - held
+        runs = [r[at + i] for r in ranks]
+        ctx = f"phase 12 (b) {label}"
+        rel = _check_result(runs[0]["result"], one, ctx, rtol=1e-4)
+        _check_tiers(runs[0]["result"], one, ctx)
+        assert all(_same_result(r["result"], runs[0]["result"]) for r in runs[1:]), label
+        for r in runs:
+            assert r["launches"] == dict(chunk_replay=chunks_b, ownership_sweep=chunks_b,
+                                         latency_histogram=0, trace_window=chunks_b), r["launches"]
+            for name in launches:
+                launches[name] += r["launches"][name]
+        prof = [r[at + len(clusters_b) + i]["launches_per_chunk"] for r in ranks]
+        res = runs[0]["result"]
+        row = dict(wall_s=max(r["wall_s"] for r in runs), rank_wall_s=[r["wall_s"] for r in runs],
+                   one_rank_wall_s=one_wall, launches_per_chunk=prof,
+                   collectives_per_chunk=[r["collectives_per_chunk"] for r in runs],
+                   rank_peak_bytes=[r["peak_bytes"] for r in runs], one_rank_peak_bytes=one_peak,
+                   max_rel_diff=rel, hit_rate=res.hit_rate, mean_latency_ms=res.mean_latency_ms,
+                   replication_moves=res.replication_moves, mis_routes=res.mis_routes,
+                   directory_fetches=res.directory_fetches)
+        rec["b"][label] = row
+        print(f"phase 12 (b) {label}: 2 ranks wall {row['wall_s']:.3f} s (ranks "
+              f"{row['rank_wall_s']}), one rank {one_wall:.3f} s; launches a chunk per rank "
+              f"{prof}; collectives a chunk {row['collectives_per_chunk']}; peak bytes per rank "
+              f"{row['rank_peak_bytes']} (one rank {one_peak}); hit rate {res.hit_rate:.6f}, "
+              f"moves {res.replication_moves:.0f}, mis-routes {res.mis_routes:.0f}; "
+              f"max rel diff to one rank {rel}")
+    assert rec["b"]["routing_on"]["mis_routes"] > 0
+    assert rec["b"]["routing_bounded"]["directory_fetches"] > rec["b"]["routing_on"]["directory_fetches"]
+
+    # (c) publish_and_fill at 2 ranks against the group=None path
+    home, moves, objects = _publish_inputs(torch, spec)
+    ids_all = torch.arange(spec["objects"], dtype=torch.int32, device=dev)
+    rec["c"] = dict(objects=spec["objects"], payload=spec["payload"], slots=spec["slots"],
+                    rank_wall_s=[r[-1]["wall_s"] for r in ranks])
+    for rank in range(2):
+        cache = _publish_cache(torch, moves, rank, spec["payload"])
+        want = publish_and_fill(ReplicaCache(*cache), moves, objects, ids_all, rank)
+        got = ranks[rank][-1]
+        assert torch.equal(got["ids"], want.ids.cpu()), rank
+        assert torch.equal(got["data"].view(torch.int32), want.data.cpu().view(torch.int32)), rank
+        published = (got["data"] != -1.0).all(dim=1)  # slots refreshed from the publish buffer
+        assert (got["ids"] >= 0).sum() > spec["slots"] // 2 and published.sum() > 0, rank
+    del home, moves, objects
+    print(f"phase 12 (c) publish_and_fill: 2 ranks x {spec['slots']} slots from "
+          f"{spec['objects']} objects of {spec['payload']} f32 equal the group=None path "
+          f"(ids exact, data bit for bit); rank walls {rec['c']['rank_wall_s']} s")
+    rec["launches"] = launches
+    print(f"phase 12 launches {launches}")
+    return rec
+
+
+def _check_sharded_a(ranks, cases, shards, cluster, kw, policy_of, launches, rec, chunks) -> None:
+    """Hold (a)'s sharded card runs (the first ``len(cases)`` jobs of every
+    rank) to the CPU port's one-rank runs: counts, histograms and moves
+    exact, f32 aggregates and series to rtol 1e-4."""
+    from repro_torch.kvsim import run_scenario, wan5_workload
+
+    for i, (keys, p) in enumerate(cases):
+        runs = [r[i] for r in ranks]
+        ctx = f"phase 12 (a) {shards} ranks {keys} keys {p}"
+        res, tr = runs[0]["result"]
+        assert all(_same_result(r["result"][0], res) for r in runs[1:]), ctx
+        one, one_tr = run_scenario(wan5_workload(num_requests=20_000, num_keys=keys), cluster,
+                                   policy_of(p), device="cpu", **kw)
+        rel = _check_result(res, one, ctx, rtol=1e-4)
+        _check_tiers(res, one, ctx)
+        for f in ("hist_group", "chunk_hist", "hit_rate", "requests", "moves", "drops"):
+            np.testing.assert_array_equal(getattr(tr, f), getattr(one_tr, f), err_msg=f"{ctx} {f}")
+        for f in ("mean_latency_ms", "occupancy_bytes", "load_factor"):
+            np.testing.assert_allclose(getattr(tr, f), getattr(one_tr, f), rtol=1e-4, err_msg=f"{ctx} {f}")
+        # A materialized run draws its trace in one trace_window launch.
+        want = dict(chunk_replay=chunks, ownership_sweep=chunks if p == "redynis" else 0,
+                    latency_histogram=0, trace_window=1)
+        for r in runs:
+            assert r["launches"] == want, (ctx, r["launches"])
+            for name in launches:
+                launches[name] += r["launches"][name]
+        rec[f"{shards}_{keys}_{p}"] = dict(max_rel_diff=rel, hit_rate=res.hit_rate,
+                                           replication_moves=res.replication_moves,
+                                           rank_wall_s=[r["wall_s"] for r in runs],
+                                           collectives_per_chunk=[r["collectives_per_chunk"] for r in runs])
+        print(f"{ctx}: equals the CPU port's one-rank run (histograms, counts and moves exact; "
+              f"max rel diff {rel}); hit rate {res.hit_rate:.6f}, moves {res.replication_moves:.0f}, "
+              f"collectives a chunk {runs[0]['collectives_per_chunk']}")
+
+
+def _same_result(a, b) -> bool:
+    """Two ``SimResult``s equal field by field, bit for bit."""
+    return all(np.array_equal(np.asarray(x), np.asarray(y)) for x, y in zip(a, b))
+
+
 def _trace_window_ops(positions: int, cold: int, skewed: bool, diurnal: bool) -> int:
     """The fewest 32-bit instructions ``trace_window``'s source can compile
     to: a threefry block is 74 (2 key adds; 20 rounds of an add, a rotate as
@@ -1841,8 +2158,6 @@ def _trace_window_ops(positions: int, cold: int, skewed: bool, diurnal: bool) ->
     return positions * per + cold * (2 * block + draw)
 
 
-def main() -> int:
-    import torch
 def main() -> int:
     import torch
 
@@ -2841,21 +3156,28 @@ def main() -> int:
 
     lap("phase 11")
 
+    # ---- phase 12: the key-sharded engine ------------------------------
+    record["sharded"] = _sharded_phase(torch, dev, out_dir)
+    sh_launches = record["sharded"]["launches"]
+
+    lap("phase 12")
+
     # ---- phase 9: the kernel record ------------------------------------
     # Launches: the telemetry path's run (phase 5), the routing and fault
-    # runs (phase 10) and the attribution and streamed runs (phase 11) drive
-    # the first three, the ML-state run (phase 6) the next two, the serving
-    # drive (phase 7) the two after, phase 11 the last (a port-only kernel);
-    # phase 8's launches of the first three are on a line of their own
-    # ("phase 8 launches").
+    # runs (phase 10), the attribution and streamed runs (phase 11) and the
+    # sharded runs (phase 12, summed over the ranks) drive the first three,
+    # the ML-state run (phase 6) the next two, the serving drive (phase 7)
+    # the two after, phases 11 and 12 the last (a port-only kernel); phase
+    # 8's launches of the first three are on a line of their own ("phase 8
+    # launches").
     kernels = [
         dict(name="chunk_replay", route="cuda",
              source="src/repro_torch/kernels/chunk_replay/csrc/chunk_replay.cu",
              replaces="src/repro/kernels/chunk_replay/kernel.py:71",
              launches=tele_launches["chunk_replay"] + fr_launches["chunk_replay"]
-             + as_launches["chunk_replay"],
+             + as_launches["chunk_replay"] + sh_launches["chunk_replay"],
              launches_by_phase={"5": tele_launches["chunk_replay"], "10": fr_launches["chunk_replay"],
-                                "11": as_launches["chunk_replay"]},
+                                "11": as_launches["chunk_replay"], "12": sh_launches["chunk_replay"]},
              max_abs_err=err_replay,
              ms=chunk_ms, plain_ms=chunk_plain,
              bound_ms=replay_bytes / BW_BYTES_PER_S * 1e3, bound_by="bytes",
@@ -2865,10 +3187,11 @@ def main() -> int:
              source="src/repro_torch/kernels/ownership_sweep/csrc/ownership_sweep.cu",
              replaces="src/repro/kernels/ownership_sweep/kernel.py:38",
              launches=tele_launches["ownership_sweep"] + fr_launches["ownership_sweep"]
-             + as_launches["ownership_sweep"],
+             + as_launches["ownership_sweep"] + sh_launches["ownership_sweep"],
              launches_by_phase={"5": tele_launches["ownership_sweep"],
                                 "10": fr_launches["ownership_sweep"],
-                                "11": as_launches["ownership_sweep"]},
+                                "11": as_launches["ownership_sweep"],
+                                "12": sh_launches["ownership_sweep"]},
              max_abs_err=err_sweep,
              ms=sweep_ms, plain_ms=sweep_plain,
              bound_ms=sweep_bytes / BW_BYTES_PER_S * 1e3, bound_by="bytes",
@@ -2876,9 +3199,11 @@ def main() -> int:
         dict(name="latency_histogram", route="cuda",
              source="src/repro_torch/kernels/latency_histogram/csrc/latency_histogram.cu",
              replaces="src/repro/kernels/latency_histogram/kernel.py:38",
-             launches=tele_launches["latency_histogram"] + as_launches["latency_histogram"],
+             launches=tele_launches["latency_histogram"] + as_launches["latency_histogram"]
+             + sh_launches["latency_histogram"],
              launches_by_phase={"5": tele_launches["latency_histogram"],
-                                "11": as_launches["latency_histogram"]},
+                                "11": as_launches["latency_histogram"],
+                                "12": sh_launches["latency_histogram"]},
              max_abs_err=err_hist,
              ms=hist_ms, plain_ms=hist_plain,
              bound_ms=hist_bytes / BW_BYTES_PER_S * 1e3, bound_by="bytes",
@@ -2916,7 +3241,9 @@ def main() -> int:
              source="src/repro_torch/kernels/trace_window/csrc/trace_window.cu",
              replaces="none: port-only (the reference draws traces with jax.random in XLA, "
                       "src/repro/kvsim/workload.py:172 generate_trace, :288 _request_window)",
-             launches=as_launches["trace_window"], max_abs_err=0.0,
+             launches=as_launches["trace_window"] + sh_launches["trace_window"],
+             launches_by_phase={"11": as_launches["trace_window"], "12": sh_launches["trace_window"]},
+             max_abs_err=0.0,
              ms=tw_rec["ms"], plain_ms=tw_rec["plain_ms"], bound_ms=tw_rec["bound_ms"],
              bound_by=tw_rec["bound_by"], library_ms=None,
              whole_trace_ms=tw_rec["whole_trace_ms"], whole_trace_bound_ms=tw_rec["whole_trace_bound_ms"],

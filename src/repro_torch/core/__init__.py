@@ -1,7 +1,9 @@
 """Core Redynis engine in PyTorch: ownership math (eqs. 1-3), the metadata
 layer, the placement daemon (``placement``), the placement policies and
-their registry (``policy``), and the capacity projection with the
-replication cost model (``costmodel``)."""
+their registry (``policy``), the capacity projection with the replication
+cost model (``costmodel``), access statistics of ML-state objects
+(``traffic``), and plan execution as fused collectives with double
+buffering (``repartition``)."""
 
 from repro_torch.core.costmodel import (
     H100_SXM,
@@ -52,6 +54,21 @@ from repro_torch.core.policy import (
     register_policy,
     split_policy,
 )
+from repro_torch.core.repartition import (
+    CommitState,
+    Moves,
+    ReplicaCache,
+    create_cache,
+    plan_moves,
+    publish_and_fill,
+)
+from repro_torch.core.traffic import (
+    TrafficStats,
+    create_stats,
+    decay_stats,
+    fold_counts,
+    fold_events,
+)
 
 __all__ = [
     "H100_SXM",
@@ -93,4 +110,15 @@ __all__ = [
     "policy_sweep",
     "register_policy",
     "split_policy",
+    "CommitState",
+    "Moves",
+    "ReplicaCache",
+    "create_cache",
+    "plan_moves",
+    "publish_and_fill",
+    "TrafficStats",
+    "create_stats",
+    "decay_stats",
+    "fold_counts",
+    "fold_events",
 ]

@@ -22,10 +22,10 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.chunk_replay.ref import READ_MODES, chunk_replay_ref
+from repro_torch.kernels.chunk_replay.ref import READ_MODES, chunk_latency_ref, chunk_replay_ref
 
 __all__ = ["MAX_NODES", "MAX_GRID", "THREADS", "CLUSTER_THREADS", "CLUSTER_MAX", "PER_THREAD",
-           "PACK_RATIO", "launch_shape", "vector_io", "chunk_replay"]
+           "PACK_RATIO", "launch_shape", "vector_io", "chunk_replay", "chunk_latency"]
 
 MAX_NODES = 64  # the [N, N] RTT matrix and busy planes live in shared memory
 THREADS = 128  # threads a block of a grid-stride launch (the kernel's kThreads)
@@ -205,3 +205,34 @@ def chunk_replay(
 
 
 chunk_replay.launches = 0
+
+
+def chunk_latency(
+    hosts: torch.Tensor,  # [K, N] bool
+    keys: torch.Tensor,  # [B] int32
+    nodes: torch.Tensor,  # [B] int32
+    is_read: torch.Tensor,  # [B] bool
+    rtt: torch.Tensor,  # [N, N] f32
+    *,
+    service_ms: float,
+    master: int,
+    xfer_read_ms: float,
+    xfer_write_ms: float,
+    read_mode: str,
+):
+    """Per-request latency + read-hit flags: ``(lat [B] f32, hits [B] bool)``.
+    On the CPU ``ref.chunk_latency_ref``; on the card one ``chunk_replay``
+    launch with every row valid, writing both through ``lat_out`` and
+    ``hit_out`` (the same bits: phase 2 of ``chip_smoke.py`` holds them)."""
+    kw = dict(service_ms=service_ms, master=master, xfer_read_ms=xfer_read_ms,
+              xfer_write_ms=xfer_write_ms, read_mode=read_mode)
+    if rtt.device.type == "cpu":
+        if read_mode not in READ_MODES:
+            raise ValueError(f"unknown read_mode {read_mode!r}; expected one of {READ_MODES}")
+        return chunk_latency_ref(hosts, keys, nodes, is_read, rtt, **kw)
+    b = keys.shape[0]
+    lat = torch.empty(b, dtype=torch.float32, device=rtt.device)
+    hits = torch.empty(b, dtype=torch.bool, device=rtt.device)
+    valid = torch.ones(b, dtype=torch.bool, device=rtt.device)
+    chunk_replay(hosts, keys, nodes, is_read, valid, rtt, lat_out=lat, hit_out=hits, **kw)
+    return lat, hits

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.latency_histogram.ref import bin_index
+from repro_torch.spmd import all_sum
 
 __all__ = [
     "READ_MODES",
@@ -369,14 +370,18 @@ def load_factor_ref(
     num_nodes: int,
     capacity_ms,
     rho_max,
+    group=None,
 ) -> torch.Tensor:
     """Per-node load factor ``rho [..., N]`` f32: the chunk's valid demand
     folded per serving node (in f64, rounded once), over the capacity,
-    clamped below the stability bound."""
+    clamped below the stability bound. With a ``group`` (a key-sharded
+    rank, ``valid`` holding its own requests) the f64 folds of every rank
+    are summed before the rounding: the load factor is the cluster's, and
+    the same bits as one rank's fold of every request."""
     one_hot = serving.long()[..., None] == torch.arange(num_nodes, device=serving.device)
     zero = torch.zeros((), dtype=torch.float64, device=demand.device)
     contrib = torch.where(one_hot & valid[..., None], demand.double()[..., None], zero)
-    fold = contrib.sum(dim=-2).float()
+    fold = all_sum(contrib.sum(dim=-2), group).float()
     return torch.minimum(fold * _f32(_recip32(capacity_ms), demand), _f32(rho_max, demand))
 
 
@@ -401,8 +406,11 @@ def contention_extra_ms_ref(
     serve_bytes_per_ms,
     capacity_ms,
     rho_max,
+    group=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The contention pre-pass: ``(extra_ms [..., B] f32, rho [..., N] f32)``."""
+    """The contention pre-pass: ``(extra_ms [..., B] f32, rho [..., N] f32)``.
+    A key-sharded rank passes its own ``hosts``, ``obj_bytes`` and local
+    keys, ``valid`` masked to its own requests, and its ``group``."""
     keys_l = keys.long()
     replicas = None if read_mode == "ideal" else hosts[keys_l]
     serving = serving_node_ref(replicas, nodes, is_read, rtt, read_mode=read_mode)
@@ -410,7 +418,8 @@ def contention_extra_ms_ref(
         obj_bytes[keys_l], service_ms=service_ms, serve_bytes_per_ms=serve_bytes_per_ms
     )
     rho = load_factor_ref(
-        serving, demand, valid, num_nodes=rtt.shape[0], capacity_ms=capacity_ms, rho_max=rho_max
+        serving, demand, valid, num_nodes=rtt.shape[0], capacity_ms=capacity_ms, rho_max=rho_max,
+        group=group,
     )
     return contention_wait_ref(demand, rho, serving), rho
 

@@ -8,8 +8,11 @@ the ``run_scenario_reference`` oracle, telemetry (``TelemetryConfig``,
 (``AttributionConfig``, ``FlightRecorderConfig``; export through
 ``write_jsonl`` and ``write_chrome_trace``), and streamed traces
 (``generate_key_state``, ``generate_trace_chunk``,
-``run_scenario(..., trace_mode="streamed")``). The placement policies are
-re-exported for convenience."""
+``run_scenario(..., trace_mode="streamed")``), and the key-sharded engine
+(``run_scenario(..., num_shards=S)`` on each rank of a ``torch.distributed``
+group, ``ShardSpec``; ``repro_torch.spmd.run_ranks`` starts the ranks). The
+placement policies are re-exported for convenience; a legacy ``Scenario``
+passed as a policy raises, naming its replacement."""
 
 from repro_torch.core.policy import (
     POLICIES,
@@ -46,6 +49,8 @@ from repro_torch.kvsim.faults import (
 from repro_torch.kvsim.routing import RoutingConfig, normalize_routing
 from repro_torch.kvsim.simulate import (
     TRACE_MODES,
+    Scenario,
+    ShardSpec,
     SimResult,
     confidence_interval_99,
     run_experiment,
@@ -102,7 +107,9 @@ __all__ = [
     "wan5_edge_cluster",
     "WAN5_REGIONS",
     "WAN5_RTT_MS",
+    "ShardSpec",
     "SimResult",
+    "Scenario",
     "SimTrace",
     "TelemetryConfig",
     "AttributionConfig",

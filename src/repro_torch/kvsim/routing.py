@@ -36,6 +36,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.spmd import gather_ranks
+
 __all__ = [
     "STALE_AGE_BINS",
     "RoutingConfig",
@@ -197,10 +199,16 @@ def router_cache_update(
     *,
     cache_entries: int,
     decay: float,
+    group=None,
 ) -> RouterState:
     """End-of-chunk cache maintenance: consulted entries refresh to the
     published version, the decay-LFU score folds the chunk's consults in,
     and (bounded) each router keeps its top ``cache_entries`` scores.
+
+    A key-sharded rank (``group``, its own keys) ranks the union of every
+    rank's local top ``cache_entries`` (gathered over the group): the
+    global top ``cache_entries`` is a subset of it, so the threshold is
+    exact.
 
     The consult counts are an f32 scatter-add of ones (exact in any order
     below 2**24). The reference's jitted engine contracts ``score * decay +
@@ -217,7 +225,11 @@ def router_cache_update(
         return rstate._replace(cached_ver=new_ver)
     decay_t = torch.full((), decay, dtype=torch.float32, device=ck.device).double()
     new_score = (rstate.score.double() * decay_t + counts.double()).to(torch.float32)
-    kth = torch.topk(new_score, cache_entries, dim=1, sorted=False).values.amin(dim=1)
+    cands = new_score
+    if group is not None:
+        local = torch.topk(new_score, min(cache_entries, k), dim=1, sorted=False).values
+        cands = gather_ranks(local, group, dim=1)
+    kth = torch.topk(cands, cache_entries, dim=1, sorted=False).values.amin(dim=1)
     new_cached = (new_score >= kth[:, None]) & (new_score > 0.0)
     return rstate._replace(cached=new_cached, cached_ver=new_ver, score=new_score)
 

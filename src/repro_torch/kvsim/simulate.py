@@ -86,14 +86,32 @@ versions on whatever device it is given, the policy through its plain
 every request's latency (``raw_latency_ms``) and, with attribution or the
 flight recorder, every request's components (``raw_components``).
 
-The port covers one device; sharding (``num_shards > 1``) raises
-``NotImplementedError`` naming its later slice.
+Key sharding (``num_shards=S > 1``, a ``ShardSpec``): SPMD over an
+initialised ``torch.distributed`` group of exactly ``S`` ranks
+(``spmd.run_ranks`` starts one), each calling ``run_scenario`` with the
+same arguments and getting the same global result. Rank ``i`` holds global
+keys ``[i * kps, (i + 1) * kps)``, ``kps = ceil(K / S)``; the last block is
+padded with dead keys (never live, never hosted, zero bytes). Every rank
+draws the whole trace (or every window) from the seed and replays only the
+requests for its own keys (``mine = key // kps == rank``, the key made
+local, the rest masked out of ``valid``), so a sharded run always takes the
+chunk loop. The cross-rank folds sit where the reference has its ``psum``
+(all an ``all_reduce(SUM)``, ``spmd``): the occupancy sample before the
+running peak, the contention demand fold (in f64, rounded after the fold),
+the router caches' admission threshold, the fault tier's unreachable and
+wiped key counts, and after the loop the aggregates and the telemetry
+series (``telemetry.psum_leaves``). Counts, histograms and the attribution
+sums equal the one-rank run's; the f32 sums (busy, latency, occupancy)
+re-associate across ranks. ``topk`` (a global argsort) and finite
+``capacity_bytes`` (a global projection sort) are rejected sharded, as in
+the reference.
 """
 
 from __future__ import annotations
 
+import enum
 from collections import deque
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -145,6 +163,7 @@ from repro_torch.kvsim.telemetry import (
     leaves_quantile,
     merge_leaves,
     normalize_telemetry,
+    psum_leaves,
 )
 from repro_torch.kvsim.workload import (
     Trace,
@@ -153,9 +172,12 @@ from repro_torch.kvsim.workload import (
     generate_trace,
     window_params,
 )
+from repro_torch.spmd import all_sum, rank_of, world_group
 
 __all__ = [
     "TRACE_MODES",
+    "Scenario",
+    "ShardSpec",
     "SimResult",
     "run_scenario",
     "run_scenario_reference",
@@ -165,6 +187,45 @@ __all__ = [
 
 TRACE_MODES = ("materialized", "streamed")
 FLIGHT_SEED = 0x9E37  # PRNGKey of the flight recorder's reservoir offsets
+
+
+class Scenario(enum.Enum):
+    """The legacy scenario spelling. Passing one where a policy belongs
+    raises, naming the policy that replaces it."""
+
+    LOCAL = "local"
+    REMOTE = "remote"
+    OPTIMIZED = "optimized"
+    REPLICATED = "replicated"
+
+
+def _reject_scenario(caller: str, policy) -> None:
+    """Raise the reference's error for a ``Scenario`` passed as a policy."""
+    if isinstance(policy, Scenario):
+        repl = (
+            "RedynisPolicy()" if policy is Scenario.OPTIMIZED
+            else f"StaticPolicy(mode={policy.value!r})"
+        )
+        raise ValueError(
+            f"{caller}: the legacy scenario= spelling was removed (its "
+            f"deprecation window is over); pass policy={repl} instead"
+        )
+
+
+class ShardSpec(NamedTuple):
+    """Key sharding of the engine (the reference's ``ShardSpec``, with a
+    ``torch.distributed`` group where it has a mesh axis name). ``group=None``
+    (the default) is the one-rank program: no collective, no request
+    masking. With a group of ``num_shards`` ranks each rank holds a block of
+    ``ceil(K / num_shards)`` keys; ``pad`` dead keys fill the last block."""
+
+    group: Any = None
+    num_shards: int = 1
+    pad: int = 0
+
+    @property
+    def active(self) -> bool:
+        return self.group is not None and self.num_shards > 1
 
 
 class _Stream(NamedTuple):
@@ -213,13 +274,15 @@ def _initial_hosts(
     return home[:, None] == torch.arange(num_nodes, device=dev)[None, :]
 
 
-def _seed_store(hosts: torch.Tensor, num_keys: int, num_nodes: int):
+def _seed_store(hosts: torch.Tensor, num_keys: int, num_nodes: int,
+                real: torch.Tensor | None = None):
     """Metadata layer seeded with the initial placement. ``home`` stays
-    zero: only the routing and failure-injection slices read it."""
+    zero: only the routing and failure-injection slices read it. ``real``
+    (a sharded rank's ``[K]`` mask of keys that exist) leaves the dead keys
+    of the padded last block unhosted and not live."""
     dev = hosts.device
-    return create_store(num_keys, num_nodes, dev)._replace(
-        hosts=hosts, live=torch.ones(num_keys, dtype=torch.bool, device=dev)
-    )
+    live = torch.ones(num_keys, dtype=torch.bool, device=dev) if real is None else real
+    return create_store(num_keys, num_nodes, dev)._replace(hosts=hosts & live[:, None], live=live)
 
 
 def _replay_scalars(cluster: ClusterConfig) -> dict:
@@ -296,14 +359,9 @@ def _fault_kwargs(cluster: ClusterConfig, num_chunks: int) -> dict | None:
     return dict(avail=avail, crash=crash)
 
 
-def _check_slice(workload, cluster, trace_mode="materialized", num_shards=1,
-                 caller="run_scenario") -> None:
-    """Reject what the port does not cover yet, naming the slice that will,
-    and a workload that does not fit the cluster."""
-    if num_shards > 1:
-        raise NotImplementedError(
-            f"{caller}: num_shards > 1 (the key-sharded engine slice) is not ported yet"
-        )
+def _check_slice(workload, cluster, trace_mode="materialized", caller="run_scenario") -> None:
+    """Reject a trace mode the engine does not know and a workload that
+    does not fit the cluster."""
     if trace_mode not in TRACE_MODES:
         raise ValueError(f"{caller}: trace_mode={trace_mode!r}; expected one of {TRACE_MODES}")
     if workload.num_nodes != cluster.num_nodes:
@@ -328,8 +386,28 @@ def _check_slice(workload, cluster, trace_mode="materialized", num_shards=1,
             )
 
 
+def _check_scale_out(caller: str, cluster: ClusterConfig, static, num_shards: int) -> None:
+    """Reject a shard count below one, and what needs a global sort when
+    sharded (as the reference does)."""
+    if num_shards < 1:
+        raise ValueError(f"{caller}: num_shards={num_shards} must be >= 1")
+    if num_shards == 1:
+        return
+    if getattr(type(static), "name", "") == "topk":
+        raise ValueError(
+            f"{caller}: the topk policy ranks keys with a GLOBAL argsort "
+            "and is not supported sharded (num_shards > 1)"
+        )
+    if cluster.has_finite_capacity:
+        raise ValueError(
+            f"{caller}: finite capacity_bytes needs the global projection "
+            "sort and is not supported sharded (num_shards > 1)"
+        )
+
+
 def _prepare(workload, policy, daemon_interval: int, caller: str) -> tuple:
     """The policy resolved, validated and split: ``(static_key, params)``."""
+    _reject_scenario(caller, policy)
     if policy is None:
         raise ValueError(
             f"{caller}: a policy is required — e.g. RedynisPolicy() or "
@@ -370,10 +448,21 @@ def run_scenario(
     ``device=None`` runs on CUDA and raises without a card; the CPU runs only
     when asked for (``device="cpu"``), through the kernels' plain versions.
     With an enabled ``telemetry`` the call returns ``(SimResult, SimTrace)``.
+
+    ``num_shards=S > 1`` shards the key axis over the initialised
+    ``torch.distributed`` group, which must hold exactly ``S`` ranks, each
+    making this call with the same arguments (see the module docstring);
+    every rank returns the same global result.
     """
-    _check_slice(workload, cluster, trace_mode, num_shards)
+    _check_slice(workload, cluster, trace_mode)
     tcfg = normalize_telemetry(telemetry)
     static, params = _prepare(workload, policy, daemon_interval, "run_scenario")
+    _check_scale_out("run_scenario", cluster, static, num_shards)
+    shard = ShardSpec()
+    if num_shards > 1:
+        kps = -(-workload.num_keys // num_shards)
+        shard = ShardSpec(world_group(num_shards, "run_scenario"), num_shards,
+                          kps * num_shards - workload.num_keys)
     dev = resolve_device(device)
     if trace_mode == "streamed":
         if trace is not None:
@@ -384,7 +473,7 @@ def run_scenario(
         if trace is None:
             trace = generate_trace(workload, seed, device=dev)
         source = trace.to(dev)
-    result, leaves = _simulate(source, cluster, static, params, daemon_interval, tcfg)
+    result, leaves = _simulate(source, cluster, static, params, daemon_interval, tcfg, shard)
     return result if tcfg is None else (result, build_trace(leaves, tcfg))
 
 
@@ -413,21 +502,21 @@ def _flight_total(scomps: torch.Tensor) -> torch.Tensor:
     return total
 
 
-def _flight_sample(idx, base: int, keys, nodes, is_read, served, comps, router):
+def _flight_sample(idx, base: int, keys, nodes, is_read, served, comps, router, key_base: int = 0):
     """Flight records ``(meta [..., 5] int32, vals [..., 9] f32)`` of the
     rows ``idx`` (any shape) of ``keys``, ``nodes``, ``is_read`` and
     ``comps [8, rows]``, whose row 0 is trace position ``base``; an index
     past the rows or an unserved request (``served`` ``None``: all served)
     leaves its slot zero, valid bit clear. ``router`` is ``[rows]`` or
-    ``None``."""
+    ``None``; ``key_base`` makes a sharded rank's local keys global."""
     rows = keys.shape[0]
     jc = idx.clamp_max(rows - 1)
     own = idx < rows
     if served is not None:
         own = own & served[jc]
     rcol = torch.full_like(jc, -1) if router is None else router[jc].long()
-    meta = torch.stack([base + idx, keys[jc].long(), nodes[jc].long(), rcol, is_read[jc].long() | 2],
-                       dim=-1)
+    meta = torch.stack([base + idx, keys[jc].long() + key_base, nodes[jc].long(), rcol,
+                        is_read[jc].long() | 2], dim=-1)
     meta = torch.where(own[..., None], meta, torch.zeros((), dtype=torch.int64, device=jc.device))
     scomps = torch.where(own[None], comps[:, jc], torch.zeros((), dtype=torch.float32,
                                                              device=jc.device))
@@ -437,11 +526,13 @@ def _flight_sample(idx, base: int, keys, nodes, is_read, served, comps, router):
 
 def _simulate(
     trace: Trace | _Stream, cluster: ClusterConfig, static, params: dict, daemon_interval: int,
-    tcfg: TelemetryConfig | None,
+    tcfg: TelemetryConfig | None, shard: ShardSpec | None = None,
 ) -> tuple[SimResult, TelemetryLeaves | None]:
     """The engine on the trace's device: the run's ``SimResult`` and, with
     ``tcfg``, its telemetry leaves on the host. ``trace`` is a materialised
-    ``Trace`` or a ``_Stream``."""
+    ``Trace`` or a ``_Stream``. With an active ``shard`` this rank holds
+    its block of the key axis and the results are the group's (see the
+    module docstring)."""
     dev = trace.natural_node.device
     streamed = isinstance(trace, _Stream)
     if streamed:
@@ -455,13 +546,29 @@ def _simulate(
         raise ValueError("run_scenario: the trace holds no request")
     rtt = cluster.rtt_matrix(dev)
     obj = trace.object_bytes.to(torch.float32)
+    natural = trace.natural_node
     scalars = _replay_scalars(cluster)
     read_mode = static.read_mode
+    shard = shard or ShardSpec()
+    group = shard.group if shard.active else None
+    real_keys = k  # keys that exist: the padded block's dead keys are not counted
+    kps, rank, base, real = k, 0, 0, None
+    if shard.active:
+        # This rank's block of keys [base, base + kps); the last block's
+        # tail past the real keys is dead.
+        kps = (k + shard.pad) // shard.num_shards
+        rank = rank_of(group)
+        base = rank * kps
+        pad_keys = torch.zeros(shard.pad, dtype=torch.int32, device=dev)
+        natural = torch.cat([natural, pad_keys])[base : base + kps]
+        obj = torch.cat([obj, pad_keys.float()])[base : base + kps]
+        real = base + torch.arange(kps, device=dev) < real_keys
+        k = kps
 
     store = _seed_store(
-        _initial_hosts(trace.natural_node, k, n, static.initial_placement), k, n
+        _initial_hosts(natural, k, n, static.initial_placement), k, n, real
     )
-    peak = _node_occupancy(store.hosts, obj)
+    peak = all_sum(_node_occupancy(store.hosts, obj), group)
     f32 = dict(dtype=torch.float32, device=dev)
     i64 = dict(dtype=torch.int64, device=dev)
     moves = torch.zeros(4, **i64)  # adds, drops, expiry evictions, capacity
@@ -471,12 +578,12 @@ def _simulate(
     contention = _contention_kwargs(cluster, read_mode, daemon_interval)
     bins = {} if tcfg is None else dict(num_bins=tcfg.num_bins, lo=tcfg.lo_ms, hi=tcfg.hi_ms)
     num_chunks = -(-r // daemon_interval)
-    routing = _routing_kwargs(cluster, k)
+    routing = _routing_kwargs(cluster, real_keys)
     fault = _fault_kwargs(cluster, num_chunks)
     acfg = None if tcfg is None else tcfg.attribution
     fcfg = None if tcfg is None else tcfg.flight
     fpos = None if fcfg is None else _flight_positions(fcfg, num_chunks, daemon_interval, dev)
-    loop = static.is_active or routing is not None or fault is not None or streamed
+    loop = static.is_active or routing is not None or fault is not None or streamed or shard.active
 
     if not loop:
         # A frozen map makes the whole request path loop-invariant: one
@@ -530,7 +637,7 @@ def _simulate(
             wiped = torch.zeros(k, dtype=torch.bool, device=dev)
             # The reference's compiled program divides by the key count as
             # a multiply by its f32 reciprocal.
-            inv_keys = torch.full((), float(np.float32(1.0) / np.float32(k)), **f32)
+            inv_keys = torch.full((), float(np.float32(1.0) / np.float32(real_keys)), **f32)
         per_chunk = []  # dicts of each chunk's device tensors, stacked at the end
         for c in range(num_chunks):
             lo, hi = c * daemon_interval, min((c + 1) * daemon_interval, r)
@@ -542,6 +649,11 @@ def _simulate(
             else:
                 ck, cn, cr = keys[lo:hi], nodes[lo:hi], is_read[lo:hi]
             cv = valid[: hi - lo]
+            if shard.active:
+                # This rank replays the requests for its own keys only.
+                mine = ck // kps == rank
+                ck = torch.where(mine, ck - base, 0)
+                cv = cv & mine
             row = {}
             served, hosts_eff, extra = cv, store.hosts, None
             avail_c = cont = detour = fetch = None
@@ -573,7 +685,7 @@ def _simulate(
             rho = None
             if contention is not None:
                 cont, rho = contention_extra_ms_ref(hosts_eff, ck, cn, cr, served, rtt, obj,
-                                                    **contention)
+                                                    **contention, group=group)
                 extra = cont if extra is None else extra + cont
             if fault is not None:
                 extra = f_extra if extra is None else f_extra + extra
@@ -587,10 +699,11 @@ def _simulate(
                     row["attr_hist"] = telemetry_mod.attribution_chunk_hist(
                         comps, (cn * 2 + cr.to(torch.int32)).to(torch.int32),
                         served.to(torch.float32), acfg, n)
-                    row["attr_sum"] = comps.sum(dim=1, dtype=torch.float64).float()
+                    row["attr_sum"] = comps.sum(dim=1, dtype=torch.float64)  # f32 after the fold
                 if fcfg is not None:
                     row["flight_meta"], row["flight_vals"] = _flight_sample(
-                        fpos[c], lo, ck, cn, cr, served, comps, None if routing is None else rb)
+                        fpos[c], lo, ck, cn, cr, served, comps, None if routing is None else rb,
+                        key_base=base)
             d_busy, d_lat, d_hits, d_reads, d_count, hist = chunk_replay(
                 hosts_eff, ck, cn, cr, served, rtt, read_mode=read_mode,
                 extra_ms=extra, **bins, **scalars,
@@ -601,16 +714,17 @@ def _simulate(
             reads += d_reads
             if fault is not None:
                 unreach = (store.hosts.any(dim=-1) & ~hosts_eff.any(dim=-1)) | wiped
-                row["fracs"] = torch.stack([unreach.sum(), wiped.sum()]).to(torch.float32) * inv_keys
+                dark = all_sum(torch.stack([unreach.sum(), wiped.sum()]), group)
+                row["fracs"] = dark.to(torch.float32) * inv_keys
             if resample:
-                occ = _node_occupancy(store.hosts, obj)
+                occ = all_sum(_node_occupancy(store.hosts, obj), group)
                 peak = torch.maximum(peak, occ)
             if routing is not None:
                 row["routing"] = torch.stack([consult.sum(), fetched.sum(), mis.sum(), stale.sum()])
                 row["stale_age_hist"] = stale_age_fold(age, stale)
                 rstate = router_cache_update(
                     rstate, rb, ck, consult, pub_ver,
-                    cache_entries=routing["cache_entries"], decay=routing["decay"],
+                    cache_entries=routing["cache_entries"], decay=routing["decay"], group=group,
                 )
             stats, d_rep = no_moves, torch.zeros((), **i64)
             if static.is_active:
@@ -648,8 +762,17 @@ def _simulate(
                 row.update(hist=hist, hits=d_hits, reads=d_reads, lat_sum=d_lat, count=d_count,
                            stats=stats, occupancy=occ, rho=rho)
                 per_chunk.append(row)
+        if group is not None:
+            # The group's aggregates from this rank's partial sums.
+            busy, lat_sum = all_sum(torch.cat([busy, lat_sum[None]]), group).split([n, 1])
+            lat_sum = lat_sum[0]
+            counts = all_sum(torch.cat([hits[None], reads[None], moves, tiers]), group)
+            hits, reads, moves, tiers = counts.split([1, 1, 4, 8])
+            hits, reads = hits[0], reads[0]
         if tcfg is not None:
-            series = _loop_series(per_chunk, n)
+            series = psum_leaves(_loop_series(per_chunk, n), group)
+            if "attr_sum" in series:
+                series["attr_sum"] = series["attr_sum"].float()
 
     # f32 epilogue as in the reference, then ONE device-to-host copy.
     # Divisors are tensors: CUDA turns division by a Python scalar into a
@@ -1119,6 +1242,7 @@ def run_experiment(
     n = cluster.num_nodes
     named = []
     for pol in policies:
+        _reject_scenario("run_experiment", pol)
         pol = pol.resolve(n)
         pol.validate(n)
         named.append((describe_policy(pol), split_policy(pol)))

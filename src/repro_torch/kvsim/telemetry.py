@@ -42,6 +42,7 @@ import torch
 from repro_torch.kernels.chunk_replay.ref import COMPONENTS, NUM_COMPONENTS
 from repro_torch.kernels.latency_histogram.ops import latency_histogram
 from repro_torch.kernels.latency_histogram.ref import bin_edges
+from repro_torch.spmd import all_sum
 
 __all__ = [
     "AttributionConfig",
@@ -56,6 +57,7 @@ __all__ = [
     "attribution_chunk_hist",
     "attribution_trace_hist",
     "merge_leaves",
+    "psum_leaves",
     "build_trace",
     "leaves_quantile",
     "histogram_quantile",
@@ -359,6 +361,29 @@ def merge_leaves(leaves: TelemetryLeaves, axis: int = 0) -> TelemetryLeaves:
         else:
             merged[name] = np.take(a, 0, axis=axis)
     return TelemetryLeaves(**merged)
+
+
+def psum_leaves(series: dict, group) -> dict:
+    """A key-sharded rank's per-chunk series (device tensors by leaf name)
+    folded over the ranks of ``group``, leaf by leaf per
+    :data:`LEAF_KINDS`, as the reference's ``psum_leaves`` folds them:
+    "sum" leaves add (integer counts exactly); "records" leaves add too,
+    since each flight slot is filled by the one rank that owns its request
+    and zero elsewhere; "mean" point samples were folded where they were
+    sampled and pass through. One ``all_reduce`` a dtype. ``group=None``
+    returns ``series``."""
+    if group is None:
+        return series
+    out = dict(series)
+    by_dtype: dict = {}
+    for name, t in series.items():
+        if LEAF_KINDS[name] != "mean":
+            by_dtype.setdefault(t.dtype, []).append(name)
+    for names in by_dtype.values():
+        flat = all_sum(torch.cat([series[name].reshape(-1) for name in names]), group)
+        for name, part in zip(names, flat.split([series[name].numel() for name in names])):
+            out[name] = part.view(series[name].shape)
+    return out
 
 
 # ---------------------------------------------------------------------------

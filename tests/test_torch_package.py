@@ -73,6 +73,8 @@ MODULES = [
     "repro_torch.kvsim.faults",
     "repro_torch.kvsim.prng",
     "repro_torch.kvsim.tracing",
+    "repro_torch.spmd",
+    "repro_torch.core.repartition",
     "repro_torch.kernels._build",
     "repro_torch.kernels.trace_window.ops",
     "repro_torch.kernels.trace_window.ref",
@@ -218,26 +220,29 @@ def test_tensor_builders_default_to_cuda(make):
     [
         # streamed traces (with the routing tier on, too), attribution and the
         # flight recorder are ported: they run, and give the results of the
-        # run without them; sharding (a later slice) still raises
+        # run without them; sharding is ported too, and runs only on the
+        # ranks of a torch.distributed group (tests/test_torch_sharded_engine.py):
+        # outside one it raises
         (ClusterConfig(routing=RoutingConfig()), {"trace_mode": "streamed"}, None),
-        (ClusterConfig(faults=region_outage(0, 0, 1)), {"num_shards": 2}, "num_shards"),
+        (ClusterConfig(faults=region_outage(0, 0, 1)), {"num_shards": 2}, "none is initialised"),
         (ClusterConfig(), {"telemetry": TelemetryConfig(attribution=AttributionConfig())}, None),
         (ClusterConfig(), {"telemetry": TelemetryConfig(flight=FlightRecorderConfig())}, None),
         (ClusterConfig(), {"trace_mode": "streamed"}, None),
-        (ClusterConfig(), {"num_shards": 2}, "num_shards"),
+        (ClusterConfig(), {"num_shards": 2}, "none is initialised"),
     ],
     ids=["routing", "faults", "attribution", "flight", "streamed", "shards"],
 )
 def test_out_of_slice_inputs_raise(cluster, kwargs, what):
-    """Inputs of a later slice raise ``NotImplementedError``; those that
-    raised before their slice (streamed traces, attribution, the flight
-    recorder) give the results of the run without them, bit for bit."""
+    """A sharded call outside a group of its size raises ``ValueError``;
+    the inputs that raised before their slice (streamed traces,
+    attribution, the flight recorder) give the results of the run without
+    them, bit for bit."""
     def run(**kw):
         return run_scenario(WorkloadConfig(num_requests=1_000, num_keys=10), cluster,
                             RedynisPolicy(), daemon_interval=150, device="cpu", **kw)
 
     if what is not None:
-        with pytest.raises(NotImplementedError, match=what):
+        with pytest.raises(ValueError, match=what):
             run(**kwargs)
         return
     got = run(**kwargs)
