@@ -12,7 +12,7 @@ requests over a 1 M-key metadata store on the card): first without
 telemetry (phase 4), then with ``TelemetryConfig()`` for Redynis and static
 remote and with the M/M/1 contention model for Redynis (phase 5), each
 full-size run held against the same run through the plain versions on the
-card. Phase 6 drives Redynis on ML state at deepseek-moe-16b widths: 150
+card. Phase 6 drives Redynis on ML state at deepseek-moe-16b widths: 100
 steps of 32,768 Zipf tokens through the hot-row embedding cache and 4
 full-width MoE layers, both placement daemons folded every step and swept
 every 50, held every step against the same steps through the plain
@@ -59,7 +59,15 @@ streamed trendline shape of ``benchmarks/engine_throughput.py`` at 10**7
 keys on 2 ranks (routing off, on, and with a bounded cache) against the
 card's one-rank run, with wall time, launches and collectives a chunk and
 each rank's peak memory, and ``publish_and_fill`` on 2 ranks at 10**6
-objects against its one-process path. Every phase raises on a mismatch
+objects against its one-process path. Phase 13 trains through
+``Trainer.run``: deepseek-moe-16b at full width (4 layers, remat, the sort
+dispatch, then the einsum dispatch) for 12 + 3 steps of 32,768 Zipf tokens,
+through a sweep of both placement daemons at step 10 (held exactly against
+plain daemons fed the same traffic), and qwen3-1.7b at full width and depth
+through a checkpoint at step 3 and a resume that replays steps 4-6; steps 1
+and 11 of the first and step 1 of the second are held against the kernels'
+plain versions (the loss, every gradient, and the router weights' gradient
+against the aux term's alone). Every phase raises on a mismatch
 and prints its duration; the script exits non-zero without a CUDA device
 or outside a checkout. The last line of its output is the JSON device
 record.
@@ -89,18 +97,21 @@ FULL_REQUESTS = 100_000_000
 FULL_KEYS = 1_000_000
 FULL_INTERVAL = 10_000
 # Phase 12: benchmarks/engine_throughput.py's trendline shape at its spec
-# scale of 10**7 keys; reduced: 10**8 -> 4 x 10**6 requests (400 chunks),
+# scale of 10**7 keys; reduced: 10**8 -> 2 x 10**6 requests (200 chunks),
 # interval 1,000 -> 10,000, for the time limit (at 10**7 requests the phase
-# took 163 s). The bounded cache runs the admission fold.
+# took 163 s; at 4 x 10**6, 126 s, cut again for phase 13's time). The
+# bounded cache runs the admission fold.
 SHARD_KEYS = 10_000_000
-SHARD_REQUESTS = 4_000_000
+SHARD_REQUESTS = 2_000_000
 SHARD_INTERVAL = 10_000
 SHARD_CACHE = 100_000
 PUBLISH_OBJECTS, PUBLISH_PAYLOAD, PUBLISH_SLOTS = 1_000_000, 64, 1024
 # Phase 8: benchmarks/policy_matrix.py's eight specs and the sixth family,
 # on benchmarks/common.py's WAN5_WORKLOAD_KWARGS; capacity_sweep.py's
 # budgets (KiB) at 1,000 times its keys.
-GRID_REQUESTS = 10_000_000  # policy_matrix and capacity_sweep at full key scale
+# policy_matrix and capacity_sweep at full key scale; reduced: 10 M -> 5 M
+# requests (phases 8, 10 and 11 with it), for phase 13's time.
+GRID_REQUESTS = 5_000_000
 GRID_ITERATIONS = 3
 MATRIX_SPECS = ("local", "remote", "replicated", "redynis", "redynis:h=0.05,decay=0.9",
                 "topk:k=100", "costgreedy", "decaylfu:alpha=0.5", "sizeaware")
@@ -109,12 +120,34 @@ CAPACITY_KIB = (float("inf"), 256_000, 128_000, 64_000, 32_000, 16_000)
 EDGE_CAPACITY_BYTES = 64 * 1024.0 * 1_000
 ML_LAYERS = 4  # deepseek-moe-16b has 28; cut for the time limit shared with the other phases
 ML_BATCH, ML_SEQ = 16, 2048  # 32,768 tokens per step
-ML_STEPS = 150  # three sweeps at sweep_period 50
+ML_STEPS = 100  # two sweeps at sweep_period 50; reduced: 150 -> 100 for phase 13's time
 ML_NODES = 4
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
+# Phase 13: training through Trainer.run. (a) deepseek-moe-16b at full width;
+# reduced: 28 -> 4 layers (as phase 6 cuts), 12 + 3 steps with the daemons'
+# sweep_period 50 -> 10 (a step takes 2.54 s on the card, and 22 steps with a
+# sweep at 20 took the phase to 189 s). (b) qwen3-1.7b at full width and
+# depth; reduced: 6 steps of 4 x 2048 tokens.
+TRAIN_LAYERS = ML_LAYERS
+TRAIN_BATCH, TRAIN_SEQ = 16, 2048
+TRAIN_SWEEP_PERIOD = 10
+TRAIN_STEPS = 12  # both daemons sweep at step 10; steps 11-12 run the hot path
+TRAIN_EINSUM_STEPS = 3
+TRAIN_CHECK_STEPS = (1, 11)
+DENSE_BATCH, DENSE_STEPS, DENSE_CKPT_STEP = 4, 6, 3
+# Kernel path against the plain versions on the same state and batch: the
+# loss to 1e-3 relative and each leaf's gradient to 5e-2 relative L2 (bf16
+# activations; the kernel's gates differ from the plain version's by f32
+# ulps, and a near-tied router pick moves whole rows); the router weights'
+# gradient must differ from the aux term's alone by more than 0.1.
+TRAIN_LOSS_RTOL, TRAIN_GRAD_REL_L2, TRAIN_ROUTER_NOT_AUX = 1e-3, 5e-2, 0.1
+# Resumed losses against the uninterrupted run's: the embedding's backward
+# adds with atomics in no fixed order, so bf16 params may differ by an ulp.
+RESUME_RTOL = 1e-4
 SERVE_ARCH = "qwen3-1.7b"  # full width and all 28 layers
 SERVE_LANES, SERVE_CACHE = 16, 8192
-SERVE_REQUESTS, SERVE_SESSIONS, SERVE_PODS = 96, 32, 4
+# reduced: 96 -> 64 requests, for phase 13's time
+SERVE_REQUESTS, SERVE_SESSIONS, SERVE_PODS = 64, 32, 4
 SERVE_PROMPT = (512, 4096)  # prompt lengths, uniform, inclusive
 SERVE_MAX_NEW = 64
 SERVE_FAIL_POD = 3  # the first leader (the highest id), killed half-way
@@ -568,14 +601,40 @@ def _plain_probs(logits):
     return p / p.sum(dim=-1, keepdim=True)
 
 
+def _plain_hot_gather(tokens, slot_map, hot_table):
+    """``hot_gather``'s plain version with the wrapper's own gradient (the
+    reference's VJP: the hits' row cotangents scatter-added into their
+    slots in f32), so that a training step through the plain versions
+    differs from the kernel path in the forward only. Autograd through
+    ``hot_gather_ref`` itself would add a hot row's thousands of
+    cotangents in bf16."""
+    import torch
+    from repro_torch.kernels.hot_gather import ops
+    from repro_torch.kernels.hot_gather.ref import hot_gather_ref
+
+    class PlainHotGather(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, tok, smap, table):
+            rows, hit = hot_gather_ref(tok, smap, table)
+            ctx.save_for_backward(tok, smap)
+            ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+            ctx.mark_non_differentiable(hit)
+            return rows, hit
+
+        backward = ops._HotGather.backward
+
+    return PlainHotGather.apply(tokens, slot_map, hot_table)
+
+
 @contextlib.contextmanager
 def _ml_plain_versions():
     """Route the ML-state path (``moe_apply``, ``embed_with_cache``, the
-    expert sweep) through the kernels' plain PyTorch versions on the card."""
+    expert sweep) through the kernels' plain PyTorch versions on the card.
+    The router's plain version is differentiated by autograd, which holds
+    the kernel's closed-form backward against it."""
     import repro_torch.core.expert_placement as ep_mod
     import repro_torch.core.hot_embedding as he_mod
     import repro_torch.models.moe as moe_mod
-    from repro_torch.kernels.hot_gather.ref import hot_gather_ref
     from repro_torch.kernels.moe_router.ref import router_ref
     from repro_torch.kernels.ownership_sweep.ref import sweep_ref
 
@@ -583,7 +642,7 @@ def _ml_plain_versions():
         return router_ref(logits, k, group)
 
     saved = moe_mod.moe_router, he_mod.hot_gather, ep_mod.ownership_sweep
-    moe_mod.moe_router, he_mod.hot_gather, ep_mod.ownership_sweep = plain_router, hot_gather_ref, sweep_ref
+    moe_mod.moe_router, he_mod.hot_gather, ep_mod.ownership_sweep = plain_router, _plain_hot_gather, sweep_ref
     try:
         yield
     finally:
@@ -2158,6 +2217,383 @@ def _trace_window_ops(positions: int, cold: int, skewed: bool, diurnal: bool) ->
     return positions * per + cold * (2 * block + draw)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: training through Trainer.run (repro_torch.train)
+
+
+def _train_grads(torch, model, params, batch, hot_ids, hot_embed):
+    """``Model.loss`` and its gradient in every param leaf (tree order).
+    Returns ``(loss, metrics, grads)``."""
+    from repro_torch import tree as tree_lib
+
+    loss, met = model.loss(params, batch, hot_ids=hot_ids, hot_embed=hot_embed)
+    grads = torch.autograd.grad(loss, tree_lib.leaves(params))
+    return float(loss.detach()), {k: v.detach() for k, v in met.items()}, grads
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _train_check(torch, model, state, batch, ctx: str, log=print) -> dict:
+    """One step's loss and gradients on the kernel path and through the
+    kernels' plain versions (``_ml_plain_versions``) on the same state and
+    batch, on the card. The router calls of the kernel pass are held
+    against ``router_ref`` on their own logits to count near-tie rows (as
+    phase 6 does). Bars: the loss to TRAIN_LOSS_RTOL, every leaf's
+    gradient to TRAIN_GRAD_REL_L2 by relative L2. For MoE a third pass runs
+    the kernel path with the gates detached: the router weights reach the
+    loss through the gates and the aux term only, so its router gradient is
+    the aux term's alone, and the kernel path's must differ from it by more
+    than TRAIN_ROUTER_NOT_AUX (the gates' gradient reached the weights).
+    The kernel pass's gradients wait on the host while the plain pass runs."""
+    import repro_torch.models.moe as moe_mod
+    from repro_torch import tree as tree_lib
+    from repro_torch.kernels.moe_router.ref import router_ref
+
+    hot_ids = state.expert_placement.hot_ids if state.expert_placement is not None else None
+    moe = bool(model.cfg.num_experts)
+    names = ["/".join(str(v) for _, v in path) for path, _ in tree_lib.leaves_with_paths(state.params)]
+    kernel_router = moe_mod.moe_router
+    calls = []
+
+    def recording_router(logits, *, k, group):
+        out = kernel_router(logits, k=k, group=group)
+        calls.append((logits.detach(), tuple(t.detach() for t in out), k, group))
+        return out
+
+    def detached_router(logits, *, k, group):
+        gates, ids, counts = kernel_router(logits, k=k, group=group)
+        return gates.detach(), ids, counts
+
+    aux_router = None
+    if moe:
+        moe_mod.moe_router = detached_router
+        try:
+            _, _, g_aux = _train_grads(torch, model, state.params, batch, hot_ids, state.hot_embed)
+        finally:
+            moe_mod.moe_router = kernel_router
+        aux_router = g_aux[names.index("blocks/mlp/router")].clone()
+        del g_aux
+    moe_mod.moe_router = recording_router
+    try:
+        lk, mk, gk = _train_grads(torch, model, state.params, batch, hot_ids, state.hot_embed)
+    finally:
+        moe_mod.moe_router = kernel_router
+    gk = [g.cpu() for g in gk]
+    near = 0
+    for i, (logits, got, k, group) in enumerate(calls):
+        rows, _ = _router_near_ties(got, router_ref(logits, k, group), _plain_probs(logits),
+                                    f"{ctx} router call {i}")
+        near += int(rows.sum())
+    calls.clear()
+    torch.cuda.empty_cache()
+    with _ml_plain_versions():
+        lp, mp, gp = _train_grads(torch, model, state.params, batch, hot_ids, state.hot_embed)
+    assert abs(lk - lp) <= TRAIN_LOSS_RTOL * abs(lp), (ctx, lk, lp)
+    worst, worst_name, rels = 0.0, "", {}
+    for name, a, b in zip(names, gk, gp):
+        a = a.to(b.device)
+        assert bool(torch.isfinite(a).all()), (ctx, name)
+        rels[name] = _rel_l2(a, b)
+        if rels[name] >= worst:
+            worst, worst_name = rels[name], name
+        assert rels[name] <= TRAIN_GRAD_REL_L2, (ctx, name, rels[name])
+    out = dict(loss_kernel=lk, loss_plain=lp, loss_rel_diff=abs(lk - lp) / abs(lp),
+               grad_worst_rel_l2=worst, grad_worst_leaf=worst_name, near_tie_rows=near)
+    if moe:
+        ri = names.index("blocks/mlp/router")
+        out["router_grad_rel_l2"] = rels["blocks/mlp/router"]
+        out["router_grad_vs_aux_only_rel_l2"] = _rel_l2(gk[ri].to(aux_router.device), aux_router)
+        assert out["router_grad_vs_aux_only_rel_l2"] > TRAIN_ROUTER_NOT_AUX, (ctx, out)
+        for key in ("moe_dropped", "moe_hot_frac"):
+            out[key] = (float(mk[key]), float(mp[key]))
+    log(f"{ctx}: loss kernel {lk!r} plain {lp!r} (rel {out['loss_rel_diff']:.3e}); worst leaf grad "
+        f"rel L2 {worst:.3e} ({worst_name}); near-tie router rows {near}"
+        + (f"; router grad rel L2 {out['router_grad_rel_l2']:.3e}, against the aux term's alone "
+           f"{out['router_grad_vs_aux_only_rel_l2']:.3f}" if moe else ""))
+    del gk, gp
+    torch.cuda.empty_cache()
+    return out
+
+
+def _profile_train_step(torch, step, out_dir, label: str, unprofiled_ms: float) -> dict:
+    """One warm training step under ``torch.profiler``: device ms, its share
+    of the unprofiled step's wall time (the busy share), host launches and
+    the top device operations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    (out_dir / f"profile_{label.replace(' ', '_')}.txt").write_text(
+        events.table(sort_by="self_device_time_total", row_limit=40))
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in dev) / 1e3
+    gemm = sum(e.self_device_time_total for e in dev
+               if any(w in e.key.lower() for w in ("gemm", "xmma", "cutlass", "wgmma", "nvjet"))) / 1e3
+    launches = sum(e.count for e in events if e.key.startswith("cudaLaunchKernel"))
+    top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    rec = dict(device_ms=total, unprofiled_ms=unprofiled_ms,
+               device_busy_share=total / unprofiled_ms if total else None, matmul_ms=gemm,
+               host_launches=launches,
+               top_device=[(e.key[:120], e.self_device_time_total / 1e3) for e in top])
+    print(f"{label} profile (one step): device {total:.3f} ms, busy share "
+          f"{rec['device_busy_share']} of the unprofiled {unprofiled_ms:.3f} ms step, matrix products "
+          f"{gemm:.3f} ms, {launches} host launches")
+    print(f"{label} profile top device: " + "; ".join(
+        f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms" for e in top))
+    return rec
+
+
+def _train_run_summary(label, walls_s, tokens, active, launches, steps, peak, smi, prof) -> dict:
+    med = float(np.median(walls_s))
+    rec = dict(steps=steps, median_step_s=med, tokens_per_s=tokens / med,
+               share_of_bf16_peak=6 * active * tokens / med / BF16_OPS_PER_S,
+               launches_per_step={k: v / steps for k, v in launches.items()}, launches=launches,
+               peak_bytes=peak, profile=prof)
+    print(f"{label}: {steps} steps, median step {med:.4f} s, {tokens / med:.1f} tokens/s, "
+          f"{rec['share_of_bf16_peak']:.4f} of 989 TFLOP/s (6 x {active} active params x {tokens} "
+          f"tokens), busy share {prof.get('device_busy_share')}, launches a step "
+          f"{rec['launches_per_step']}, peak {peak} bytes [{smi}]")
+    return rec
+
+
+def _training_phase(torch, dev, out_dir) -> dict:
+    """Phase 13: training through ``Trainer.run``.
+
+    (a) deepseek-moe-16b at full width (TRAIN_LAYERS layers), remat "full",
+    moe_impl "sort", TRAIN_BATCH x TRAIN_SEQ tokens a step from ``Pipeline``
+    (Zipf 1.2), 4 nodes: TRAIN_STEPS steps, so that both daemons sweep at
+    step TRAIN_SWEEP_PERIOD and the last steps run the hot path, then TRAIN_EINSUM_STEPS
+    steps with moe_impl "einsum" on the same state. The daemons are held
+    exactly against plain daemons fed the same counts and tokens. (b)
+    qwen3-1.7b at full width and depth, DENSE_BATCH x TRAIN_SEQ tokens a
+    step in 2 microbatches: steps 1-3 with a ``save_async`` checkpoint at
+    step 3 into a temporary directory, steps 4-6, then a fresh ``Trainer``
+    restores step 3 and replays steps 4-6; the losses must agree to
+    RESUME_RTOL. TRAIN_CHECK_STEPS of (a) and step 1 of (b) are also run
+    through the kernels' plain versions (``_train_check``)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.expert_placement import ExpertPlacement
+    from repro_torch.core.hot_embedding import HotEmbedding
+    from repro_torch.data import DataConfig, Pipeline
+    from repro_torch.kernels.hot_gather.ops import hot_gather
+    from repro_torch.kernels.moe_router.ops import moe_router
+    from repro_torch.kernels.ownership_sweep.ops import ownership_sweep
+    from repro_torch.models import build
+    from repro_torch.train import OptConfig, TrainConfig, Trainer
+
+    smi = _smi()
+    kernels = (moe_router, hot_gather, ownership_sweep)
+    rec: dict = {"card": smi}
+
+    def counts():
+        return {fn.__name__: fn.launches for fn in kernels}
+
+    def delta(before):
+        return {k: v - before[k] for k, v in counts().items()}
+
+    # ---- (a) deepseek-moe-16b ---------------------------------------------
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"), num_layers=TRAIN_LAYERS, moe_impl="sort",
+                              remat="full", sweep_period=TRAIN_SWEEP_PERIOD)
+    model = build(cfg, dev)
+    total_steps = TRAIN_STEPS + TRAIN_EINSUM_STEPS
+    tcfg = TrainConfig(opt=OptConfig(lr=3e-4, warmup_steps=10, total_steps=total_steps), log_every=10)
+    tr = Trainer(model, tcfg, num_nodes=ML_NODES)
+    state = tr.init_state(torch.Generator(device=dev).manual_seed(0))
+    pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                               zipf_a=1.2), dev)
+    tokens_a = TRAIN_BATCH * TRAIN_SEQ
+    print(f"phase 13 (a) deepseek-moe-16b: {model.num_params()} params, {model.active_params()} active "
+          f"a token, {TRAIN_LAYERS} layers, {tokens_a} tokens a step")
+    # The plain daemons, fed what the Trainer's daemons are fed.
+    dkw = dict(h=cfg.ownership_h or None, decay=cfg.traffic_decay, period=cfg.sweep_period)
+    ep_plain = ExpertPlacement(cfg.num_layers, cfg.num_experts, ML_NODES, cfg.hot_expert_slots, **dkw)
+    he_plain = HotEmbedding(cfg.padded_vocab, ML_NODES, cfg.hot_embed_rows, **dkw)
+    fed = []
+
+    def recorder(daemon, name):
+        orig = daemon.fold
+
+        def fold(st, a, b):
+            fed.append((name, a.detach().clone(), b.clone()))
+            return orig(st, a, b)
+
+        return fold
+
+    tr.expert_daemon.fold = recorder(tr.expert_daemon, "experts")
+    tr.embed_daemon.fold = recorder(tr.embed_daemon, "embed")
+    plain_ep, plain_he = ep_plain.init_state(dev), he_plain.init_state(dev)
+
+    def check_daemons(st, step):
+        nonlocal plain_ep, plain_he
+        with _ml_plain_versions():
+            for name, a, b in fed:
+                if name == "experts":
+                    plain_ep = ep_plain.fold(plain_ep, a, b)
+                    if ep_plain.due(step):
+                        plain_ep = ep_plain.sweep(plain_ep)
+                else:
+                    plain_he = he_plain.fold(plain_he, a, b)
+                    if he_plain.due(step):
+                        plain_he = he_plain.sweep(plain_he)
+        fed.clear()
+        for field in ("counts", "hot_ids", "step", "sweeps", "moved"):
+            assert torch.equal(getattr(st.expert_placement, field), getattr(plain_ep, field)), (step, field)
+        for field in ("counts", "hot_ids", "slot_map", "sweeps"):
+            assert torch.equal(getattr(st.hot_embed, field), getattr(plain_he, field)), (step, field)
+
+    def batch_at(step):  # the pipeline's batch of a 1-based step
+        return pipe.next(pipe.seek(step - 1))[0]
+
+    checks = {}
+    walls, losses, hist_a = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels:
+        fn.launches = 0
+    t_phase = time.perf_counter()
+    before = counts()
+    for step in range(1, TRAIN_STEPS + 1):
+        if step in TRAIN_CHECK_STEPS:
+            saved = counts()  # comparison launches are not the path's
+            checks[f"a{step}"] = _train_check(torch, model, state, batch_at(step),
+                                              f"phase 13 (a) check step {step}")
+            for fn in kernels:
+                fn.launches = saved[fn.__name__]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if step == TRAIN_STEPS:  # the last step under the profiler, after its unprofiled peers
+            prof_a = _profile_train_step(torch, lambda: hist_a.append(tr.run(state, pipe, 1, log=False)),
+                                         out_dir, "phase 13 (a) sort", float(np.median(walls)) * 1e3)
+            state, hist = hist_a[-1]
+        else:
+            state, hist = tr.run(state, pipe, 1, log=False)
+            walls.append(time.perf_counter() - t0)
+        losses.append(hist[0]["loss"])
+        check_daemons(state, step)
+        if step in (1, 2, 10, TRAIN_SWEEP_PERIOD - 1, TRAIN_SWEEP_PERIOD, TRAIN_SWEEP_PERIOD + 1,
+                    TRAIN_STEPS):
+            print(f"phase 13 (a) step {step}: loss {hist[0]['loss']:.4f}, step {hist[0]['step_time_s']:.4f} s, "
+                  f"hot_frac {hist[0]['moe_hot_frac']:.4f}, dropped {hist[0]['moe_dropped']:.4f}, "
+                  f"sweeps {int(state.expert_placement.sweeps)}/{int(state.hot_embed.sweeps)}")
+    launches_a = delta(before)
+    peak_a = torch.cuda.max_memory_allocated()
+    assert launches_a == {"moe_router": 2 * TRAIN_LAYERS * TRAIN_STEPS, "hot_gather": TRAIN_STEPS,
+                          "ownership_sweep": TRAIN_STEPS // cfg.sweep_period}, launches_a
+    assert int(state.expert_placement.sweeps) == int(state.hot_embed.sweeps) == TRAIN_STEPS // cfg.sweep_period
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    rec["a_sort"] = _train_run_summary("phase 13 (a) sort", walls, tokens_a, model.active_params(),
+                                       launches_a, TRAIN_STEPS, peak_a, smi, prof_a)
+    rec["a_sort"].update(losses=losses, wall_s=time.perf_counter() - t_phase,
+                         hot_frac_last=hist[0]["moe_hot_frac"],
+                         expert_hit_rate=float(tr.expert_daemon.hit_rate(state.expert_placement)),
+                         embed_hit_rate=float(tr.embed_daemon.hit_rate(state.hot_embed)))
+    assert hist[0]["moe_hot_frac"] > 0
+
+    # The same state on moe_impl "einsum".
+    model_e = build(dataclasses.replace(cfg, moe_impl="einsum"), dev)
+    tr_e = Trainer(model_e, tcfg, num_nodes=ML_NODES)
+    tr_e.expert_daemon.fold = recorder(tr_e.expert_daemon, "experts")
+    tr_e.embed_daemon.fold = recorder(tr_e.embed_daemon, "embed")
+    walls_e, hist_e = [], []
+    torch.cuda.reset_peak_memory_stats()
+    before = counts()
+    for i in range(TRAIN_EINSUM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == TRAIN_EINSUM_STEPS - 1:
+            prof_e = _profile_train_step(torch, lambda: hist_e.append(tr_e.run(state, pipe, 1, log=False)),
+                                         out_dir, "phase 13 (a) einsum", float(np.median(walls_e)) * 1e3)
+            state, hist = hist_e[-1]
+        else:
+            state, hist = tr_e.run(state, pipe, 1, log=False)
+            walls_e.append(time.perf_counter() - t0)
+        check_daemons(state, TRAIN_STEPS + i + 1)
+        assert np.isfinite(hist[0]["loss"])
+    launches_e = delta(before)
+    sweeps_e = sum(1 for s in range(TRAIN_STEPS + 1, total_steps + 1) if s % cfg.sweep_period == 0)
+    assert launches_e == {"moe_router": 2 * TRAIN_LAYERS * TRAIN_EINSUM_STEPS,
+                          "hot_gather": TRAIN_EINSUM_STEPS, "ownership_sweep": sweeps_e}, launches_e
+    rec["a_einsum"] = _train_run_summary("phase 13 (a) einsum", walls_e, tokens_a, model.active_params(),
+                                         launches_e, TRAIN_EINSUM_STEPS, torch.cuda.max_memory_allocated(),
+                                         smi, prof_e)
+    rec["a_einsum"]["last_loss"] = hist[0]["loss"]
+    del state, tr, tr_e, model, model_e, pipe, hist_a, hist_e
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) qwen3-1.7b at full width and depth, checkpoint and resume -------
+    cfg = get_config("qwen3-1.7b")
+    model = build(cfg, dev)
+    tmp = tempfile.mkdtemp(prefix="phase13_ckpt_")
+    try:
+        opt = OptConfig(lr=3e-4, warmup_steps=2, total_steps=DENSE_STEPS)
+        tr = Trainer(model, TrainConfig(opt=opt, microbatches=2, checkpoint_dir=tmp,
+                                        checkpoint_every=DENSE_CKPT_STEP, log_every=100))
+        tr_free = Trainer(model, TrainConfig(opt=opt, microbatches=2, log_every=100))
+        pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=DENSE_BATCH), dev)
+        tokens_b = DENSE_BATCH * TRAIN_SEQ
+        print(f"phase 13 (b) qwen3-1.7b: {model.num_params()} params, {cfg.num_layers} layers, "
+              f"{tokens_b} tokens a step in 2 microbatches; free disk {shutil.disk_usage(tmp).free} bytes")
+        state = tr.init_state(torch.Generator(device=dev).manual_seed(0))
+        checks["b1"] = _train_check(torch, model, state, pipe.next(pipe.seek(0))[0], "phase 13 (b) check step 1")
+        torch.cuda.reset_peak_memory_stats()
+        before = counts()
+        hist_b = []
+        t0 = time.perf_counter()
+        state, h1 = tr.run(state, pipe, DENSE_CKPT_STEP, log=False)  # saves step 3 (asynchronously)
+        save_wait_s = time.perf_counter() - t0 - sum(h["step_time_s"] for h in h1)
+        state, h2 = tr_free.run(state, pipe, DENSE_STEPS - DENSE_CKPT_STEP - 1, log=False)
+        unprof_ms = float(np.median([h["step_time_s"] for h in h1[1:] + h2])) * 1e3
+        prof_b = _profile_train_step(torch, lambda: hist_b.append(tr_free.run(state, pipe, 1, log=False)),
+                                     out_dir, "phase 13 (b) qwen3", unprof_ms)
+        state, h3 = hist_b[-1]
+        uninterrupted = [h["loss"] for h in h1 + h2 + h3]
+        launches_b = delta(before)
+        assert launches_b == {"moe_router": 0, "hot_gather": 2 * DENSE_STEPS, "ownership_sweep": 0}, launches_b
+        peak_b = torch.cuda.max_memory_allocated()
+        rec["b_qwen3"] = _train_run_summary(
+            "phase 13 (b) qwen3-1.7b", [h["step_time_s"] for h in h1[1:] + h2], tokens_b,
+            model.active_params(), launches_b, DENSE_STEPS, peak_b, smi, prof_b)
+        del state
+        t0 = time.perf_counter()
+        tr_back = Trainer(model, TrainConfig(opt=opt, microbatches=2, checkpoint_dir=tmp, log_every=100))
+        back = tr_back.restore(torch.Generator(device=dev).manual_seed(1))
+        restore_s = time.perf_counter() - t0
+        assert int(back.opt.step) == DENSE_CKPT_STEP and back.data_step == DENSE_CKPT_STEP
+        back, hr = tr_back.run(back, pipe, DENSE_STEPS - DENSE_CKPT_STEP, log=False)
+        resumed = [h["loss"] for h in hr]
+        diffs = [abs(a - b) / abs(b) for a, b in zip(resumed, uninterrupted[DENSE_CKPT_STEP:])]
+        print(f"phase 13 (b) resume from step {DENSE_CKPT_STEP} (the save's wait {save_wait_s:.2f} s, "
+              f"restore {restore_s:.2f} s): losses "
+              f"{resumed} against uninterrupted {uninterrupted[DENSE_CKPT_STEP:]}, max rel diff "
+              f"{max(diffs):.3e} (bar {RESUME_RTOL})")
+        assert max(diffs) <= RESUME_RTOL, diffs
+        assert all(np.isfinite(uninterrupted)), uninterrupted
+        rec["b_qwen3"].update(losses=uninterrupted, resumed=resumed, resume_max_rel_diff=max(diffs),
+                              restore_s=restore_s, save_wait_s=save_wait_s)
+        del back, tr, tr_free, tr_back
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["checks"] = checks
+    rec["launches"] = {k: launches_a[k] + launches_e[k] + launches_b[k] for k in launches_a}
+    print(f"phase 13 launches {rec['launches']}")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2755,16 +3191,11 @@ def main() -> int:
     assert tele_launches == {"chunk_replay": 2 * chunks + 1, "ownership_sweep": 2 * chunks,
                              "latency_histogram": 1}, tele_launches
     assert tele["redynis_contention"]["max_load_factor"] > 0
-    # Telemetry's cost on the Redynis run, in turns within this call: phase
-    # 4's run (off) and the run above (on), then off, on, off, on. The loop
-    # is host-bound and the host is shared, so single runs spread widely.
+    # Telemetry's cost on the Redynis run within this call: phase 4's run
+    # (off) against the run above (on). Reduced: the further turns in
+    # alternation (off, on, off, on) are left out for phase 13's time; the
+    # loop is host-bound and single runs spread widely.
     turns = {"off": [full["redynis"]["wall_s"]], "on": [tele["redynis"]["wall_s"]]}
-    for key in ("off", "on", "off", "on"):
-        t0 = time.perf_counter()
-        run_scenario(wl, cl, RedynisPolicy(), daemon_interval=FULL_INTERVAL, trace=trace,
-                     telemetry=tcfg if key == "on" else None)
-        torch.cuda.synchronize()
-        turns[key].append(time.perf_counter() - t0)
     print(f"phase 5 Redynis wall s in turns: telemetry off {turns['off']}, on {turns['on']}")
     record["telemetry_turns_s"] = turns
     for label, name in (("phase 5 telemetry", "redynis"), ("phase 5 contention", "redynis_contention")):
@@ -2786,7 +3217,7 @@ def main() -> int:
     slowdown = float(np.median(turns["on"]) / np.median(turns["off"]))
     print(f"phase 5 launches {tele_launches} (latency_histogram set-up: {tele_setup}), "
           f"max_memory_allocated {tele_mem} bytes; Redynis with "
-          f"telemetry takes {slowdown:.4f}x the wall time without (medians of three turns)")
+          f"telemetry takes {slowdown:.4f}x the wall time without (one turn each)")
     record["telemetry"] = tele
     record["telemetry_launches"] = tele_launches
     record["telemetry_histogram_setup_launches"] = tele_setup
@@ -2938,7 +3369,7 @@ def main() -> int:
 
     # ---- phase 7: serving at qwen3-1.7b full width and depth -------------
     # launch/serve.py's loop: a 16-lane ServeEngine (8,192-slot cache)
-    # behind a 4-pod SessionRouter, 96 requests over 32 Zipf-1.2 sessions,
+    # behind a 4-pod SessionRouter, 64 requests over 32 Zipf-1.2 sessions,
     # prompts of 512-4096 tokens, 64 new tokens each, greedy, pod 3 (the
     # leader) failing half-way. First on the kernel path alone (the main
     # path: launches counted, times taken), then the same stream with the
@@ -3162,11 +3593,18 @@ def main() -> int:
 
     lap("phase 12")
 
+    # ---- phase 13: training through Trainer.run -------------------------
+    record["training"] = _training_phase(torch, dev, out_dir)
+    tr_launches = record["training"]["launches"]
+
+    lap("phase 13")
+
     # ---- phase 9: the kernel record ------------------------------------
     # Launches: the telemetry path's run (phase 5), the routing and fault
     # runs (phase 10), the attribution and streamed runs (phase 11) and the
     # sharded runs (phase 12, summed over the ranks) drive the first three,
-    # the ML-state run (phase 6) the next two, the serving drive (phase 7)
+    # the ML-state run (phase 6) and training (phase 13; its sweeps are
+    # ownership_sweep's too) the next two, the serving drive (phase 7)
     # the two after, phases 11 and 12 the last (a port-only kernel); phase
     # 8's launches of the first three are on a line of their own ("phase 8
     # launches").
@@ -3187,11 +3625,13 @@ def main() -> int:
              source="src/repro_torch/kernels/ownership_sweep/csrc/ownership_sweep.cu",
              replaces="src/repro/kernels/ownership_sweep/kernel.py:38",
              launches=tele_launches["ownership_sweep"] + fr_launches["ownership_sweep"]
-             + as_launches["ownership_sweep"] + sh_launches["ownership_sweep"],
+             + as_launches["ownership_sweep"] + sh_launches["ownership_sweep"]
+             + tr_launches["ownership_sweep"],
              launches_by_phase={"5": tele_launches["ownership_sweep"],
                                 "10": fr_launches["ownership_sweep"],
                                 "11": as_launches["ownership_sweep"],
-                                "12": sh_launches["ownership_sweep"]},
+                                "12": sh_launches["ownership_sweep"],
+                                "13": tr_launches["ownership_sweep"]},
              max_abs_err=err_sweep,
              ms=sweep_ms, plain_ms=sweep_plain,
              bound_ms=sweep_bytes / BW_BYTES_PER_S * 1e3, bound_by="bytes",
@@ -3211,7 +3651,9 @@ def main() -> int:
         dict(name="moe_router", route="cuda",
              source="src/repro_torch/kernels/moe_router/csrc/moe_router.cu",
              replaces="src/repro/kernels/moe_router/kernel.py:28",
-             launches=ml_launches["moe_router"], max_abs_err=err_router,
+             launches=ml_launches["moe_router"] + tr_launches["moe_router"],
+             launches_by_phase={"6": ml_launches["moe_router"], "13": tr_launches["moe_router"]},
+             max_abs_err=err_router,
              ms=router_ms, plain_ms=router_plain, bound_ms=router_bound,
              bound_by="bytes" if router_bytes / BW_BYTES_PER_S >= router_ops / F32_OPS_PER_S
              else "operations",
@@ -3219,7 +3661,9 @@ def main() -> int:
         dict(name="hot_gather", route="cuda",
              source="src/repro_torch/kernels/hot_gather/csrc/hot_gather.cu",
              replaces="src/repro/kernels/hot_gather/kernel.py:34",
-             launches=ml_launches["hot_gather"], max_abs_err=err_gather,
+             launches=ml_launches["hot_gather"] + tr_launches["hot_gather"],
+             launches_by_phase={"6": ml_launches["hot_gather"], "13": tr_launches["hot_gather"]},
+             max_abs_err=err_gather,
              ms=gather_ms, plain_ms=gather_plain, bound_ms=gather_bound, bound_by="bytes",
              library_ms=None),
         dict(name="flash_attention", route="cuda",

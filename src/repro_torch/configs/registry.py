@@ -1,6 +1,7 @@
 """Architecture ids -> ``ModelConfig`` (counterpart of
 ``src/repro/configs/registry.py``). Only the architectures whose layers the
-port runs are listed; any other id of the reference raises."""
+port runs (the dense and MoE families) are listed; any other id of the
+reference raises."""
 
 from __future__ import annotations
 
@@ -10,7 +11,14 @@ from repro_torch.configs.base import ModelConfig
 
 __all__ = ["ARCH_IDS", "get_config"]
 
-_MODULES = {"deepseek-moe-16b": "deepseek_moe_16b", "qwen3-1.7b": "qwen3_1_7b"}
+_MODULES = {
+    "yi-9b": "yi_9b",
+    "qwen3-1.7b": "qwen3_1_7b",
+    "llama3.2-3b": "llama3_2_3b",
+    "mistral-large-123b": "mistral_large_123b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+}
 
 ARCH_IDS = tuple(_MODULES)
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import tree as tree_lib
 from repro_torch.core.expert_placement import ExpertPlacementState
 from repro_torch.core.hot_embedding import HotEmbeddingState
 from repro_torch.core.metadata import MetadataStore
@@ -20,6 +21,8 @@ from repro_torch.kvsim.routing import RoutingConfig
 from repro_torch.kvsim.telemetry import AttributionConfig, FlightRecorderConfig, TelemetryConfig
 from repro_torch.kvsim.workload import Trace
 from repro_torch.models.transformer import KVCache
+from repro_torch.train.optim import OptState
+from repro_torch.train.trainer import TrainState
 
 __all__ = [
     "trace_from_numpy",
@@ -30,6 +33,8 @@ __all__ = [
     "expert_state_from_numpy",
     "hot_embedding_state_from_numpy",
     "kv_cache_from_numpy",
+    "opt_state_from_numpy",
+    "train_state_from_numpy",
 ]
 
 
@@ -148,3 +153,33 @@ def kv_cache_from_numpy(k, v, length, device=None) -> KVCache:
     device = resolve_device(device)
     return KVCache(k=_leaf_from_numpy(k, device), v=_leaf_from_numpy(v, device),
                    length=_t(length, torch.int32, device))
+
+
+def opt_state_from_numpy(m, v, step, device=None) -> OptState:
+    """An ``OptState`` from the reference's (``m`` and ``v`` trees of f32
+    arrays, ``step`` an int32 scalar), e.g. ``jax.tree.map(np.asarray,
+    opt)``'s fields."""
+    device = resolve_device(device)
+    return OptState(m=params_from_numpy(m, device), v=params_from_numpy(v, device),
+                    step=_t(step, torch.int32, device))
+
+
+def train_state_from_numpy(params, opt, expert_placement=None, hot_embed=None, data_step: int = 0,
+                           device=None) -> TrainState:
+    """A ``TrainState`` from the reference's fields as numpy: ``params`` a
+    tree, ``opt`` a ``(m, v, step)`` triple (the reference's ``OptState``
+    fields), ``expert_placement`` and ``hot_embed`` the daemon states'
+    fields in order or ``None``. The params require grad, as
+    ``Trainer.init_state`` makes them."""
+    device = resolve_device(device)
+    tparams = params_from_numpy(params, device)
+    for leaf in tree_lib.leaves(tparams):
+        leaf.requires_grad_(True)
+    return TrainState(
+        params=tparams,
+        opt=opt_state_from_numpy(*opt, device=device),
+        expert_placement=None if expert_placement is None
+        else expert_state_from_numpy(*expert_placement, device=device),
+        hot_embed=None if hot_embed is None else hot_embedding_state_from_numpy(*hot_embed, device=device),
+        data_step=int(data_step),
+    )

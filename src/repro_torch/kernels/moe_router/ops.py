@@ -6,6 +6,12 @@ for CPU tensors it runs the plain version, ``ref.router_ref``. There is no
 fallback from one to the other. ``moe_router.launches`` counts the kernel
 launches.
 
+The gates carry a gradient on both devices through one
+``torch.autograd.Function`` (``_MoeRouter``), as the reference's gates are
+differentiable through ``jax.nn.softmax`` and ``jax.lax.top_k``; ids and
+counts are not differentiable. The backward pass is closed-form torch ops
+(``router_vjp``), since the reference has no backward kernel here either.
+
 The counts come out per group of ``group`` consecutive rows (``[G, E]``,
 what ``models/moe.py::moe_apply`` emits) rather than summed as the
 reference wrapper sums its tiles. The kernel's grid is cut from the rows
@@ -23,7 +29,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.moe_router.ref import router_ref
 
-__all__ = ["moe_router", "lanes_per_row", "vector_io"]
+__all__ = ["moe_router", "router_vjp", "lanes_per_row", "vector_io"]
 
 THREADS = 256  # threads a block (the kernel's kThreads)
 MAX_EXPERTS = 256
@@ -57,21 +63,10 @@ def _sync_for(dev: torch.device, stream: int, words: int) -> torch.Tensor:
     return got
 
 
-def moe_router(logits: torch.Tensor, *, k: int, group: int):
-    """logits ``[T, E]`` f32 -> ``(gates [T, K] f32, ids [T, K] int32,
-    counts [ceil(T / group), E] f32)``."""
-    if logits.dim() != 2:
-        raise ValueError(f"moe_router: logits must be [T, E], got {tuple(logits.shape)}")
+def _launch(logits: torch.Tensor, k: int, group: int):
+    """The kernel on a CUDA tensor (inputs checked, or raises)."""
     t, e = logits.shape
-    if not 1 <= k <= min(e, MAX_K):
-        raise ValueError(f"moe_router: need 1 <= k <= min(E, {MAX_K}), got k={k}, E={e}")
-    if group < 1:
-        raise ValueError(f"moe_router: group={group}; need >= 1")
     dev = logits.device
-    if dev.type == "cpu":
-        return router_ref(logits, k, group)
-    if dev.type != "cuda":
-        raise ValueError(f"moe_router: unsupported device {dev}")
     _build.check_input("moe_router", "logits", logits, torch.float32, (t, e), dev)
     if t == 0:
         raise ValueError("moe_router: needs at least one row")
@@ -94,6 +89,65 @@ def moe_router(logits: torch.Tensor, *, k: int, group: int):
     _build.check(lib, "moe_router", code)
     moe_router.launches += 1
     return gates, ids, counts
+
+
+def router_vjp(logits: torch.Tensor, ids: torch.Tensor, d_gates: torch.Tensor) -> torch.Tensor:
+    """``d logits [T, E]`` from ``d gates [T, K]``, in closed form.
+
+    With ``p = softmax(logits)`` recomputed and ``Z = sum_j p[ids_j]``, the
+    gates are ``p[ids_j] / max(Z, 1e-9)``. So the gradient in ``p[ids_j]``
+    is ``u_j = (dg_j - sum_k dg_k g_k) / Z`` (zero off the picks), or
+    ``dg_j / 1e-9`` where the clamp holds ``Z`` constant; then ``d logits =
+    p * (u - sum_e p_e u_e)``, softmax's own backward."""
+    x = logits.to(torch.float32)
+    p = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    idx = ids.long()
+    picked = p.gather(-1, idx)
+    z = picked.sum(dim=-1, keepdim=True)
+    zc = torch.clamp_min(z, 1e-9)
+    g = picked / zc
+    dg = d_gates.to(torch.float32)
+    free = z > 1e-9  # the clamp passes the gradient through Z
+    u = torch.where(free, (dg - (dg * g).sum(dim=-1, keepdim=True)) / zc, dg / zc)
+    u_full = torch.zeros_like(p).scatter(-1, idx, u)  # the k ids of a row are distinct
+    return p * (u_full - (picked * u).sum(dim=-1, keepdim=True))
+
+
+class _MoeRouter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, k, group):
+        dev = logits.device
+        if dev.type == "cpu":
+            gates, ids, counts = router_ref(logits, k, group)
+        elif dev.type == "cuda":
+            gates, ids, counts = _launch(logits, k, group)
+        else:
+            raise ValueError(f"moe_router: unsupported device {dev}")
+        ctx.save_for_backward(logits, ids)
+        ctx.mark_non_differentiable(ids, counts)
+        return gates, ids, counts
+
+    @staticmethod
+    def backward(ctx, d_gates, _d_ids, _d_counts):
+        logits, ids = ctx.saved_tensors
+        return router_vjp(logits, ids, d_gates), None, None
+
+
+def moe_router(logits: torch.Tensor, *, k: int, group: int):
+    """logits ``[T, E]`` f32 -> ``(gates [T, K] f32, ids [T, K] int32,
+    counts [ceil(T / group), E] f32)``. Differentiable in ``logits``
+    through the gates."""
+    if logits.dim() != 2:
+        raise ValueError(f"moe_router: logits must be [T, E], got {tuple(logits.shape)}")
+    t, e = logits.shape
+    if not 1 <= k <= min(e, MAX_K):
+        raise ValueError(f"moe_router: need 1 <= k <= min(E, {MAX_K}), got k={k}, E={e}")
+    if group < 1:
+        raise ValueError(f"moe_router: group={group}; need >= 1")
+    if logits.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"moe_router: unsupported device {logits.device}")
+    return _MoeRouter.apply(logits, k, group)
 
 
 moe_router.launches = 0

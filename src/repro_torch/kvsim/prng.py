@@ -28,8 +28,9 @@ operation by operation:
   when ``maxval <= minval``), ``uniform`` (``(bits >> 9) |
   0x3F800000`` as f32, minus 1, scaled and shifted in one fused
   multiply-add as XLA contracts it, then the ``max``), ``bernoulli``
-  (``uniform < f32(p)``), ``choice`` with ``p`` (an f32 prefix sum, ``p_cuml[-1]
-  * (1 - uniform)``, a left ``searchsorted``) and ``normal`` (``sqrt(2) *
+  (``uniform < f32(p)``), ``choice`` with ``p`` (an f32 prefix sum in
+  XLA's blocked order, ``p_cuml[-1] * (1 - uniform)``, a left
+  ``searchsorted``) and ``normal`` (``sqrt(2) *
   erf_inv(uniform(nextafter(-1, 0), 1))`` with XLA's f32 ``erf_inv``
   polynomial written out).
 
@@ -58,6 +59,7 @@ __all__ = [
     "bernoulli",
     "randint_params",
     "randint",
+    "xla_cumsum",
     "choice",
     "erf_inv_f32",
     "normal",
@@ -159,20 +161,40 @@ def randint(key, pos: torch.Tensor, minval: int, maxval: int) -> torch.Tensor:
     return (offset + minval).to(torch.int32)
 
 
-def choice(key, num: int, pos: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+def xla_cumsum(p: np.ndarray) -> np.ndarray:
+    """``jnp.cumsum`` of an f32 vector as XLA's CPU program forms it: its
+    reduce-window rewrite cuts the vector into blocks of 16, takes each
+    block's prefix sum left to right, the blocks' totals' prefix sums the
+    same way (recursively), and adds each block's exclusive offset. Up to 16
+    values that is the plain left-to-right sum."""
+    p = np.asarray(p, dtype=np.float32)
+    n = p.shape[0]
+    if n <= 16:
+        return np.cumsum(p, dtype=np.float32)
+    blocks = np.concatenate([p, np.zeros((-n) % 16, np.float32)]).reshape(-1, 16)
+    inner = np.cumsum(blocks, axis=1, dtype=np.float32)
+    outer = xla_cumsum(inner[:, -1])
+    offset = np.concatenate([np.zeros(1, np.float32), outer[:-1]])
+    return (inner + offset[:, None]).astype(np.float32).reshape(-1)[:n]
+
+
+def choice(key, num: int, pos: torch.Tensor, p: torch.Tensor | None = None, *,
+           cuml: torch.Tensor | None = None) -> torch.Tensor:
     """``jax.random.choice(key, num, (n,), p=p)[pos]`` with replacement
-    (int32): the f32 prefix sum of ``p`` added left to right, ``r =
-    p_cuml[-1] * (1 - u)``, the first index with ``p_cuml >= r``."""
-    p = p.to(torch.float32)
-    if p.shape != (num,):
-        raise ValueError(f"choice: p has shape {tuple(p.shape)}, expected ({num},)")
-    terms = [p[0]]
-    for i in range(1, num):
-        terms.append(terms[-1] + p[i])
-    cuml = torch.stack(terms)
+    (int32): the f32 prefix sum of ``p`` as XLA forms it (``xla_cumsum``),
+    ``r = p_cuml[-1] * (1 - u)``, the first index with ``p_cuml >= r``. A
+    caller that draws often passes the prefix sum as ``cuml``."""
+    if cuml is None:
+        p = p.to(torch.float32)
+        if p.shape != (num,):
+            raise ValueError(f"choice: p has shape {tuple(p.shape)}, expected ({num},)")
+        cuml = torch.from_numpy(xla_cumsum(p.cpu().numpy()))
+    elif cuml.shape != (num,):
+        raise ValueError(f"choice: cuml has shape {tuple(cuml.shape)}, expected ({num},)")
     u = uniform_bits(bits(key, pos))
+    cuml = cuml.to(u.device)
     r = cuml[-1] * (torch.ones((), dtype=torch.float32, device=u.device) - u)
-    return torch.searchsorted(cuml.to(u.device), r).to(torch.int32)
+    return torch.searchsorted(cuml, r).to(torch.int32)
 
 
 # XLA's f32 erf_inv (M. Giles' single-precision approximation), coefficients

@@ -1,2 +1,3 @@
-"""Drivers of the port (counterpart of ``src/repro/launch/``): so far the
-serving launcher, ``python -m repro_torch.launch.serve``."""
+"""Drivers of the port (counterpart of ``src/repro/launch/``): the serving
+launcher, ``python -m repro_torch.launch.serve``, and the training driver,
+``python -m repro_torch.launch.train``."""

@@ -1,17 +1,16 @@
-"""The model facade for the serving path (counterpart of
-``src/repro/models/model.py``): one ``Model`` over the decoder-only
-families ``dense`` and ``moe``.
+"""The model facade (counterpart of ``src/repro/models/model.py``): one
+``Model`` over the decoder-only families ``dense`` and ``moe``.
 
   init(gen)                                  — params from a torch.Generator
+  loss(params, batch, dist, hot_ids, hot_embed) — the training objective
   init_state(batch, cache_len)               — zeroed decode state (KVCache)
   prefill(params, batch, dist, cache_len)    — full sequence, builds state
   decode_step(params, state, tokens, dist)   — one new token per sequence
 
 A ``Model`` lives on one device (``device=None`` means CUDA and raises
 without a card; see ``device.resolve_device``). The families ``ssm``,
-``hybrid``, ``audio`` and ``vlm``, the training ``loss`` and quantized
-(int8) params raise ``NotImplementedError`` naming the slice that brings
-them.
+``hybrid``, ``audio`` and ``vlm`` and quantized (int8) params raise
+``NotImplementedError`` naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -20,11 +19,12 @@ from typing import Any
 
 import torch
 
+from repro_torch.core.hot_embedding import embed_with_cache
 from repro_torch.device import resolve_device
-from repro_torch.dist import embed_lookup, unembed_logits
+from repro_torch.dist import embed_lookup, softmax_xent, unembed_logits
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import apply_norm, norm_specs
-from repro_torch.models.params import ParamSpec, embed_init, init_params
+from repro_torch.models.params import ParamSpec, count_params, embed_init, init_params
 
 __all__ = ["Model", "build"]
 
@@ -78,14 +78,58 @@ class Model:
     def _head_table(self, params: dict) -> torch.Tensor:
         return params["embed"] if self.cfg.tie_embeddings else params["head"]
 
-    def embed_tokens(self, params: dict, tokens: torch.Tensor, dist=None) -> torch.Tensor:
-        """tokens ``[B, S]`` -> bf16 rows ``[B, S, D]``. The reference's
-        hot-row cache branch serves its training loss and comes with it."""
+    def num_params(self) -> int:
+        return count_params(self._specs)
+
+    def active_params(self) -> int:
+        """Parameters touched per token (MoE: shared + top_k of routed)."""
+        cfg = self.cfg
+        total = self.num_params()
+        if not cfg.num_experts:
+            return total
+        expert = 3 * cfg.d_model * cfg.d_ff  # one routed expert's FFN
+        return total - cfg.num_layers * (cfg.num_experts - cfg.top_k) * expert
+
+    def embed_tokens(self, params: dict, tokens: torch.Tensor, dist=None,
+                     hot_embed=None) -> torch.Tensor:
+        """tokens ``[B, S]`` -> bf16 rows ``[B, S, D]``. With ``hot_embed``
+        (a ``HotEmbeddingState``) and ``cfg.hot_embed_rows``, the rows come
+        through the Redynis hot-row cache (``embed_with_cache``, the
+        ``hot_gather`` kernel on the card), whose gradient reaches the live
+        table."""
+        if hot_embed is not None and self.cfg.hot_embed_rows:
+            h, _ = embed_with_cache(params["embed"], tokens, hot_embed, dist)
+            return h.to(torch.bfloat16)
         return embed_lookup(params["embed"], tokens, dist).to(torch.bfloat16)
 
     # ------------------------------------------------------------- train
-    def loss(self, *args, **kwargs):
-        raise NotImplementedError("Model.loss is not ported yet: training slice")
+    def loss(self, params: dict, batch: dict, dist=None, hot_ids: torch.Tensor | None = None,
+             hot_embed=None):
+        """Mean next-token cross-entropy (plus the MoE aux loss). batch holds
+        ``tokens`` and ``targets`` ``[B, S]`` (a target below 0 is masked);
+        ``hot_ids [L, R]`` are the expert replica sets, ``hot_embed`` the
+        hot-row cache state. Returns ``(loss, metrics)`` with the
+        reference's keys: ``xent``, ``loss`` and, for MoE, ``moe_counts
+        [L, G, E]``, ``moe_aux``, ``moe_dropped``, ``moe_hot_frac``."""
+        _check_not_quantized(params)
+        cfg = self.cfg
+        tokens, targets = batch["tokens"], batch["targets"]
+        h = self.embed_tokens(params, tokens, dist, hot_embed)
+        h, _, moe_stats = tfm.run_decoder(params["blocks"], h, cfg, dist, mode="train",
+                                          window=cfg.window, attn_chunk=cfg.attn_chunk,
+                                          hot_ids=hot_ids)
+        h = apply_norm(params["ln_f"], h, cfg.norm)
+        mask = targets >= 0
+        xent = softmax_xent(h, self._head_table(params), torch.where(mask, targets, 0), dist,
+                            mask=mask, num_chunks=cfg.xent_chunks, vocab_size=cfg.vocab_size)
+        metrics: dict[str, Any] = {"xent": xent}
+        loss = xent
+        if moe_stats is not None:
+            loss = loss + cfg.moe_aux_weight * moe_stats["aux"]
+            metrics.update(moe_counts=moe_stats["counts"], moe_aux=moe_stats["aux"],
+                           moe_dropped=moe_stats["dropped"], moe_hot_frac=moe_stats["hot_frac"])
+        metrics["loss"] = loss
+        return loss, metrics
 
     # ------------------------------------------------------------- serve
     def init_state(self, batch: int, cache_len: int) -> tfm.KVCache:

@@ -1,6 +1,6 @@
 """Mixture-of-Experts FFN with the Redynis hot-expert replica path
-(counterpart of ``src/repro/models/moe.py``, its ``moe_impl="einsum"``
-path).
+(counterpart of ``src/repro/models/moe.py``, both of its ``moe_impl``
+paths).
 
 GShard-style capacity routing: tokens split into groups of
 ``cfg.moe_group_size``; each (token, top-k slot) assignment takes a
@@ -11,8 +11,13 @@ instead, whose weights are gathered from the live params in the forward
 pass; the cold capacity shrinks to ``cfg.moe_cold_capacity`` of its size.
 
 The router and its ``[G, E]`` counts go through the ``moe_router`` kernel
-on the card. Dispatch, combine and the expert FFNs are one-hot and batched
-matmuls, left to ``torch.einsum`` as the reference leaves them to XLA.
+on the card; its gates carry a gradient (``kernels/moe_router/ops.py``).
+With ``moe_impl="einsum"`` the cold dispatch and combine are one-hot
+matmuls; with ``"sort"`` (``sort_dispatch``, ``sort_combine``) the
+(token, slot) assignments are sorted by expert and their rows scattered
+into the ``[E, G, C, D]`` buffer and gathered back. The expert FFNs are
+batched matmuls. All of it is left to torch ops as the reference leaves it
+to XLA; the hot path is the einsum form in both modes, as there.
 
 ``moe_apply`` takes a params dict with the reference tree's keys
 (``router``, ``w_gate``, ``w_up``, ``w_down``, ``shared``), so reference
@@ -109,6 +114,65 @@ def _dispatch_combine(idx, gate, active, prior, n_targets: int, capacity: int, d
     return disp.to(dtype), gate_ec, prior + oh.sum(dim=1), keep
 
 
+def _flat_rows(index, width: int):
+    """Per-group indices ``[G, N]`` into rows of ``width`` a group, as flat
+    indices into the ``[G * width]`` rows of all groups."""
+    return (index + torch.arange(index.shape[0], device=index.device)[:, None] * width).reshape(-1)
+
+
+def sort_dispatch(xg, idx, gates, active, e: int, capacity: int):
+    """Sort-based dispatch (``moe_impl="sort"``): no ``[G, S, E, C]``
+    one-hot matmuls.
+
+    xg ``[G, S, D]``; idx, gates and active ``[G, S, K]`` (expert, gate and
+    whether to route each (token, slot) assignment here). The assignments
+    of a group, token-major (``s * K + j``), are stably sorted by expert
+    (inactive ones last); an assignment's position in its expert is its
+    rank less its expert's first rank, and past ``capacity`` it is dropped
+    into the extra slot ``E * C``. Returns ``(expert_in [E, G, C, D],
+    src_tok [G, S*K], dest [G, S*K], keep_gates [G, S*K])``; the combine is
+    a segment sum over the same maps (``sort_combine``)."""
+    g, s, k = idx.shape
+    d = xg.shape[-1]
+    dev = xg.device
+    flat_e = torch.where(active, idx, e).reshape(g, s * k).to(torch.int64)  # inactive sorts last
+    sorted_e, order = torch.sort(flat_e, dim=1, stable=True)
+    starts = torch.searchsorted(sorted_e, torch.arange(e, device=dev).expand(g, e).contiguous())
+    pos = torch.arange(s * k, device=dev)[None, :] - starts.gather(1, sorted_e.clamp_max(e - 1))
+    keep = (sorted_e < e) & (pos < capacity)
+    dest = torch.where(keep, sorted_e * capacity + pos, e * capacity)  # the drop slot
+    src_tok = order // k  # token of each sorted assignment
+    rows = xg.gather(1, src_tok[..., None].expand(g, s * k, d))  # [G, S*K, D]
+    slots = e * capacity + 1
+    buf = torch.zeros((g * slots, d), dtype=xg.dtype, device=dev)
+    buf = buf.index_add(0, _flat_rows(dest, slots), rows.reshape(g * s * k, d)).reshape(g, slots, d)
+    expert_in = buf[:, : e * capacity].reshape(g, e, capacity, d).permute(1, 0, 2, 3)
+    sorted_gates = gates.reshape(g, s * k).gather(1, order)
+    keep_gates = torch.where(keep, sorted_gates, torch.zeros((), dtype=gates.dtype, device=dev))
+    return expert_in, src_tok, dest, keep_gates
+
+
+def sort_combine(expert_out, src_tok, dest, s: int):
+    """Gather the (gate-scaled) expert outputs ``[E, G, C, D]`` back to
+    token rows and sum each token's rows: ``[G, S, D]`` in the outputs'
+    dtype. The reference scatter-adds the rows in sorted order, rounding
+    after each add; here each token's K rows are taken in that order (a
+    stable sort of ``src_tok``, where every token appears K times) and
+    added one slot at a time: the same sums, and no atomics on the card."""
+    e, g, c, d = expert_out.shape
+    n = src_tok.shape[1]
+    k = n // s
+    flat = expert_out.permute(1, 0, 2, 3).reshape(g, e * c, d)
+    flat = torch.cat([flat, flat.new_zeros((g, 1, d))], dim=1)
+    contrib = flat.gather(1, dest[..., None].expand(g, n, d))  # [G, S*K, D]
+    by_token = torch.sort(src_tok, dim=1, stable=True).indices  # token-major, sorted order within
+    rows = contrib.gather(1, by_token[..., None].expand(g, n, d)).reshape(g, s, k, d)
+    y = rows[:, :, 0]
+    for j in range(1, k):
+        y = y + rows[:, :, j]
+    return y
+
+
 def _expert_ffn(w_gate, w_up, w_down, x, spec: str, e: str) -> torch.Tensor:
     """Batched swiglu over an explicit expert layout.
 
@@ -145,8 +209,8 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, dist=None, hot_ids: torch.Tensor | 
     """MoE FFN. x ``[B, S, D]``; hot_ids ``[R]`` int32 expert ids in the
     replica cache (-1 empty). Returns ``(y [B, S, D], stats)``."""
     check_local(dist)
-    if cfg.moe_impl != "einsum":
-        raise NotImplementedError(f"moe_impl={cfg.moe_impl!r} is not ported yet; use 'einsum'")
+    if cfg.moe_impl not in ("einsum", "sort"):
+        raise ValueError(f"moe_impl={cfg.moe_impl!r}; expected 'einsum' or 'sort'")
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
     tokens = b * s
@@ -177,12 +241,25 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, dist=None, hot_ids: torch.Tensor | 
 
     # ---- cold path: capacity dispatch over all experts ----
     c_cold = cold_capacity(cfg, group)
-    disp, gate_ec, kept_total = _route(idx, gates, ~is_hot, e, c_cold, xg.dtype)
-    expert_in = torch.einsum("gsec,gsd->egcd", disp, xg)
-    expert_out = _expert_ffn(p["w_gate"], p["w_up"], p["w_down"], expert_in, "egcd", "e")
-    expert_out = expert_out * gate_ec[..., None].to(expert_out.dtype)
-    y = torch.einsum("gsec,egcd->gsd", disp, expert_out)
-    del disp, expert_in, expert_out  # freed before the hot path's buffers are made
+    if cfg.moe_impl == "sort":
+        expert_in, src_tok, dest, keep_gates = sort_dispatch(xg, idx, gates, ~is_hot, e, c_cold)
+        expert_out = _expert_ffn(p["w_gate"], p["w_up"], p["w_down"], expert_in, "egcd", "e")
+        # The gate scaling on the expert side, as on the einsum path.
+        slots = e * c_cold + 1
+        gate_buf = keep_gates.new_zeros(g * slots, dtype=torch.float32).index_add(
+            0, _flat_rows(dest, slots), keep_gates.reshape(-1).to(torch.float32))
+        gate_ec = gate_buf.reshape(g, slots)[:, : e * c_cold].reshape(g, e, c_cold).permute(1, 0, 2)
+        expert_out = expert_out * gate_ec[..., None].to(expert_out.dtype)
+        y = sort_combine(expert_out, src_tok, dest, group)
+        kept_total = (keep_gates.detach() > 0).sum().to(torch.float32)
+        del expert_in, expert_out
+    else:
+        disp, gate_ec, kept_total = _route(idx, gates, ~is_hot, e, c_cold, xg.dtype)
+        expert_in = torch.einsum("gsec,gsd->egcd", disp, xg)
+        expert_out = _expert_ffn(p["w_gate"], p["w_up"], p["w_down"], expert_in, "egcd", "e")
+        expert_out = expert_out * gate_ec[..., None].to(expert_out.dtype)
+        y = torch.einsum("gsec,egcd->gsd", disp, expert_out)
+        del disp, expert_in, expert_out  # freed before the hot path's buffers are made
 
     # ---- hot path: local dispatch against in-forward-gathered replicas ----
     hot_kept = torch.zeros((), dtype=torch.float32, device=x.device)

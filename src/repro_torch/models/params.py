@@ -19,7 +19,8 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["ParamSpec", "dense_init", "embed_init", "zeros_init", "ones_init", "init_params"]
+__all__ = ["ParamSpec", "dense_init", "embed_init", "zeros_init", "ones_init", "init_params",
+           "count_params"]
 
 Init = Callable[[torch.Generator, tuple, torch.dtype, torch.device], torch.Tensor]
 
@@ -81,3 +82,8 @@ def init_params(specs, gen: torch.Generator, device=None) -> dict:
         node[path[-1]] = spec.init(gen, spec.shape, spec.dtype, device)
     return out
 
+
+
+def count_params(specs) -> int:
+    """The number of parameters a ``ParamSpec`` tree declares."""
+    return sum(math.prod(spec.shape) for _, spec in _leaves(specs))

@@ -1,6 +1,11 @@
 """Decoder-only transformer blocks, dense or MoE FFN, GQA (counterpart of
-``src/repro/models/transformer.py``), in two run modes:
+``src/repro/models/transformer.py``), in three run modes:
 
+  * train   — full-sequence attention through ``blockwise_attention`` in
+    torch ops under autograd, as the reference trains; no cache. With
+    ``cfg.remat == "full"`` each layer's body runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), so its
+    kernels run again in the backward pass.
   * prefill — full-sequence attention through the ``flash_attention``
     kernel (where the reference calls ``blockwise_attention``); returns the
     per-layer KV cache.
@@ -10,13 +15,13 @@
 
 Parameters are declared once with a leading ``layers`` dim
 (``stacked_block_specs``) and the reference's ``lax.scan`` over layers is a
-Python loop. Unlike the reference's immutable arrays, the decode step
-writes each layer's new k/v row into the ``[L, B, T, KH, Dh]`` cache in
-place. The reference's ``.at[].set`` drops a write whose slot is past the
-cache (``slot == T`` once an idle lane's length outgrows it); here that row
-writes back the value already there, which is the same result without a
-host sync. ``cross_attn``, ``gelu_mlp`` and remat wait for their families;
-the training mode waits for the training slice.
+Python loop over ``torch.unbind`` views of each stacked leaf, taken once a
+call, so that autograd gives each leaf one stacked gradient. Unlike the
+reference's immutable arrays, the decode step writes each layer's new k/v
+row into the ``[L, B, T, KH, Dh]`` cache in place. The reference's
+``.at[].set`` drops a write whose slot is past the cache (``slot == T``
+once an idle lane's length outgrows it); here that row writes back the
+value already there, which is the same result without a host sync. ``cross_attn`` and ``gelu_mlp`` wait for their families.
 """
 
 from __future__ import annotations
@@ -24,11 +29,13 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.dist import constrain
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_decode.ops import flash_decode
 from repro_torch.models import moe as moe_lib
+from repro_torch.models.attention import blockwise_attention
 from repro_torch.models.layers import apply_norm, norm_specs, rope, swiglu, swiglu_specs
 from repro_torch.models.params import ParamSpec, dense_init, ones_init
 
@@ -94,9 +101,16 @@ def stacked_block_specs(cfg, layers: int | None = None) -> dict:
     return {"attn": attn_specs(cfg, prefix), "mlp": mlp_specs(cfg, prefix)}
 
 
-def _layer(blocks: dict, i: int) -> dict:
-    """Layer ``i``'s params: a view of every stacked leaf."""
-    return {key: _layer(val, i) if isinstance(val, dict) else val[i] for key, val in blocks.items()}
+def _unstack(blocks: dict, layers: int) -> list[dict]:
+    """Every layer's params, each stacked leaf ``torch.unbind`` once: under
+    autograd a leaf then gets one ``[L, ...]`` gradient, not ``L``
+    zero-filled full-size ones (one a ``val[i]``)."""
+    per = [{} for _ in range(layers)]
+    for key, val in blocks.items():
+        parts = _unstack(val, layers) if isinstance(val, dict) else torch.unbind(val)
+        for i in range(layers):
+            per[i][key] = parts[i]
+    return per
 
 
 # ---------------------------------------------------------------------------
@@ -127,15 +141,22 @@ def attn_full(
     dist,
     positions: torch.Tensor,  # [S]
     window: int = 0,
+    chunk: int | None = None,
 ):
-    """Full-sequence causal attention (prefill). Returns ``(y, (k, v))``."""
+    """Full-sequence causal attention. Returns ``(y, (k, v))``. With
+    ``chunk`` (training) through ``blockwise_attention`` in blocks of
+    ``chunk``, as the reference; without (prefill) through the
+    ``flash_attention`` kernel."""
     xn = apply_norm(p["ln"], x, cfg.norm)
     q, k, v = _project_qkv(p, xn, cfg)
     if cfg.pos == "rope":
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     q = constrain(q, dist)
-    o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True, window=window)
+    if chunk is not None:
+        o = blockwise_attention(q, k, v, causal=True, window=window, chunk=chunk)
+    else:
+        o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True, window=window)
     y = torch.einsum("bshk,hkd->bsd", o, p["wo"])
     return x + y, (k, v)
 
@@ -210,36 +231,64 @@ def _reduce_layer_stats(stats: list | None) -> dict | None:
     }
 
 
+def _maybe_remat(fn, cfg):
+    """``fn`` under activation checkpointing when ``cfg.remat == "full"``:
+    its activations are recomputed in the backward pass (the reference's
+    ``jax.checkpoint``)."""
+    if cfg.remat != "full":
+        return fn
+
+    def remat(*args):
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+    return remat
+
+
 def run_decoder(
     blocks: dict,
     h: torch.Tensor,  # [B, S, D] embedded inputs
     cfg,
     dist=None,
     *,
-    mode: str = "prefill",
+    mode: str = "train",
     window: int = 0,
+    attn_chunk: int = 1024,
     hot_ids: torch.Tensor | None = None,  # [L, R] per-layer replica sets
 ):
-    """Run the stacked blocks over ``h``. Returns ``(hidden, cache,
-    moe_stats|None)``; the cache ``[L, B, S, KH, Dh]`` is filled layer by
-    layer in place."""
-    if mode != "prefill":
-        raise NotImplementedError(f"run_decoder mode={mode!r} is not ported yet: training slice")
+    """Run the stacked blocks over ``h``. Returns ``(hidden, cache|None,
+    moe_stats|None)``. ``mode="prefill"`` fills the cache ``[L, B, S, KH,
+    Dh]`` layer by layer in place; ``mode="train"`` collects none and
+    attends blockwise in chunks of ``attn_chunk``."""
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"run_decoder mode={mode!r}; expected 'train' or 'prefill'")
     b, s, _ = h.shape
     positions = torch.arange(s, device=h.device)
     l, kh, dh = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
-    k_all = torch.empty((l, b, s, kh, dh), dtype=h.dtype, device=h.device)
-    v_all = torch.empty_like(k_all)
+    train = mode == "train"
+    if not train:
+        k_all = torch.empty((l, b, s, kh, dh), dtype=h.dtype, device=h.device)
+        v_all = torch.empty_like(k_all)
+    chunk = attn_chunk if train else None
+
+    def body(x, layer, hids):
+        x, (k, v) = attn_full(layer["attn"], x, cfg, dist, positions, window, chunk)
+        x, st = mlp_apply(layer["mlp"], x, cfg, dist, hids)
+        return x, st, (None if train else (k, v))
+
+    if train:
+        body = _maybe_remat(body, cfg)
     stats = []
-    for i in range(l):
-        layer = _layer(blocks, i)
-        h, (k, v) = attn_full(layer["attn"], h, cfg, dist, positions, window)
-        k_all[i], v_all[i] = k, v
-        h, st = mlp_apply(layer["mlp"], h, cfg, dist, None if hot_ids is None else hot_ids[i])
+    for i, layer in enumerate(_unstack(blocks, l)):
+        h, st, kv = body(h, layer, None if hot_ids is None else hot_ids[i])
+        if kv is not None:
+            k_all[i], v_all[i] = kv
         if st is not None:
             stats.append(st)
-    length = torch.full((b,), s, dtype=torch.int32, device=h.device)
-    return h, KVCache(k=k_all, v=v_all, length=length), _reduce_layer_stats(stats)
+    cache = None
+    if not train:
+        length = torch.full((b,), s, dtype=torch.int32, device=h.device)
+        cache = KVCache(k=k_all, v=v_all, length=length)
+    return h, cache, _reduce_layer_stats(stats)
 
 
 def run_decode_step(
@@ -257,8 +306,7 @@ def run_decode_step(
     Returns ``(x, cache, moe_stats|None)``; the cache's tensors are the
     ones passed in, with ``length + 1``."""
     stats = []
-    for i in range(cfg.num_layers):
-        layer = _layer(blocks, i)
+    for i, layer in enumerate(_unstack(blocks, cfg.num_layers)):
         x, _ = attn_decode(layer["attn"], x, cache.k[i], cache.v[i], cache.length, cfg, dist, window)
         y, st = mlp_apply(layer["mlp"], x[:, None, :], cfg, dist,
                           None if hot_ids is None else hot_ids[i])

@@ -3,7 +3,12 @@
 ``.kvsim`` and ``.kernels`` (name by name), but for the exceptions below,
 each with its reason, and the kernel functions shadow their subpackages as
 in the reference while every kernel's ``ops`` and ``ref`` modules stay
-reachable by their paths. ``chunk_latency`` equals the reference's on the
+reachable by their paths. The training slice's modules (``train/*``,
+``data/pipeline``, ``models/*``, ``dist``) export their reference
+module's ``__all__`` with their own listed exceptions; ``repro_torch.models``
+exports ``Model`` and ``build`` as ``repro.models`` does, and
+``repro_torch.train`` and ``.data`` (namespace packages in the reference)
+export their modules' names. ``chunk_latency`` equals the reference's on the
 CPU (exact: the same f32 expressions), and a legacy ``Scenario`` passed as
 a policy raises the reference's message."""
 
@@ -147,3 +152,66 @@ def test_scenario_as_policy_raises_the_reference_message(member, entry):
     with pytest.raises(ValueError, match="legacy scenario") as ref:
         call(jk, jk.Scenario[member])
     assert str(ours.value) == str(ref.value)
+
+
+# The training slice: module by module. Reference names a port module does
+# not export, and port names its reference module does not, each by design.
+MODULE_EXCEPTIONS = {
+    "train.optim": ({}, {}),
+    "train.compress": ({}, {}),
+    "train.checkpoint": ({}, {}),
+    "train.trainer": ({}, {}),
+    "train.fault": ({}, {}),
+    "data.pipeline": ({}, {}),
+    "models.model": ({}, {}),
+    "models.moe": ({}, {"MoE": "a thin nn.Module over one layer's params dict, for PyTorch callers"}),
+    "models.attention": ({}, {"NEG_INF": "the mask value, shared with the kernels' plain versions"}),
+    "models.transformer": (
+        {"init_cache_specs": "ShapeDtypeStruct caches belong to the dry-run and sharding slice "
+                             "(ROADMAP item 15.5); Model.init_state makes the cache"},
+        {name: "a layer function the reference keeps public but out of __all__"
+         for name in ("attn_decode", "attn_full", "attn_specs", "mlp_apply", "mlp_specs",
+                      "run_decode_step")}),
+    "models.params": (
+        {"abstract_params": "the dry-run and sharding slice (ROADMAP item 15.5)",
+         "partition_specs": "the dry-run and sharding slice (ROADMAP item 15.5)"}, {}),
+    "dist": (
+        {"DistSpec": "the mesh part of dist.py, after the sharding slice (ROADMAP item 15.5)",
+         "local_dist": "the mesh part of dist.py, after the sharding slice (ROADMAP item 15.5)"},
+        {"check_local": "the one-device guard every model entry point runs on its dist argument"}),
+}
+
+
+@pytest.mark.parametrize("module", list(MODULE_EXCEPTIONS))
+def test_training_slice_modules_export_the_references_names(module):
+    ref = importlib.import_module(f"repro.{module}")
+    port = importlib.import_module(f"repro_torch.{module}")
+    not_ported, port_only = MODULE_EXCEPTIONS[module]
+    want, got = set(ref.__all__), set(port.__all__)
+    assert want - got == set(not_ported), module
+    assert got - want == set(port_only), module
+    for name in want & got:
+        mine, theirs = getattr(port, name), getattr(ref, name)
+        assert inspect.isclass(mine) == inspect.isclass(theirs), (module, name)
+        assert callable(mine) == callable(theirs), (module, name)
+    for name in not_ported:
+        assert not hasattr(port, name), (module, name)
+
+
+def test_training_slice_packages():
+    import repro.models
+    import repro_torch.data
+    import repro_torch.data.pipeline
+    import repro_torch.models
+    import repro_torch.train
+
+    assert repro_torch.models.__all__ == ["Model", "build"]
+    assert repro_torch.models.Model is importlib.import_module("repro_torch.models.model").Model
+    assert {"Model", "build"} <= set(dir(repro.models))
+    assert repro_torch.data.__all__ == repro_torch.data.pipeline.__all__
+    for name in repro_torch.data.__all__:
+        assert getattr(repro_torch.data, name) is getattr(repro_torch.data.pipeline, name)
+    modules = [importlib.import_module(f"repro_torch.train.{m}") for m in ("optim", "trainer", "fault")]
+    assert set(repro_torch.train.__all__) == {n for m in modules for n in m.__all__}
+    for name in repro_torch.train.__all__:
+        assert any(getattr(m, name, None) is getattr(repro_torch.train, name) for m in modules), name

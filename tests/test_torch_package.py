@@ -688,6 +688,26 @@ def test_moe_router_kernel_matches_plain_version(cuda, t, e, k, group):
     assert float(counts.sum()) == t * k
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,e,k", [(512, 64, 6), (300, 32, 8), (1024, 8, 8)])
+def test_moe_router_gates_carry_the_gradient_on_the_card(cuda, t, e, k):
+    """The kernel's gates through the wrapper's ``autograd.Function``: the
+    closed-form backward equals autograd through the plain version on the
+    same logits (f32 sums in another order: rtol 1e-5)."""
+    from repro_torch.kernels.moe_router.ops import moe_router
+    from repro_torch.kernels.moe_router.ref import router_ref
+
+    rng = np.random.default_rng(t + k)
+    x = torch.from_numpy(rng.standard_normal((t, e)).astype(np.float32)).to(cuda)
+    dg = torch.from_numpy(rng.standard_normal((t, k)).astype(np.float32)).to(cuda)
+    a, b = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    gates, ids, _ = moe_router(a, k=k, group=t)
+    assert gates.requires_grad and not ids.requires_grad
+    (gates * dg).sum().backward()
+    (router_ref(b, k, t)[0] * dg).sum().backward()
+    torch.testing.assert_close(a.grad, b.grad, rtol=1e-5, atol=1e-6)
+
+
 def _replay_inputs(b, k, n, device, seed):
     """A random map (a tenth of the keys with no replica), requests, a
     random RTT matrix of whole ms with a zero diagonal, and extra_ms."""
@@ -874,12 +894,14 @@ def test_model_families_of_later_slices_raise(family, what):
 
 
 def test_model_loss_and_quantized_params_raise():
+    # Model.loss is ported (tests/test_torch_trainer.py); quantized params
+    # raise in it as in prefill.
     model = Model(reduced(get_config("qwen3-1.7b")), "cpu")
     params = model.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="training"):
-        model.loss(params, {})
     params["embed"] = {"q": params["embed"].to(torch.int8), "s": torch.ones(1)}
     tokens = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="quantized"):
+        model.loss(params, {"tokens": tokens, "targets": tokens})
     with pytest.raises(NotImplementedError, match="quantized"):
         model.prefill(params, {"tokens": tokens})
 
