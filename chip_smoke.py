@@ -17,8 +17,9 @@ steps of 32,768 Zipf tokens through the hot-row embedding cache and 4
 full-width MoE layers, both placement daemons folded every step and swept
 every 50, held every step against the same steps through the plain
 versions. Phase 7 serves qwen3-1.7b at full width and all 28 layers through
-``launch/serve.py``'s loop (a 16-lane ``ServeEngine`` with an 8,192-slot
-cache behind a 4-pod ``SessionRouter`` whose leader fails half-way), first
+``launch/serve.py``'s loop (32 requests to a 16-lane ``ServeEngine`` with
+an 8,192-slot cache behind a 4-pod ``SessionRouter`` whose leader fails
+half-way), first
 on the kernel path alone with its launches counted, then with every
 prefill's and every 8th decode step's attention held against the plain
 versions beside a teacher-forced plain-version engine. Phase 8 runs the
@@ -67,7 +68,14 @@ plain daemons fed the same traffic), and qwen3-1.7b at full width and depth
 through a checkpoint at step 3 and a resume that replays steps 4-6; steps 1
 and 11 of the first and step 1 of the second are held against the kernels'
 plain versions (the loss, every gradient, and the router weights' gradient
-against the aux term's alone). Every phase raises on a mismatch
+against the aux term's alone). Phase 14 serves the four other families
+through ``ServeEngine`` behind the router: rwkv6-1.6b, recurrentgemma-2b and
+whisper-base at full width and depth, llava-next-34b at full width and 30
+of its 60 layers; rwkv6-1.6b is held against the CPU port and its chunked
+form against its step form, the others' attention against the plain
+versions beside a teacher-forced plain engine, and llava-next-34b's int8
+decode against its bf16 decode and against the plain versions. Every phase
+raises on a mismatch
 and prints its duration; the script exits non-zero without a CUDA device
 or outside a checkout. The last line of its output is the JSON device
 record.
@@ -146,8 +154,9 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_REL_L2, TRAIN_ROUTER_NOT_AUX = 1e-3, 5e-2, 0.1
 RESUME_RTOL = 1e-4
 SERVE_ARCH = "qwen3-1.7b"  # full width and all 28 layers
 SERVE_LANES, SERVE_CACHE = 16, 8192
-# reduced: 96 -> 64 requests, for phase 13's time
-SERVE_REQUESTS, SERVE_SESSIONS, SERVE_PODS = 64, 32, 4
+# reduced: 96 -> 64 requests (for phase 13's time) -> 32 over 16 sessions
+# (for phase 14's; its lockstep with the plain versions took 73 of 110 s)
+SERVE_REQUESTS, SERVE_SESSIONS, SERVE_PODS = 32, 16, 4
 SERVE_PROMPT = (512, 4096)  # prompt lengths, uniform, inclusive
 SERVE_MAX_NEW = 64
 SERVE_FAIL_POD = 3  # the first leader (the highest id), killed half-way
@@ -158,6 +167,55 @@ SERVE_CHECK_EVERY = 8  # decode steps between kernel-against-plain checks
 # LOGIT_TOL.
 LOGIT_TOL = 0.125
 SERVE_PREFILL_LENS = (512, 1024, 2048, 3001, 4096)
+# Phase 14: the four families of the serving slice through ServeEngine
+# behind SessionRouter (Zipf sessions, 4 pods, the leader failing half-way),
+# each at full width; rwkv6-1.6b, recurrentgemma-2b and whisper-base at full
+# depth. Reduced: llava-next-34b 60 -> 30 layers (its bf16 params at 30
+# layers are 35.3 GB and their int8 copy 17.7 GB, both beside the caches for
+# the int8 comparison; 60 layers in bf16 alone are 68.8 GB); every drive
+# 16 requests over 8 sessions (llava-next-34b 8 over 4, on 2 lanes) where
+# phase 7 serves 64 over 32, for the script's time limit. An RWKV-6 prompt of
+# 32 tokens or more must be a multiple of 32 (the reference asserts it), so
+# its lengths are drawn in steps of 32. ``cache`` is the KV cache's slots:
+# recurrentgemma-2b's attention keeps rings of its 2,048-token window and
+# rwkv6-1.6b keeps no cache, so both ignore it.
+FAMILY_LAYERS = {"llava-next-34b": 30}
+FAMILY_DRIVES = {
+    "rwkv6-1.6b": dict(lanes=8, cache=0, requests=16, sessions=8, prompt_len=(256, 2048),
+                       prompt_step=32, max_new=32),
+    "recurrentgemma-2b": dict(lanes=8, cache=0, requests=16, sessions=8, prompt_len=(512, 4096),
+                              prompt_step=1, max_new=64),
+    "whisper-base": dict(lanes=8, cache=512, requests=16, sessions=8, prompt_len=(64, 448),
+                         prompt_step=1, max_new=64),
+    "llava-next-34b": dict(lanes=2, cache=4096, requests=8, sessions=4, prompt_len=512,
+                           prompt_step=1, max_new=32),
+}
+# The lockstep's logit bar, LOGIT_TOL but where a card run read more (an
+# NVIDIA H100 80GB HBM3 at 700 W), each of the family's attention calls within the
+# kernels' own bars: recurrentgemma-2b, whose RG-LRU layers carry a token's
+# bf16 difference to every later token, read 0.135 at its first prefill and
+# 0.175 over a whole drive; llava-next-34b, whose logits spread 1.9 times
+# qwen3-1.7b's (a 7,168-wide embedding at the same 0.02 scale) over 30
+# layers, read 0.261 at its first prefill of 3,392 positions. qwen3-1.7b
+# reads 0.0949 over 28 layers.
+FAMILY_LOGIT_TOL = {"recurrentgemma-2b": 0.25, "llava-next-34b": 0.5}
+# (a) rwkv6-1.6b against the CPU port: full width, 2 layers (cut for the CPU's
+# time only), a 64-token prompt and 8 decode steps, logits at LOGIT_TOL and
+# the state within CPU_STATE_REL_L2 relative L2 (bf16 on both sides, each
+# device's own roundings); at full depth, in f32, the chunked form over 96
+# tokens against 64 tokens and 32 steps of the step form: each state tensor
+# and the last output within WKV_REL_L2 relative L2: two orders of the same
+# f32 recurrence, whose exp of a chunk's log-decay sum (up to 32 in size at
+# the init's decay) carries a relative rounding of |sum| x 2**-24 into every
+# key and state, through 24 layers of random weights (1.2e-4 on an NVIDIA
+# H100 80GB HBM3; an error of the chunked form would be of order 1).
+RWKV_CPU_LAYERS, RWKV_CPU_PROMPT, RWKV_CPU_STEPS = 2, 64, 8
+CPU_STATE_REL_L2, WKV_REL_L2 = 0.05, 1e-3
+# (d) llava-next-34b int8: 16 decode steps with bf16 and with int8 params
+# from one bf16 prefill state (the int8 run teacher-forced with the bf16
+# run's tokens), held at tests/test_beyond_paper.py's bar; then 16 int8 steps
+# with the kernels against the plain versions.
+INT8_STEPS, INT8_REL_BAR = 16, 0.2
 # tests/test_kernels.py's attention shapes: (b, s, t, h, kh, dh, causal, window).
 ATTN_CASES = [(2, 256, 256, 4, 2, 64, True, 0), (1, 128, 128, 8, 1, 128, True, 0),
               (2, 256, 256, 4, 4, 32, True, 64), (1, 128, 384, 4, 2, 64, False, 0),
@@ -868,26 +926,41 @@ def _attention_versions(attention, decode):
         tfm.flash_attention, tfm.flash_decode = saved
 
 
-def _serve_engines(torch, dev, model, params):
-    """A ``ServeEngine`` with its ``SessionRouter`` at the serving drive's
-    sizes (the router's store on the card)."""
+# Phase 7's drive; phase 14 passes its own, key for key.
+SERVE_DRIVE = dict(lanes=SERVE_LANES, cache=SERVE_CACHE, requests=SERVE_REQUESTS,
+                   sessions=SERVE_SESSIONS, prompt_len=SERVE_PROMPT, prompt_step=1,
+                   max_new=SERVE_MAX_NEW)
+
+
+def _serve_engines(torch, dev, model, params, drive=SERVE_DRIVE):
+    """A ``ServeEngine`` with its ``SessionRouter`` at ``drive``'s sizes
+    (the router's store on the card)."""
     from repro_torch.serving import ServeEngine, SessionRouter
     from repro_torch.serving.kvcache import state_bytes
 
-    engine = ServeEngine(model, params, num_lanes=SERVE_LANES, cache_len=SERVE_CACHE)
-    router = SessionRouter(num_pods=SERVE_PODS, max_sessions=2 * SERVE_SESSIONS, sweep_period=16,
-                           session_bytes=state_bytes(engine.state) / SERVE_LANES, device=dev)
+    engine = ServeEngine(model, params, num_lanes=drive["lanes"], cache_len=drive["cache"])
+    router = SessionRouter(num_pods=SERVE_PODS, max_sessions=2 * drive["sessions"], sweep_period=16,
+                           session_bytes=state_bytes(engine.state) / drive["lanes"], device=dev)
     return engine, router
 
 
-def _serve_drive(torch, dev, model, params, seed: int = 0, log=print) -> dict:
-    """``launch/serve.py``'s loop on the kernel path, at the serving
-    drive's sizes, a pod failing half-way. Each prefill and each decode
-    step is timed on the host clock; both end in a readback of the sampled
-    tokens, so the card is done when the clock stops."""
+def _serve_loop(engine, router, model, drive, seed: int = 0, log=print) -> float:
+    """``launch/serve.py``'s loop over ``drive``'s stream, a pod failing
+    half-way."""
     from repro_torch.launch.serve import serve_loop
 
-    engine, router = _serve_engines(torch, dev, model, params)
+    return serve_loop(engine, router, np.random.default_rng(seed), requests=drive["requests"],
+                      sessions=drive["sessions"], pods=SERVE_PODS, prompt_len=drive["prompt_len"],
+                      prompt_step=drive["prompt_step"], max_new=drive["max_new"],
+                      vocab_size=model.cfg.vocab_size, fail_pod=SERVE_FAIL_POD, log=log)
+
+
+def _serve_drive(torch, dev, model, params, seed: int = 0, log=print, drive=SERVE_DRIVE) -> dict:
+    """``launch/serve.py``'s loop on the kernel path, at ``drive``'s sizes,
+    a pod failing half-way. Each prefill and each decode step is timed on
+    the host clock; both end in a readback of the sampled tokens, so the
+    card is done when the clock stops."""
+    engine, router = _serve_engines(torch, dev, model, params, drive)
     prefills, steps = [], []
     admit, step = engine.admit, engine.step
 
@@ -899,7 +972,8 @@ def _serve_drive(torch, dev, model, params, seed: int = 0, log=print) -> dict:
         return lane
 
     def timed_step():
-        lengths = engine.state.length.clone()
+        length = getattr(engine.state, "length", None)  # RWKV's state has none
+        lengths = None if length is None else length.clone()
         t0 = time.perf_counter()
         out = step()
         if out:
@@ -907,10 +981,7 @@ def _serve_drive(torch, dev, model, params, seed: int = 0, log=print) -> dict:
         return out
 
     engine.admit, engine.step = timed_admit, timed_step
-    wall = serve_loop(engine, router, np.random.default_rng(seed), requests=SERVE_REQUESTS,
-                      sessions=SERVE_SESSIONS, pods=SERVE_PODS, prompt_len=SERVE_PROMPT,
-                      max_new=SERVE_MAX_NEW, vocab_size=model.cfg.vocab_size,
-                      fail_pod=SERVE_FAIL_POD, log=log)
+    wall = _serve_loop(engine, router, model, drive, seed, log)
     return dict(engine=engine, router=router, wall_s=wall, prefills=prefills, steps=steps)
 
 
@@ -938,7 +1009,7 @@ class _Lockstep:
     against the plain version on the same inputs in every layer of every
     prefill and of every ``SERVE_CHECK_EVERY``-th decode step."""
 
-    def __init__(self, torch, eng, plain):
+    def __init__(self, torch, eng, plain, tol: float = LOGIT_TOL):
         from repro_torch.kernels.flash_attention.ops import flash_attention
         from repro_torch.kernels.flash_attention.ref import flash_attention_ref
         from repro_torch.kernels.flash_decode.ops import flash_decode
@@ -989,9 +1060,9 @@ class _Lockstep:
             margin = top2[:, 0] - top2[:, 1]
             differ = ptokens != ktokens
             assert bool(torch.isfinite(klogits).all())
-            assert diff <= LOGIT_TOL, f"logits differ by {diff}, beyond {LOGIT_TOL}"
+            assert diff <= tol, f"logits differ by {diff}, beyond {tol}"
             widest = float(margin[differ].max()) if bool(differ.any()) else 0.0
-            assert widest <= LOGIT_TOL, f"a greedy token differs at a top-2 margin of {widest}"
+            assert widest <= tol, f"a greedy token differs at a top-2 margin of {widest}"
             stats["samples"] += 1
             stats["tokens"] += int(ktokens.numel())
             stats["near_ties"] += int(differ.sum())
@@ -2594,6 +2665,382 @@ def _training_phase(torch, dev, out_dir) -> dict:
     return rec
 
 
+def _family_batch(torch, cfg, tokens):
+    """A prefill batch for ``tokens [B, S]``: with zero patch embeddings
+    (vlm) or zero frames (audio), as ``ServeEngine.admit`` passes them."""
+    batch = {"tokens": tokens}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.zeros((tokens.shape[0], cfg.num_patches, cfg.d_model),
+                                       dtype=torch.bfloat16, device=tokens.device)
+    if cfg.family == "audio":
+        batch["frames"] = torch.zeros((tokens.shape[0], cfg.num_frames, cfg.d_model),
+                                      dtype=torch.bfloat16, device=tokens.device)
+    return batch
+
+
+def _family_attention_launches(cfg) -> tuple[int, int]:
+    """Kernel launches of one prefill (``flash_attention``) and of one
+    decode step (``flash_decode``) on the serving path."""
+    from repro_torch.models.rglru import layer_kinds
+
+    if cfg.family == "ssm":
+        return 0, 0
+    if cfg.family == "hybrid":
+        n = layer_kinds(cfg).count("attn")
+        return n, n
+    if cfg.family == "audio":  # encoder; decoder self and cross attention
+        return cfg.encoder_layers + 2 * cfg.num_layers, 2 * cfg.num_layers
+    return cfg.num_layers, cfg.num_layers
+
+
+def _near_tie_check(torch, got, want, bar: float, ctx: str) -> tuple[float, int]:
+    """``got`` logits against ``want`` within ``bar``; a greedy token may
+    differ only where ``want``'s top-2 margin is at most ``bar``. Returns
+    the largest difference and the count of differing tokens."""
+    got, want = got.float().cpu(), want.float().cpu()
+    diff = float((got - want).abs().max())
+    assert bool(torch.isfinite(got).all()), ctx
+    assert diff <= bar, f"{ctx}: logits differ by {diff}, beyond {bar}"
+    top2 = torch.topk(want, 2, dim=-1).values
+    differ = got.argmax(-1) != want.argmax(-1)
+    widest = float((top2[:, 0] - top2[:, 1])[differ].max()) if bool(differ.any()) else 0.0
+    assert widest <= bar, f"{ctx}: a greedy token differs at a top-2 margin of {widest}"
+    return diff, int(differ.sum())
+
+
+def _rwkv_checks(torch, dev, cfg, model, params) -> dict:
+    """(a)'s holds: the card against the CPU port at full width and
+    RWKV_CPU_LAYERS layers, and at full depth the chunked form (a 96-token
+    prefill) against the step form (64 tokens, then 32 teacher-forced
+    decode steps)."""
+    import dataclasses
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.models import rwkv6
+    from repro_torch.models.model import Model
+
+    out = {}
+    t0 = time.perf_counter()
+    small = dataclasses.replace(cfg, num_layers=RWKV_CPU_LAYERS)
+    mk, mc = Model(small, dev), Model(small, "cpu")
+    pk = mk.init(torch.Generator(device=dev).manual_seed(1))
+    pc = tree_lib.tree_map(lambda t: t.cpu(), pk)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab_size, (1, RWKV_CPU_PROMPT))
+                            .astype(np.int32))
+    lk, sk = mk.prefill(pk, {"tokens": toks.to(dev)})
+    lc, sc = mc.prefill(pc, {"tokens": toks})
+    worst, ties = _near_tie_check(torch, lk, lc, LOGIT_TOL, "rwkv card against CPU, prefill")
+    for i in range(RWKV_CPU_STEPS):
+        tok = lk.argmax(-1).to(torch.int32)
+        lk, sk = mk.decode_step(pk, sk, tok)
+        lc, sc = mc.decode_step(pc, sc, tok.cpu())
+        d, n = _near_tie_check(torch, lk, lc, LOGIT_TOL, f"rwkv card against CPU, step {i + 1}")
+        worst, ties = max(worst, d), ties + n
+    state_err = max(_rel_l2(a.cpu(), b) for a, b in zip(sk, sc))
+    assert state_err <= CPU_STATE_REL_L2, state_err
+    out["card_vs_cpu"] = dict(layers=RWKV_CPU_LAYERS, prompt=RWKV_CPU_PROMPT, steps=RWKV_CPU_STEPS,
+                              max_logit_diff=worst, near_tie_tokens=ties, state_rel_l2=state_err,
+                              wall_s=time.perf_counter() - t0)
+    del mk, pk, pc, sk, sc
+    # Chunked against step form at full depth and width, in f32 (the
+    # blocks' params and the embedded rows), so that the two orders of the
+    # same recurrence are held tightly: in bf16, 24 layers of random weights
+    # carry the forms' bf16 roundings to a state relative L2 of 0.08-0.11
+    # (on an NVIDIA H100 80GB HBM3).
+    blocks = tree_lib.tree_map(lambda t: t.float(), params["blocks"])
+    prompt = torch.from_numpy(np.random.default_rng(6).integers(0, cfg.vocab_size, (1, 96))
+                              .astype(np.int32)).to(dev)
+    h = params["embed"][prompt.long()].float()  # [1, 96, D]
+    h96, s96 = rwkv6.rwkv_forward(blocks, h, cfg)
+    _, st = rwkv6.rwkv_forward(blocks, h[:, :64], cfg)
+    for t in range(64, 96):
+        y, st = rwkv6.rwkv_decode_step(blocks, h[:, t], cfg, st)
+    rels = {name: _rel_l2(getattr(st, name), getattr(s96, name)) for name in st._fields}
+    rels["output"] = _rel_l2(y, h96[:, -1])
+    assert max(rels.values()) <= WKV_REL_L2, rels
+    out["chunked_vs_step"] = dict(rel_l2=rels)
+    del blocks, h, h96, s96, st
+    print(f"phase 14 rwkv6-1.6b (a) card against the CPU port ({RWKV_CPU_LAYERS} layers, full width, "
+          f"{RWKV_CPU_PROMPT}-token prompt, {RWKV_CPU_STEPS} steps): max logit difference {worst} "
+          f"(bar {LOGIT_TOL}), near-tie tokens {ties}, state relative L2 {state_err}; chunked (96 tokens) "
+          f"against step form (64 + 32 decode steps) in f32 at full depth: relative L2 {rels} "
+          f"(bar {WKV_REL_L2})")
+    return out
+
+
+def _ring_kernel_times(torch, dev, cfg, lanes: int) -> dict:
+    """recurrentgemma-2b's attention kernels at its shapes: the mma.sync
+    flash_attention over a 4,096-token prefill with the 2,048 window (q [1,
+    4096, 10, 256], k/v [1, 4096, 1, 256]) beside SDPA with the window's mask
+    and ``enable_gqa``, and flash_decode over ``lanes`` full 2,048-slot rings
+    (one kv head) beside masked SDPA; each with its bound."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    h, kh, dh, win, n = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.window, 4096
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn(sh, generator=gen, device=dev).to(torch.bfloat16)
+               for sh in ((1, n, h, dh), (1, n, kh, dh), (1, n, kh, dh)))
+    assert fa_ops.variant(q.dtype, dh) == "mma_sync"
+    flops, nbytes = _attention_flops_bytes(1, n, n, h, kh, dh, True, win)
+    bound = max(flops / BF16_OPS_PER_S, nbytes / BW_BYTES_PER_S) * 1e3
+    ms = _device_ms(lambda: fa_ops._launch(q, k, v, True, win), torch, reps=5, iters=20)
+    plain = _device_ms(lambda: flash_attention_ref(q, k, v, causal=True, window=win), torch, reps=3, iters=3)
+    pos = torch.arange(n, device=dev)
+    mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < win)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib = _device_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True), torch, reps=5, iters=20)
+    err, _ = _check_close(torch, fa_ops._launch(q, k, v, True, win), flash_attention_ref(q, k, v, causal=True,
+                          window=win), q.dtype, "recurrentgemma prefill attention")
+    attn = dict(ms=ms, plain_ms=plain, sdpa_ms=lib, bound_ms=bound, max_abs_err=err,
+                bound_by="operations" if flops / BF16_OPS_PER_S >= nbytes / BW_BYTES_PER_S else "bytes",
+                tflops=flops / ms / 1e9)
+    del q, k, v, qt, kt, vt, mask
+    dq = torch.randn((lanes, h, dh), generator=gen, device=dev).to(torch.bfloat16)
+    kc, vc = (torch.randn((lanes, win, kh, dh), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    lens = torch.full((lanes,), win, dtype=torch.int32, device=dev)
+    dms = _device_ms(lambda: flash_decode(dq, kc, vc, lens), torch)
+    dplain = _device_ms(lambda: flash_decode_ref(dq, kc, vc, lens), torch, reps=3, iters=10)
+    kct, vct = (x.transpose(1, 2).contiguous() for x in (kc, vc))
+    dmask = torch.ones((lanes, 1, 1, win), dtype=torch.bool, device=dev)
+    dlib = _device_ms(lambda: sdpa(dq[:, :, None], kct, vct, attn_mask=dmask, enable_gqa=True), torch)
+    derr, _ = _check_close(torch, flash_decode(dq, kc, vc, lens), flash_decode_ref(dq, kc, vc, lens),
+                           dq.dtype, "recurrentgemma ring decode")
+    dbytes = lanes * win * kh * dh * 2 * 2 + 2 * lanes * h * dh * 2 + lanes * 4
+    dflops = 4 * lanes * win * h * dh
+    dbound = max(dbytes / BW_BYTES_PER_S, dflops / BF16_OPS_PER_S) * 1e3
+    decode = dict(ms=dms, plain_ms=dplain, sdpa_ms=dlib, bound_ms=dbound, max_abs_err=derr,
+                  bound_by="bytes" if dbytes / BW_BYTES_PER_S >= dflops / BF16_OPS_PER_S else "operations",
+                  gbs=dbytes / dms / 1e6)
+    print(f"phase 14 flash_attention mma_sync (q [1, {n}, {h}, {dh}], k/v [1, {n}, {kh}, {dh}], window {win}): "
+          f"kernel {ms:.4f} ms ({attn['tflops']:.1f} TFLOP/s, {bound / ms:.3f} of the {attn['bound_by']} bound "
+          f"{bound:.4f} ms), plain {plain:.4f} ms, SDPA with the window's mask {lib:.4f} ms")
+    print(f"phase 14 flash_decode ({lanes} lanes over {win}-slot rings, {kh} kv head, D {dh}): kernel "
+          f"{dms:.4f} ms ({decode['gbs']:.1f} GB/s, {dbound / dms:.3f} of the {decode['bound_by']} bound "
+          f"{dbound:.4f} ms), plain {dplain:.4f} ms, masked SDPA {dlib:.4f} ms")
+    return dict(attention=attn, decode=decode)
+
+
+def _int8_check(torch, dev, cfg, model, params, drive) -> dict:
+    """(d)'s int8 decode: from one bf16 prefill state (a 512-token prompt
+    after the zero patches), INT8_STEPS steps with the bf16 params (greedy)
+    and, in turns with each, one with ``quantize_tree(params)`` fed the bf16
+    run's token and one more with the int8 params through the kernels'
+    plain versions. Each run starts from its own clone of the state (the
+    decode step writes the cache in place)."""
+    from repro_torch import quant
+    from repro_torch import tree as tree_lib
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+
+    tol = FAMILY_LOGIT_TOL.get(cfg.name, LOGIT_TOL)
+    toks = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab_size, (1, drive["prompt_len"]))
+                            .astype(np.int32)).to(dev)
+    logits0, state0 = model.prefill(params, _family_batch(torch, cfg, toks), cache_len=drive["cache"])
+    t0 = time.perf_counter()
+    qparams = quant.quantize_tree(params)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    bf16_bytes = sum(t.numel() * t.element_size() for t in tree_lib.leaves(params))
+    int8_bytes = sum(t.numel() * t.element_size() for t in tree_lib.leaves(qparams))
+
+    def clone(st):
+        return st._replace(k=st.k.clone(), v=st.v.clone(), length=st.length.clone())
+
+    sb, sq, sp = clone(state0), clone(state0), clone(state0)
+    del state0
+    tok = logits0.argmax(-1).to(torch.int32)
+    bf16_ms, int8_ms, rels, plain_err, plain_ties = [], [], [], 0.0, 0
+    step1 = None
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    for i in range(INT8_STEPS):
+        (lb, sb), ms_b = timed(lambda: model.decode_step(params, sb, tok))
+        (lq, sq), ms_q = timed(lambda: model.decode_step(qparams, sq, tok))
+        with _attention_versions(flash_attention_ref, flash_decode_ref):
+            lp, sp = model.decode_step(qparams, sp, tok)
+        bf16_ms.append(ms_b)
+        int8_ms.append(ms_q)
+        diff = float((lq - lb).abs().max())
+        rel = diff / float(lb.abs().max())
+        rels.append(rel)
+        assert rel < INT8_REL_BAR, f"int8 step {i + 1}: max|dlogits| / max|logits| = {rel}"
+        if i == 0:  # the reference's bar: the same greedy token unless a near tie
+            top2 = torch.topk(lb.float(), 2, dim=-1).values
+            margin = float(top2[0, 0] - top2[0, 1])
+            same = bool((lq.argmax(-1) == lb.argmax(-1)).all())
+            assert same or margin <= 2 * diff, (margin, diff)
+            step1 = dict(same_token=same, bf16_margin=margin, max_diff=diff, rel=rel)
+        d, n = _near_tie_check(torch, lq, lp, tol, f"int8 kernels against plain, step {i + 1}")
+        plain_err, plain_ties = max(plain_err, d), plain_ties + n
+        tok = lb.argmax(-1).to(torch.int32)
+    out = dict(steps=INT8_STEPS, quantize_s=quant_s, bf16_weight_bytes=bf16_bytes, int8_weight_bytes=int8_bytes,
+               bf16_step_ms_median=float(np.median(bf16_ms)), int8_step_ms_median=float(np.median(int8_ms)),
+               bf16_step_ms=bf16_ms, int8_step_ms=int8_ms, rel_max=max(rels), step1=step1,
+               int8_kernel_vs_plain_max_diff=plain_err, int8_kernel_vs_plain_near_ties=plain_ties)
+    print(f"phase 14 llava-next-34b int8: quantize_tree {quant_s:.2f} s; weights {bf16_bytes} bytes in bf16, "
+          f"{int8_bytes} in int8 ({int8_bytes / bf16_bytes:.4f}); decode step median bf16 "
+          f"{out['bf16_step_ms_median']:.3f} ms, int8 {out['int8_step_ms_median']:.3f} ms "
+          f"({out['int8_step_ms_median'] / out['bf16_step_ms_median']:.3f} x); step 1 {step1}; "
+          f"max|dlogits|/max|logits| over {INT8_STEPS} steps {max(rels):.4f} (bar {INT8_REL_BAR}); "
+          f"int8 kernels against plain versions: max logit difference {plain_err} (bar {tol}), "
+          f"near-tie tokens {plain_ties}")
+    del qparams, sb, sq, sp
+    return out
+
+
+def _families_phase(torch, dev, out_dir) -> dict:
+    """Phase 14: every family of the serving slice through ``ServeEngine``
+    behind ``SessionRouter`` (FAMILY_DRIVES), each on the kernel path alone
+    first (launches counted and asserted; prefill latency by prompt length,
+    decode-step times, one profiled decode step, peak memory, the router's
+    stats), then held: rwkv6-1.6b against the CPU port and its chunked form
+    against its step form (``_rwkv_checks``); the others in lockstep with a
+    teacher-forced plain-version engine, their attention against the plain
+    versions in every layer of every prefill and every SERVE_CHECK_EVERY-th
+    decode step; llava-next-34b's int8 decode (``_int8_check``)."""
+    import dataclasses
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.kernels.ownership_sweep.ops import ownership_sweep
+    from repro_torch.models.model import Model
+
+    kernels = (flash_attention, flash_decode, ownership_sweep)
+    smi = _smi()
+    rec: dict = {"card": smi, "families": {}}
+    launches = dict.fromkeys((fn.__name__ for fn in kernels), 0)
+    variants = dict.fromkeys(fa_ops.VARIANTS, 0)
+    errs = dict(flash_attention=0.0, flash_decode=0.0)
+    for arch, drive in FAMILY_DRIVES.items():
+        t_arch = time.perf_counter()
+        cfg = get_config(arch)
+        if arch in FAMILY_LAYERS:
+            cfg = dataclasses.replace(cfg, num_layers=FAMILY_LAYERS[arch])
+        model = Model(cfg, dev)
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        pbytes = sum(t.numel() * t.element_size() for t in tree_lib.leaves(params))
+        print(f"phase 14 {arch} ({cfg.family}, {cfg.num_layers} layers): {model.num_params()} parameters "
+              f"({pbytes} bytes), initialised in {time.perf_counter() - t0:.2f} s")
+        # Warm-up outside the counts: one prefill and one decode step.
+        lo = drive["prompt_len"] if isinstance(drive["prompt_len"], int) else drive["prompt_len"][0]
+        wtok = torch.randint(0, cfg.vocab_size, (1, lo), device=dev, dtype=torch.int32)
+        model.prefill(params, _family_batch(torch, cfg, wtok), cache_len=drive["cache"])
+        warm = model.init_state(drive["lanes"], max(drive["cache"], 1))
+        model.decode_step(params, warm, torch.zeros(drive["lanes"], dtype=torch.int32, device=dev))
+        torch.cuda.synchronize()
+        del warm
+        for fn in kernels:
+            fn.launches = 0
+        flash_attention.launches_by_variant = dict.fromkeys(fa_ops.VARIANTS, 0)
+        torch.cuda.reset_peak_memory_stats()
+        run = _serve_drive(torch, dev, model, params, drive=drive, log=lambda m: print(f"phase 14 {arch} {m}"))
+        got = {fn.__name__: fn.launches for fn in kernels}
+        var = dict(flash_attention.launches_by_variant)
+        peak = torch.cuda.max_memory_allocated()
+        eng, router = run["engine"], run["router"]
+        n_prefill, n_steps = len(run["prefills"]), eng.steps
+        sweeps = router.tick_count // router.daemon.period
+        per_prefill, per_step = _family_attention_launches(cfg)
+        want = {"flash_attention": per_prefill * n_prefill, "flash_decode": per_step * n_steps,
+                "ownership_sweep": sweeps}
+        assert got == want, (arch, got, want)
+        kind = fa_ops.variant(torch.bfloat16, cfg.resolved_head_dim)
+        assert var == {v: (want["flash_attention"] if v == kind else 0) for v in fa_ops.VARIANTS}, (arch, var)
+        assert router.stats["elections"] == 1 and router.leader != SERVE_FAIL_POD, router.stats
+        outs = [o for o in eng.outputs.values() if o]
+        assert outs and all(0 <= t < cfg.vocab_size for o in outs for t in o)
+        for name in launches:
+            launches[name] += got[name]
+        for name in variants:
+            variants[name] += var[name]
+        step_ms = np.asarray([m for m, _, _ in run["steps"]])
+        decode_tokens = sum(n for _, n, _ in run["steps"])
+        fam = dict(family=cfg.family, layers=cfg.num_layers, params=model.num_params(), param_bytes=pbytes,
+                   drive=drive, wall_s=run["wall_s"], tokens_out=eng.tokens_out,
+                   tokens_per_s=eng.tokens_out / run["wall_s"], prefills=run["prefills"],
+                   decode_steps=n_steps, decode_step_ms_median=float(np.median(step_ms)),
+                   decode_step_ms_min=float(step_ms.min()), decode_step_ms_max=float(step_ms.max()),
+                   decode_tokens_per_s=decode_tokens / (step_ms.sum() / 1e3), peak_bytes=peak,
+                   state_bytes=eng.cache_bytes(), router=dict(router.stats), hit_rate=router.hit_rate(),
+                   leader=router.leader, sweeps=sweeps, launches=got, attention_launches_by_variant=var)
+        print(f"phase 14 {arch} serve: {eng.tokens_out} tokens in {run['wall_s']:.3f} s "
+              f"({fam['tokens_per_s']:.1f} tok/s end to end); {n_prefill} prefills; {n_steps} decode steps, "
+              f"median {fam['decode_step_ms_median']:.3f} ms (min {fam['decode_step_ms_min']:.3f}, max "
+              f"{fam['decode_step_ms_max']:.3f}), {fam['decode_tokens_per_s']:.1f} decode tok/s; peak device "
+              f"memory {peak} bytes (decode state {fam['state_bytes']})")
+        print(f"phase 14 {arch} prefill ms by prompt length: " + ", ".join(
+            f"{n}:{m:.2f}" for n, m in sorted(run["prefills"])))
+        print(f"phase 14 {arch} router: hit_rate {router.hit_rate():.4f}, migrations "
+              f"{router.stats['migrations']}, migrated {router.stats['migrated_bytes']:.0f} bytes, elections "
+              f"{router.stats['elections']}, leader {router.leader}, sweeps {sweeps}; launches {got}; "
+              f"flash_attention by variant {var}")
+        fam["decode_profile"] = _profile_steps(
+            torch, lambda: model.decode_step(params, eng.state, eng.last_token), 3, out_dir,
+            f"phase 14 {arch} decode", unprofiled_ms=fam["decode_step_ms_median"])
+        del eng, router, run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        if cfg.family == "ssm":
+            fam["checks"] = _rwkv_checks(torch, dev, cfg, model, params)
+        else:
+            t0 = time.perf_counter()
+            keng, krouter = _serve_engines(torch, dev, model, params, drive)
+            peng, _ = _serve_engines(torch, dev, model, params, drive)
+            tol = FAMILY_LOGIT_TOL.get(arch, LOGIT_TOL)
+            lock = _Lockstep(torch, keng, peng, tol)
+            _serve_loop(lock, krouter, model, drive, log=lambda m: None)
+            st = lock.stats
+            assert st["attn_checks"] == per_prefill * n_prefill and keng.steps == n_steps, (st, keng.steps)
+            assert st["decode_checks"] == per_step * len(range(0, n_steps, SERVE_CHECK_EVERY)), st
+            assert keng.outputs == peng.outputs and dict(krouter.stats) == fam["router"]
+            errs["flash_attention"] = max(errs["flash_attention"], st["attn_err"])
+            errs["flash_decode"] = max(errs["flash_decode"], st["decode_err"])
+            fam["check"] = {k: v for k, v in st.items() if k != "check_decode"}
+            fam["check"]["wall_s"] = time.perf_counter() - t0
+            print(f"phase 14 {arch} ok: kernels against plain versions in every layer of {n_prefill} prefills "
+                  f"(max_abs_err {st['attn_err']}, scaled bar used {st['attn_bar_use']:.4f}) and of "
+                  f"{st['decode_checks'] // max(per_step, 1)} decode steps (max_abs_err {st['decode_err']}, "
+                  f"scaled bar used {st['decode_bar_use']:.4f}); teacher-forced plain engine over "
+                  f"{st['samples']} sampling calls: max logit difference {st['logit_err']} (bar {tol}), "
+                  f"near-tie tokens {st['near_ties']} (widest top-2 margin {st['widest_tie']}) "
+                  f"({fam['check']['wall_s']:.1f} s)")
+            del lock, keng, krouter, peng
+            gc.collect()
+            torch.cuda.empty_cache()
+        if cfg.family == "hybrid":
+            fam["kernels"] = _ring_kernel_times(torch, dev, cfg, drive["lanes"])
+            rec["ring_kernels"] = fam["kernels"]
+        if cfg.family == "vlm":
+            fam["int8"] = _int8_check(torch, dev, cfg, model, params, drive)
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        fam["phase_s"] = time.perf_counter() - t_arch
+        print(f"phase 14 {arch} took {fam['phase_s']:.1f} s; {torch.cuda.memory_allocated()} bytes still allocated")
+        rec["families"][arch] = fam
+    rec["launches"] = launches
+    rec["variants"] = variants
+    rec["errors"] = errs
+    print(f"phase 14 launches {launches}; flash_attention by variant {variants}")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -3369,7 +3816,7 @@ def main() -> int:
 
     # ---- phase 7: serving at qwen3-1.7b full width and depth -------------
     # launch/serve.py's loop: a 16-lane ServeEngine (8,192-slot cache)
-    # behind a 4-pod SessionRouter, 64 requests over 32 Zipf-1.2 sessions,
+    # behind a 4-pod SessionRouter, 32 requests over 16 Zipf-1.2 sessions,
     # prompts of 512-4096 tokens, 64 new tokens each, greedy, pod 3 (the
     # leader) failing half-way. First on the kernel path alone (the main
     # path: launches counted, times taken), then the same stream with the
@@ -3480,12 +3927,7 @@ def main() -> int:
     keng, krouter = _serve_engines(torch, dev, smodel, sparams)
     peng, _ = _serve_engines(torch, dev, smodel, sparams)
     lock = _Lockstep(torch, keng, peng)
-    from repro_torch.launch.serve import serve_loop
-
-    serve_loop(lock, krouter, np.random.default_rng(0), requests=SERVE_REQUESTS,
-               sessions=SERVE_SESSIONS, pods=SERVE_PODS, prompt_len=SERVE_PROMPT,
-               max_new=SERVE_MAX_NEW, vocab_size=scfg.vocab_size, fail_pod=SERVE_FAIL_POD,
-               log=lambda m: None)
+    _serve_loop(lock, krouter, smodel, SERVE_DRIVE, log=lambda m: None)
     st = lock.stats
     assert st["attn_checks"] == layers * n_prefill and keng.steps == n_steps, (st, keng.steps)
     assert st["decode_checks"] == layers * len(range(0, n_steps, SERVE_CHECK_EVERY)), st
@@ -3599,6 +4041,17 @@ def main() -> int:
 
     lap("phase 13")
 
+    # ---- phase 14: every remaining family through ServeEngine, int8 decode --
+    record["families"] = _families_phase(torch, dev, out_dir)
+    fm_launches = record["families"]["launches"]
+    fm_errs = record["families"]["errors"]
+    ring = record["families"]["ring_kernels"]
+    err_fa = max(err_fa, fm_errs["flash_attention"], ring["attention"]["max_abs_err"])
+    err_fd = max(err_fd, fm_errs["flash_decode"], ring["decode"]["max_abs_err"])
+    attn_variants = {k: attn_variants[k] + record["families"]["variants"][k] for k in attn_variants}
+
+    lap("phase 14")
+
     # ---- phase 9: the kernel record ------------------------------------
     # Launches: the telemetry path's run (phase 5), the routing and fault
     # runs (phase 10), the attribution and streamed runs (phase 11) and the
@@ -3626,12 +4079,15 @@ def main() -> int:
              replaces="src/repro/kernels/ownership_sweep/kernel.py:38",
              launches=tele_launches["ownership_sweep"] + fr_launches["ownership_sweep"]
              + as_launches["ownership_sweep"] + sh_launches["ownership_sweep"]
-             + tr_launches["ownership_sweep"],
+             + tr_launches["ownership_sweep"] + serve_launches["ownership_sweep"]
+             + fm_launches["ownership_sweep"],
              launches_by_phase={"5": tele_launches["ownership_sweep"],
+                                "7": serve_launches["ownership_sweep"],
                                 "10": fr_launches["ownership_sweep"],
                                 "11": as_launches["ownership_sweep"],
                                 "12": sh_launches["ownership_sweep"],
-                                "13": tr_launches["ownership_sweep"]},
+                                "13": tr_launches["ownership_sweep"],
+                                "14": fm_launches["ownership_sweep"]},
              max_abs_err=err_sweep,
              ms=sweep_ms, plain_ms=sweep_plain,
              bound_ms=sweep_bytes / BW_BYTES_PER_S * 1e3, bound_by="bytes",
@@ -3669,18 +4125,22 @@ def main() -> int:
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:31",
-             launches=serve_launches["flash_attention"], max_abs_err=err_fa,
+             launches=serve_launches["flash_attention"] + fm_launches["flash_attention"],
+             launches_by_phase={"7": serve_launches["flash_attention"], "14": fm_launches["flash_attention"]},
+             max_abs_err=err_fa,
              variant={k: v for k, v in attn_variants.items() if v},
              ms=fa_ms, plain_ms=fa_plain, bound_ms=fa_bound,
              bound_by="operations" if fa_flops / BF16_OPS_PER_S >= fa_bytes / BW_BYTES_PER_S else "bytes",
-             library_ms=fa_lib),
+             library_ms=fa_lib, mma_sync_ring=ring["attention"]),
         dict(name="flash_decode", route="cuda",
              source="src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
              replaces="src/repro/kernels/flash_decode/kernel.py:29",
-             launches=serve_launches["flash_decode"], max_abs_err=err_fd,
+             launches=serve_launches["flash_decode"] + fm_launches["flash_decode"],
+             launches_by_phase={"7": serve_launches["flash_decode"], "14": fm_launches["flash_decode"]},
+             max_abs_err=err_fd,
              ms=fd_ms, plain_ms=fd_plain, bound_ms=fd_bound,
              bound_by="bytes" if fd_bytes / BW_BYTES_PER_S >= fd_flops / BF16_OPS_PER_S else "operations",
-             library_ms=fd_lib),
+             library_ms=fd_lib, ring=ring["decode"]),
         dict(name="trace_window", route="cuda",
              source="src/repro_torch/kernels/trace_window/csrc/trace_window.cu",
              replaces="none: port-only (the reference draws traces with jax.random in XLA, "

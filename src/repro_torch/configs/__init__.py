@@ -1,6 +1,6 @@
 """Model configurations (counterpart of ``src/repro/configs/``): the
 ``ModelConfig`` dataclass, ``reduced`` for CPU-sized copies, and
-``get_config`` for the architectures this port has."""
+``get_config`` for the reference's ten architectures."""
 
 from repro_torch.configs.base import ModelConfig, reduced
 from repro_torch.configs.registry import ARCH_IDS, get_config

@@ -1,7 +1,7 @@
 """Architecture ids -> ``ModelConfig`` (counterpart of
-``src/repro/configs/registry.py``). Only the architectures whose layers the
-port runs (the dense and MoE families) are listed; any other id of the
-reference raises."""
+``src/repro/configs/registry.py``): the reference's ten ids in its order.
+The shape cells (``get_shape``, ``cells``) belong to the launch layer's
+dry run, which is not ported yet."""
 
 from __future__ import annotations
 
@@ -16,6 +16,10 @@ _MODULES = {
     "qwen3-1.7b": "qwen3_1_7b",
     "llama3.2-3b": "llama3_2_3b",
     "mistral-large-123b": "mistral_large_123b",
+    "rwkv6-1.6b": "rwkv6_1_6b",
+    "llava-next-34b": "llava_next_34b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "whisper-base": "whisper_base",
     "deepseek-moe-16b": "deepseek_moe_16b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
 }
@@ -25,5 +29,5 @@ ARCH_IDS = tuple(_MODULES)
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in _MODULES:
-        raise KeyError(f"arch {arch!r} is not ported; ported: {sorted(_MODULES)}")
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}").CONFIG

@@ -20,6 +20,9 @@ from repro_torch.kvsim.faults import FaultConfig, FaultEvent
 from repro_torch.kvsim.routing import RoutingConfig
 from repro_torch.kvsim.telemetry import AttributionConfig, FlightRecorderConfig, TelemetryConfig
 from repro_torch.kvsim.workload import Trace
+from repro_torch.models.encdec import EncDecState
+from repro_torch.models.rglru import RGLRUState
+from repro_torch.models.rwkv6 import RWKVState
 from repro_torch.models.transformer import KVCache
 from repro_torch.train.optim import OptState
 from repro_torch.train.trainer import TrainState
@@ -33,6 +36,9 @@ __all__ = [
     "expert_state_from_numpy",
     "hot_embedding_state_from_numpy",
     "kv_cache_from_numpy",
+    "rwkv_state_from_numpy",
+    "rglru_state_from_numpy",
+    "encdec_state_from_numpy",
     "opt_state_from_numpy",
     "train_state_from_numpy",
 ]
@@ -114,13 +120,16 @@ def _leaf_from_numpy(a, device: torch.device) -> torch.Tensor:
 
 
 def params_from_numpy(tree, device=None):
-    """A reference params tree (nested dicts of arrays, e.g.
-    ``jax.tree.map(np.asarray, params)``) as torch tensors with the same
-    keys and dtypes on ``device`` (``None`` means CUDA). bf16 leaves carry
-    across bit for bit."""
+    """A reference params tree (nested dicts and lists of arrays, e.g.
+    ``jax.tree.map(np.asarray, params)``; rglru keeps per-layer lists) as
+    torch tensors with the same structure and dtypes on ``device``
+    (``None`` means CUDA). bf16 leaves carry across bit for bit; an int8
+    tree's ``{"q", "s"}`` leaves carry across as such."""
     device = resolve_device(device)
     if isinstance(tree, dict):
         return {key: params_from_numpy(val, device) for key, val in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_numpy(val, device) for val in tree)
     return _leaf_from_numpy(tree, device)
 
 
@@ -153,6 +162,35 @@ def kv_cache_from_numpy(k, v, length, device=None) -> KVCache:
     device = resolve_device(device)
     return KVCache(k=_leaf_from_numpy(k, device), v=_leaf_from_numpy(v, device),
                    length=_t(length, torch.int32, device))
+
+
+def rwkv_state_from_numpy(x_tm, x_cm, wkv, device=None) -> RWKVState:
+    """An ``RWKVState`` from the reference's three arrays (``x_tm``, ``x_cm``
+    ``[L, B, D]`` bf16 bit for bit, ``wkv [L, B, H, Dh, Dh]`` f32)."""
+    device = resolve_device(device)
+    return RWKVState(x_tm=_leaf_from_numpy(x_tm, device), x_cm=_leaf_from_numpy(x_cm, device),
+                     wkv=_t(wkv, torch.float32, device))
+
+
+def rglru_state_from_numpy(conv, h, caches, length, device=None) -> RGLRUState:
+    """An ``RGLRUState`` from the reference's fields: the per-recurrent-layer
+    lists ``conv`` (bf16) and ``h`` (f32), the per-attention-layer list of
+    ``(k, v)`` ring buffers (bf16) and ``length [B]`` int32."""
+    device = resolve_device(device)
+    return RGLRUState(
+        conv=[_leaf_from_numpy(c, device) for c in conv],
+        h=[_t(x, torch.float32, device) for x in h],
+        caches=[(_leaf_from_numpy(k, device), _leaf_from_numpy(v, device)) for k, v in caches],
+        length=_t(length, torch.int32, device),
+    )
+
+
+def encdec_state_from_numpy(self_k, self_v, cross_k, cross_v, length, device=None) -> EncDecState:
+    """An ``EncDecState`` from the reference's five arrays (the caches ``[L,
+    B, ., KH, Dh]`` bf16 bit for bit, ``length [B]`` int32)."""
+    device = resolve_device(device)
+    return EncDecState(*(_leaf_from_numpy(a, device) for a in (self_k, self_v, cross_k, cross_v)),
+                       length=_t(length, torch.int32, device))
 
 
 def opt_state_from_numpy(m, v, step, device=None) -> OptState:

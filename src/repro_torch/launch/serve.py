@@ -1,7 +1,8 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id>``
 (counterpart of ``src/repro/launch/serve.py``).
 
-Spins up a batched decode engine on the reduced config, drives it with a
+Spins up a batched decode engine on the reduced config of any of the
+reference's ten architectures (``--arch``), drives it with a
 Zipf stream of session requests through the Redynis session router (the
 paper's workload, serving flavour), and reports throughput and the
 router's local-hit rate and migration volume. ``--fail-pod`` kills a pod
@@ -28,13 +29,15 @@ __all__ = ["serve_loop", "main"]
 
 def serve_loop(engine, router, rng: np.random.Generator, *, requests: int, sessions: int,
                pods: int, prompt_len, max_new: int, vocab_size: int, fail_pod: int = -1,
-               log=print) -> float:
+               prompt_step: int = 1, log=print) -> float:
     """The launcher's loop: each request picks a session by Zipf-1.2
     popularity from its home pod ``i % pods``, is routed, is prefilled into
     a lane unless its session holds one, and every request advances the
     engine one step and the router one tick. ``prompt_len`` is a length or
-    an inclusive ``(lo, hi)`` range drawn uniformly per prompt. Ends with
-    ``run_to_completion``; returns the wall seconds (the card is
+    an inclusive ``(lo, hi)`` range drawn uniformly per prompt, in steps of
+    ``prompt_step`` from ``lo`` (an RWKV-6 prompt of 32 tokens or more must
+    be a multiple of 32: pass ``lo`` a multiple of 32 and a step of 32).
+    Ends with ``run_to_completion``; returns the wall seconds (the card is
     synchronised first)."""
     home = {f"s{i}": i % pods for i in range(sessions)}
     ranks = np.arange(1, sessions + 1, dtype=np.float64) ** -1.2
@@ -44,7 +47,11 @@ def serve_loop(engine, router, rng: np.random.Generator, *, requests: int, sessi
         sid = f"s{rng.choice(sessions, p=popularity)}"
         router.route(sid, home[sid])
         if engine.lanes.lookup(sid) is None:
-            n = prompt_len if isinstance(prompt_len, int) else int(rng.integers(prompt_len[0], prompt_len[1] + 1))
+            if isinstance(prompt_len, int):
+                n = prompt_len
+            else:
+                lo, hi = prompt_len
+                n = lo + prompt_step * int(rng.integers(0, (hi - lo) // prompt_step + 1))
             prompt = rng.integers(0, vocab_size, n)
             engine.admit(Request(session=sid, tokens=prompt, max_new=max_new))
         engine.step()

@@ -1,8 +1,9 @@
 """Shared layers (counterpart of ``src/repro/models/layers.py``): norms,
-RoPE and the swiglu FFN. Norm and rotary math run in f32 and round to the
-input's dtype, as the reference's do; the matmuls are left to
-``torch.einsum`` as the reference leaves them to XLA. ``gelu_mlp`` waits
-for the families that use it."""
+RoPE, the swiglu FFN and the GELU MLP (with biases, Whisper's). Norm,
+rotary and activation math run in f32 and round to the input's dtype, as
+the reference's do; the matmuls are left to ``torch.einsum`` as the
+reference leaves them to XLA. ``jax.nn.gelu`` defaults to its tanh form,
+so the port's GELU is ``F.gelu(..., approximate="tanh")``."""
 
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.params import ParamSpec, dense_init, ones_init, zeros_init
 
-__all__ = ["rmsnorm", "layernorm", "norm_specs", "apply_norm", "rope", "swiglu", "swiglu_specs"]
+__all__ = ["rmsnorm", "layernorm", "norm_specs", "apply_norm", "rope", "swiglu_specs", "swiglu",
+           "gelu_mlp_specs", "gelu_mlp"]
 
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -74,3 +76,23 @@ def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
     up = torch.einsum("bsd,df->bsf", x, p["w_up"])
     hidden = F.silu(gate.float()).to(x.dtype) * up
     return torch.einsum("bsf,fd->bsd", hidden, p["w_down"])
+
+
+def gelu_mlp_specs(d_model: int, d_ff: int, prefix: tuple = ()) -> dict:
+    ps = tuple(s for s, _ in prefix)
+    return {
+        "w_in": ParamSpec(ps + (d_model, d_ff), dense_init(d_model)),
+        "b_in": ParamSpec(ps + (d_ff,), zeros_init),
+        "w_out": ParamSpec(ps + (d_ff, d_model), dense_init(d_ff)),
+        "b_out": ParamSpec(ps + (d_model,), zeros_init),
+    }
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default (tanh) form on f32, rounded to x's dtype."""
+    return F.gelu(x.float(), approximate="tanh").to(x.dtype)
+
+
+def gelu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    h = torch.einsum("bsd,df->bsf", x, p["w_in"]) + p["b_in"].to(x.dtype)
+    return torch.einsum("bsf,fd->bsd", gelu(h), p["w_out"]) + p["b_out"].to(x.dtype)

@@ -1,16 +1,26 @@
 """The model facade (counterpart of ``src/repro/models/model.py``): one
-``Model`` over the decoder-only families ``dense`` and ``moe``.
+``Model`` over the six block families.
+
+  dense | moe | vlm  -> the decoder-only transformer (GQA; the MoE FFN when
+                        cfg.num_experts; vlm prepends stub patch embeddings)
+  ssm                -> the RWKV-6 stack (attention-free)
+  hybrid             -> the RecurrentGemma stack (RG-LRU and local attention)
+  audio              -> the Whisper encoder-decoder (stub frame embeddings)
 
   init(gen)                                  — params from a torch.Generator
   loss(params, batch, dist, hot_ids, hot_embed) — the training objective
-  init_state(batch, cache_len)               — zeroed decode state (KVCache)
+  init_state(batch, cache_len)               — zeroed decode state
   prefill(params, batch, dist, cache_len)    — full sequence, builds state
   decode_step(params, state, tokens, dist)   — one new token per sequence
 
 A ``Model`` lives on one device (``device=None`` means CUDA and raises
-without a card; see ``device.resolve_device``). The families ``ssm``,
-``hybrid``, ``audio`` and ``vlm`` and quantized (int8) params raise
-``NotImplementedError`` naming the slice that brings them.
+without a card; see ``device.resolve_device``). ``loss`` of the ``ssm``,
+``hybrid``, ``audio`` and ``vlm`` families raises ``NotImplementedError``
+naming the slice that trains them. int8 params (``repro_torch.quant``) are
+taken where the reference takes them, by ``decode_step`` of ``dense``,
+``moe`` and ``vlm``: ``embed`` and ``head`` are dequantized once a step,
+the blocks a layer at a time. ``prefill`` and ``loss`` raise on them, and so
+does the decode step of the other families, as the reference fails there.
 """
 
 from __future__ import annotations
@@ -22,37 +32,37 @@ import torch
 from repro_torch.core.hot_embedding import embed_with_cache
 from repro_torch.device import resolve_device
 from repro_torch.dist import embed_lookup, softmax_xent, unembed_logits
+from repro_torch.models import encdec, rglru, rwkv6
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import apply_norm, norm_specs
 from repro_torch.models.params import ParamSpec, count_params, embed_init, init_params
+from repro_torch.quant import dequant_leaf, has_quantized
 
 __all__ = ["Model", "build"]
 
-FAMILIES = ("dense", "moe")
-_LATER = {
-    "ssm": "the RWKV-6 slice",
-    "hybrid": "the RecurrentGemma slice",
-    "audio": "the encoder-decoder slice",
-    "vlm": "the vision-language slice",
+DECODER_FAMILIES = ("dense", "moe", "vlm")
+FAMILIES = DECODER_FAMILIES + ("ssm", "hybrid", "audio")
+_UNTRAINED = {
+    "ssm": "RWKV-6",
+    "hybrid": "RecurrentGemma",
+    "audio": "the Whisper encoder-decoder",
+    "vlm": "the LLaVA vision-language model",
 }
 
 
-def _check_not_quantized(tree, path: str = "params") -> None:
-    """Raise on an int8 leaf of the reference's ``repro/quant.py`` form
-    (a ``{"q", "s"}`` dict)."""
-    if isinstance(tree, dict):
-        if set(tree) == {"q", "s"}:
-            raise NotImplementedError(
-                f"quantized params ({path}) are not ported yet: quantized-serving slice")
-        for key, val in tree.items():
-            _check_not_quantized(val, f"{path}.{key}")
+def _check_not_quantized(tree, where: str) -> None:
+    """Raise on an int8 leaf of the reference's ``repro/quant.py`` form (a
+    ``{"q", "s"}`` dict) where the reference takes none."""
+    if has_quantized(tree):
+        raise NotImplementedError(
+            f"quantized params are not taken by {where}: as in the reference (src/repro/quant.py), "
+            "int8 params serve Model.decode_step of the dense, moe and vlm families only")
 
 
 class Model:
     def __init__(self, cfg, device=None):
         if cfg.family not in FAMILIES:
-            later = _LATER.get(cfg.family, "a later slice")
-            raise NotImplementedError(f"family {cfg.family!r} is not ported yet: {later}")
+            raise ValueError(f"unknown family {cfg.family!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self._specs = self._build_specs()
@@ -64,11 +74,22 @@ class Model:
         specs: dict[str, Any] = {
             "embed": ParamSpec((v, d), embed_init(0.02)),
             "ln_f": norm_specs(d, cfg.norm),
-            "blocks": tfm.stacked_block_specs(cfg),
         }
         if not cfg.tie_embeddings:
             specs["head"] = ParamSpec((v, d), embed_init(0.02))
+        fam = cfg.family
+        if fam in DECODER_FAMILIES:
+            specs["blocks"] = tfm.stacked_block_specs(cfg)
+        elif fam == "ssm":
+            specs["blocks"] = rwkv6.rwkv_block_specs(cfg)
+        elif fam == "hybrid":
+            specs["blocks"] = rglru.rglru_block_specs(cfg)
+        else:
+            specs["blocks"] = encdec.encdec_specs(cfg)
         return specs
+
+    def param_specs(self) -> dict:
+        return self._specs
 
     def init(self, gen: torch.Generator) -> dict:
         """Params on the model's device; ``gen`` must live there too."""
@@ -92,15 +113,21 @@ class Model:
 
     def embed_tokens(self, params: dict, tokens: torch.Tensor, dist=None,
                      hot_embed=None) -> torch.Tensor:
-        """tokens ``[B, S]`` -> bf16 rows ``[B, S, D]``. With ``hot_embed``
-        (a ``HotEmbeddingState``) and ``cfg.hot_embed_rows``, the rows come
+        """tokens ``[B, S]`` -> bf16 rows ``[B, S, D]``, with the sinusoidal
+        positions added where ``cfg.pos`` says so. With ``hot_embed`` (a
+        ``HotEmbeddingState``) and ``cfg.hot_embed_rows``, the rows come
         through the Redynis hot-row cache (``embed_with_cache``, the
         ``hot_gather`` kernel on the card), whose gradient reaches the live
         table."""
         if hot_embed is not None and self.cfg.hot_embed_rows:
             h, _ = embed_with_cache(params["embed"], tokens, hot_embed, dist)
-            return h.to(torch.bfloat16)
-        return embed_lookup(params["embed"], tokens, dist).to(torch.bfloat16)
+            h = h.to(torch.bfloat16)
+        else:
+            h = embed_lookup(params["embed"], tokens, dist).to(torch.bfloat16)
+        if self.cfg.pos == "sinusoidal":
+            s, d = tokens.shape[-1], self.cfg.d_model
+            h = h + encdec.sinusoid(s, d, h.device).to(h.dtype)[None]
+        return h
 
     # ------------------------------------------------------------- train
     def loss(self, params: dict, batch: dict, dist=None, hot_ids: torch.Tensor | None = None,
@@ -111,8 +138,12 @@ class Model:
         hot-row cache state. Returns ``(loss, metrics)`` with the
         reference's keys: ``xent``, ``loss`` and, for MoE, ``moe_counts
         [L, G, E]``, ``moe_aux``, ``moe_dropped``, ``moe_hot_frac``."""
-        _check_not_quantized(params)
         cfg = self.cfg
+        if cfg.family in _UNTRAINED:
+            raise NotImplementedError(
+                f"Model.loss of the {cfg.family!r} family ({_UNTRAINED[cfg.family]}) is not ported "
+                "yet: the next slice trains the ssm, hybrid, audio and vlm families")
+        _check_not_quantized(params, "Model.loss")
         tokens, targets = batch["tokens"], batch["targets"]
         h = self.embed_tokens(params, tokens, dist, hot_embed)
         h, _, moe_stats = tfm.run_decoder(params["blocks"], h, cfg, dist, mode="train",
@@ -132,46 +163,89 @@ class Model:
         return loss, metrics
 
     # ------------------------------------------------------------- serve
-    def init_state(self, batch: int, cache_len: int) -> tfm.KVCache:
+    def init_state(self, batch: int, cache_len: int, abstract: bool = False):
+        """The zeroed decode state of ``batch`` sequences: a ``KVCache`` of
+        ``cache_len`` slots (dense, moe, vlm), an ``RWKVState``, an
+        ``RGLRUState`` (ring buffers of ``cfg.window`` slots, whatever
+        ``cache_len``) or an ``EncDecState``. ``abstract`` gives shapes and
+        dtypes only (tensors on the ``meta`` device)."""
         cfg = self.cfg
-        shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
-        return tfm.KVCache(
-            k=torch.zeros(shape, dtype=torch.bfloat16, device=self.device),
-            v=torch.zeros(shape, dtype=torch.bfloat16, device=self.device),
-            length=torch.zeros(batch, dtype=torch.int32, device=self.device),
-        )
+        dev = "meta" if abstract else self.device
+        if cfg.family in DECODER_FAMILIES:
+            shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+            return tfm.KVCache(
+                k=torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+                v=torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+                length=torch.zeros(batch, dtype=torch.int32, device=dev),
+            )
+        if cfg.family == "ssm":
+            return rwkv6.init_rwkv_state(cfg, batch, abstract, self.device)
+        if cfg.family == "hybrid":
+            return rglru.init_rglru_state(cfg, batch, abstract, self.device)
+        return encdec.init_encdec_state(cfg, batch, cache_len, abstract, self.device)
 
     def prefill(self, params: dict, batch: dict, dist=None, cache_len: int | None = None,
                 hot_ids: torch.Tensor | None = None):
         """Full-sequence pass building decode state. Returns ``(logits [B, V]
-        f32, KVCache)``; ``cache_len`` pads the cache with zeros beyond the
-        prompt for generation."""
-        _check_not_quantized(params)
+        f32, state)``. batch holds ``tokens [B, S]``, and ``patches [B, P,
+        D]`` (vlm, prepended to the token rows, so that the cache holds P + S
+        positions) or ``frames [B, F, D]`` (audio). ``cache_len`` pads a
+        KV cache with zeros beyond the prompt for generation."""
+        _check_not_quantized(params, "Model.prefill")
         cfg = self.cfg
         tokens = batch["tokens"]
-        s = tokens.shape[1]
+        b, s = tokens.shape
         cache_len = cache_len or s
         h = self.embed_tokens(params, tokens, dist)
-        h, cache, _ = tfm.run_decoder(params["blocks"], h, cfg, dist, mode="prefill",
-                                      window=cfg.window, hot_ids=hot_ids)
-        if cache_len > s:
-            pad = (0, 0, 0, 0, 0, cache_len - s)  # the T dim of [L, B, T, KH, Dh]
-            cache = cache._replace(k=torch.nn.functional.pad(cache.k, pad),
-                                   v=torch.nn.functional.pad(cache.v, pad))
+        if cfg.family in DECODER_FAMILIES:
+            if cfg.family == "vlm":
+                h = torch.cat([batch["patches"].to(h.dtype), h], dim=1)
+            h, state, _ = tfm.run_decoder(params["blocks"], h, cfg, dist, mode="prefill",
+                                          window=cfg.window, hot_ids=hot_ids)
+            if cache_len > state.max_len:
+                pad = (0, 0, 0, 0, 0, cache_len - state.max_len)  # the T dim of [L, B, T, KH, Dh]
+                state = state._replace(k=torch.nn.functional.pad(state.k, pad),
+                                       v=torch.nn.functional.pad(state.v, pad))
+        elif cfg.family == "ssm":
+            h, state = rwkv6.rwkv_forward(params["blocks"], h, cfg, dist)
+        elif cfg.family == "hybrid":
+            h, state = rglru.rglru_forward(params["blocks"], h, cfg, dist, collect_cache=True)
+        else:
+            memory = encdec.encode(params["blocks"], batch["frames"].to(h.dtype), cfg, dist)
+            h, (sk, sv), (ck, cv) = encdec.decode_prefill(params["blocks"], h, memory, cfg, dist)
+            if cache_len > s:
+                pad = (0, 0, 0, 0, 0, cache_len - s)
+                sk, sv = torch.nn.functional.pad(sk, pad), torch.nn.functional.pad(sv, pad)
+            state = encdec.EncDecState(self_k=sk, self_v=sv, cross_k=ck, cross_v=cv,
+                                       length=torch.full((b,), s, dtype=torch.int32, device=h.device))
         h_last = apply_norm(params["ln_f"], h[:, -1:], cfg.norm)[:, 0]
         logits = unembed_logits(h_last, self._head_table(params), dist, cfg.vocab_size)
-        return logits, cache
+        return logits, state
 
-    def decode_step(self, params: dict, state: tfm.KVCache, tokens: torch.Tensor, dist=None,
+    def decode_step(self, params: dict, state, tokens: torch.Tensor, dist=None,
                     hot_ids: torch.Tensor | None = None):
         """serve_step: one new token per sequence (``tokens [B]``, the most
-        recent token of each) against the decode state, whose cache is
+        recent token of each) against the decode state, whose caches are
         written in place. Returns ``(logits [B, V] f32, state)``."""
-        _check_not_quantized(params)
         cfg = self.cfg
+        # The top-level tables dequantize once a step; the blocks stay int8
+        # and dequantize a layer at a time (run_decode_step).
+        params = {key: (val if key == "blocks" else dequant_leaf(val)) for key, val in params.items()}
+        if cfg.family not in DECODER_FAMILIES:
+            _check_not_quantized(params["blocks"], f"the {cfg.family!r} family's decode step")
         h = embed_lookup(params["embed"], tokens[:, None], dist)[:, 0].to(torch.bfloat16)
-        h, state, _ = tfm.run_decode_step(params["blocks"], h, state, cfg, dist,
-                                          window=cfg.window, hot_ids=hot_ids)
+        if cfg.family in DECODER_FAMILIES:
+            if cfg.pos == "sinusoidal":
+                h = h + encdec.sinusoid_at(state.length, cfg.d_model).to(h.dtype)
+            h, state, _ = tfm.run_decode_step(params["blocks"], h, state, cfg, dist,
+                                              window=cfg.window, hot_ids=hot_ids)
+        elif cfg.family == "ssm":
+            h, state = rwkv6.rwkv_decode_step(params["blocks"], h, cfg, state, dist)
+        elif cfg.family == "hybrid":
+            h, state = rglru.rglru_decode_step(params["blocks"], h, cfg, state, dist)
+        else:
+            h = h + encdec.sinusoid_at(state.length, cfg.d_model).to(h.dtype)
+            h, state = encdec.encdec_decode_step(params["blocks"], h, state, cfg, dist)
         h = apply_norm(params["ln_f"], h[:, None, :], cfg.norm)[:, 0]
         return unembed_logits(h, self._head_table(params), dist, cfg.vocab_size), state
 

@@ -1,13 +1,14 @@
 """Declarative parameters (counterpart of ``src/repro/models/params.py``).
 
 Every parameter is declared once as a :class:`ParamSpec` (shape, init,
-dtype); ``init_params`` materialises a nested dict of specs into tensors
-with the same keys, so a reference params tree carries across one to one
+dtype); ``init_params`` materialises a tree of specs (nested dicts and lists) into
+tensors with the same structure, so a reference params tree carries across one to one
 (``interop.params_from_numpy``). The reference's logical axes and partition
 specs belong to the sharding slice and are not carried.
 
-Draws come from one explicit ``torch.Generator``, leaf by leaf in sorted key
-order: the same distributions as the reference, not its bits.
+Draws come from one explicit ``torch.Generator``, leaf by leaf in
+``jax.tree``'s order (dict keys sorted, lists by index): the same
+distributions as the reference, not its bits.
 """
 
 from __future__ import annotations
@@ -61,27 +62,29 @@ def ones_init(gen, shape, dtype, device):
 
 
 def _leaves(specs, prefix=()):
+    """``(path, spec)`` pairs in ``jax.tree``'s order: a dict's entries by
+    sorted key, a list's by index."""
     if isinstance(specs, ParamSpec):
         yield prefix, specs
-        return
-    for key in sorted(specs):
-        yield from _leaves(specs[key], prefix + (key,))
+    elif isinstance(specs, dict):
+        for key in sorted(specs):
+            yield from _leaves(specs[key], prefix + (key,))
+    else:
+        for i, val in enumerate(specs):
+            yield from _leaves(val, prefix + (i,))
 
 
-def init_params(specs, gen: torch.Generator, device=None) -> dict:
-    """Materialise a ``ParamSpec``, or a nested dict of them, on ``device``
-    (``None`` means CUDA). ``gen`` must live on that device."""
+def init_params(specs, gen: torch.Generator, device=None):
+    """Materialise a ``ParamSpec``, or a tree of them (dicts and lists, as
+    rglru's per-layer lists), on ``device`` (``None`` means CUDA), leaf by
+    leaf in ``jax.tree``'s order. ``gen`` must live on that device."""
     device = resolve_device(device)
     if isinstance(specs, ParamSpec):
         return specs.init(gen, specs.shape, specs.dtype, device)
-    out: dict = {}
-    for path, spec in _leaves(specs):
-        node = out
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = spec.init(gen, spec.shape, spec.dtype, device)
-    return out
-
+    if isinstance(specs, dict):
+        built = {key: init_params(specs[key], gen, device) for key in sorted(specs)}
+        return {key: built[key] for key in specs}
+    return [init_params(val, gen, device) for val in specs]
 
 
 def count_params(specs) -> int:

@@ -21,7 +21,16 @@ reference's immutable arrays, the decode step writes each layer's new k/v
 row into the ``[L, B, T, KH, Dh]`` cache in place. The reference's
 ``.at[].set`` drops a write whose slot is past the cache (``slot == T``
 once an idle lane's length outgrows it); here that row writes back the
-value already there, which is the same result without a host sync. ``cross_attn`` and ``gelu_mlp`` wait for their families.
+value already there, which is the same result without a host sync.
+
+Serving attention never takes ``blockwise_attention``: ``attn_full``
+without a ``chunk`` (prefill, and the Whisper encoder, non-causal) and
+``cross_attn`` over a memory of several queries run ``flash_attention``,
+and every one-query attention (``attn_decode``, the decoder's cross
+attention at decode) runs ``flash_decode``. The reference passes
+``cfg.attn_chunk`` at every call site; the port passes a chunk only where
+it trains. int8 params (``repro_torch.quant``) are dequantized one layer
+at a time in ``run_decode_step``, as the reference does in its scan body.
 """
 
 from __future__ import annotations
@@ -36,8 +45,10 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_decode.ops import flash_decode
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import blockwise_attention
-from repro_torch.models.layers import apply_norm, norm_specs, rope, swiglu, swiglu_specs
+from repro_torch.models.layers import (apply_norm, gelu_mlp, gelu_mlp_specs, norm_specs, rope,
+                                       swiglu, swiglu_specs)
 from repro_torch.models.params import ParamSpec, dense_init, ones_init
+from repro_torch.quant import dequant_tree
 
 __all__ = [
     "KVCache",
@@ -45,6 +56,8 @@ __all__ = [
     "mlp_specs",
     "stacked_block_specs",
     "attn_full",
+    "cross_attn",
+    "cross_attn_kv",
     "attn_decode",
     "mlp_apply",
     "run_decoder",
@@ -89,7 +102,7 @@ def mlp_specs(cfg, prefix: tuple) -> dict:
     if cfg.num_experts:
         specs.update(moe_lib.moe_specs(cfg, prefix))
     elif cfg.act == "gelu":
-        raise NotImplementedError("act='gelu' (gelu_mlp) is not ported yet: encoder-decoder slice")
+        specs.update(gelu_mlp_specs(cfg.d_model, cfg.d_ff, prefix))
     else:
         specs.update(swiglu_specs(cfg.d_model, cfg.d_ff, prefix))
     return specs
@@ -142,10 +155,11 @@ def attn_full(
     positions: torch.Tensor,  # [S]
     window: int = 0,
     chunk: int | None = None,
+    causal: bool = True,
 ):
-    """Full-sequence causal attention. Returns ``(y, (k, v))``. With
+    """Full-sequence self-attention. Returns ``(y, (k, v))``. With
     ``chunk`` (training) through ``blockwise_attention`` in blocks of
-    ``chunk``, as the reference; without (prefill) through the
+    ``chunk``, as the reference; without (prefill, encoding) through the
     ``flash_attention`` kernel."""
     xn = apply_norm(p["ln"], x, cfg.norm)
     q, k, v = _project_qkv(p, xn, cfg)
@@ -154,11 +168,44 @@ def attn_full(
         k = rope(k, positions, cfg.rope_theta)
     q = constrain(q, dist)
     if chunk is not None:
-        o = blockwise_attention(q, k, v, causal=True, window=window, chunk=chunk)
+        o = blockwise_attention(q, k, v, causal=causal, window=window, chunk=chunk)
     else:
-        o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True, window=window)
+        o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+                            window=window)
     y = torch.einsum("bshk,hkd->bsd", o, p["wo"])
     return x + y, (k, v)
+
+
+def cross_attn(
+    p: dict,
+    x: torch.Tensor,  # [B, S, D] decoder side
+    memory_kv: tuple,  # precomputed (k, v) [B, F, KH, Dh]
+    cfg,
+    dist,
+) -> torch.Tensor:
+    """Encoder-decoder cross attention against precomputed memory K/V,
+    non-causal (serving: the training slice of the audio family adds the
+    blockwise path). One query a sequence (decode) goes through
+    ``flash_decode`` with every memory position valid (the function the
+    reference's blockwise pass computes at S = 1), several through
+    ``flash_attention``."""
+    xn = apply_norm(p["ln"], x, cfg.norm)
+    q = torch.einsum("bsd,dhk->bshk", xn, p["wq"])
+    k, v = memory_kv
+    if q.shape[1] == 1:
+        full = torch.full((q.shape[0],), k.shape[1], dtype=torch.int32, device=q.device)
+        o = flash_decode(q[:, 0].contiguous(), k.contiguous(), v.contiguous(), full)[:, None]
+    else:
+        o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=False)
+    y = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return x + y
+
+
+def cross_attn_kv(p: dict, memory: torch.Tensor, cfg) -> tuple:
+    """Project the encoder output once into cross-attention K/V."""
+    k = torch.einsum("bfd,dhk->bfhk", memory, p["wk"])
+    v = torch.einsum("bfd,dhk->bfhk", memory, p["wv"])
+    return k, v
 
 
 def _decode_slot(length: torch.Tensor, t: int, window: int):
@@ -206,11 +253,14 @@ def attn_decode(
 
 
 def mlp_apply(p: dict, x: torch.Tensor, cfg, dist, hot_ids: torch.Tensor | None = None):
-    """Pre-norm FFN (dense swiglu or MoE). Returns ``(y, moe_stats|None)``."""
+    """Pre-norm FFN (dense swiglu or GELU, or MoE). Returns ``(y,
+    moe_stats|None)``."""
     xn = apply_norm(p["ln"], x, cfg.norm)
     stats = None
     if cfg.num_experts:
         y, stats = moe_lib.moe_apply(p, xn, cfg, dist, hot_ids)
+    elif cfg.act == "gelu":
+        y = gelu_mlp(p, xn)
     else:
         y = swiglu(p, xn)
     return x + y, stats
@@ -302,11 +352,13 @@ def run_decode_step(
     hot_ids: torch.Tensor | None = None,  # [L, R]
 ):
     """One token through all layers. Each layer writes one ``[B, KH, Dh]``
-    row into the cache in place and attends over its layer's slice.
-    Returns ``(x, cache, moe_stats|None)``; the cache's tensors are the
-    ones passed in, with ``length + 1``."""
+    row into the cache in place and attends over its layer's slice; int8
+    params are dequantized a layer at a time. Returns ``(x, cache,
+    moe_stats|None)``; the cache's tensors are the ones passed in, with
+    ``length + 1``."""
     stats = []
     for i, layer in enumerate(_unstack(blocks, cfg.num_layers)):
+        layer = dequant_tree(layer)
         x, _ = attn_decode(layer["attn"], x, cache.k[i], cache.v[i], cache.length, cfg, dist, window)
         y, st = mlp_apply(layer["mlp"], x[:, None, :], cfg, dist,
                           None if hot_ids is None else hot_ids[i])

@@ -3,7 +3,10 @@
 
 One engine is one pod's serving deployment (the paper's RedynisService).
 It only calls ``model.prefill`` / ``model.decode_step`` and carries their
-decode state, stacked over lanes as the model makes it for a full batch. A
+decode state, whatever the family's (a KV cache, a recurrent state, an
+encoder-decoder state), stacked over lanes as the model makes it for a
+full batch. A ``vlm`` prompt comes with zero patch embeddings and an
+``audio`` one with zero frames, as in the reference. A
 new prefill overwrites its whole lane slice in place (``_write_lane``), so
 a lane re-bound after an LRU eviction keeps nothing of its last session.
 All lanes advance together each ``step()``, idle ones included, as in the
@@ -22,6 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import tree as tree_lib
 from repro_torch.serving.kvcache import LaneTable, state_bytes
 
 __all__ = ["Request", "ServeEngine"]
@@ -35,10 +39,12 @@ class Request(NamedTuple):
 
 def _write_lane(state, lane_state, lane: int, num_lanes: int) -> None:
     """Copy a single-lane decode state into lane ``lane`` of the batch
-    state, in place. The lane dim of each tensor is the first dim that is
-    ``num_lanes`` wide in the batch state and 1 wide in the lane's: dim 0
-    for ``[B]`` leaves, dim 1 for layer-stacked ``[L, B, ...]`` leaves."""
-    for full, single in zip(state, lane_state):
+    state, in place, leaf by leaf in ``jax.tree``'s order (NamedTuples,
+    lists and tuples nested, as rglru's state). The lane dim of each
+    tensor is the first dim that is ``num_lanes`` wide in the batch state
+    and 1 wide in the lane's: dim 0 for ``[B, ...]`` leaves, dim 1 for
+    layer-stacked ``[L, B, ...]`` leaves."""
+    for full, single in zip(tree_lib.leaves(state), tree_lib.leaves(lane_state), strict=True):
         for d in range(full.dim()):
             if full.shape[d] == num_lanes and single.shape[d] == 1:
                 full.narrow(d, lane, 1).copy_(single)
@@ -83,8 +89,16 @@ class ServeEngine:
         if evicted is not None:
             self.outputs.setdefault(evicted, [])
         tokens = torch.as_tensor(np.asarray(req.tokens), dtype=torch.int32, device=self.device)
+        batch = {"tokens": tokens[None, :]}
+        cfg = self.model.cfg
+        if cfg.family == "vlm":  # the stub frontends' inputs: zeros, as in the reference
+            batch["patches"] = torch.zeros((1, cfg.num_patches, cfg.d_model), dtype=torch.bfloat16,
+                                           device=self.device)
+        if cfg.family == "audio":
+            batch["frames"] = torch.zeros((1, cfg.num_frames, cfg.d_model), dtype=torch.bfloat16,
+                                          device=self.device)
         logits, lane_state = self.model.prefill(
-            self.params, {"tokens": tokens[None, :]}, self.dist,
+            self.params, batch, self.dist,
             cache_len=self.cache_len, hot_ids=self.hot_ids,
         )
         _write_lane(self.state, lane_state, lane, self.num_lanes)

@@ -8,16 +8,16 @@ from __future__ import annotations
 import time
 from typing import Optional
 
-import torch
+from repro_torch import tree as tree_lib
 
 __all__ = ["LaneTable", "state_bytes"]
 
 
 def state_bytes(state) -> int:
-    """Total decode-state bytes (the migration payload for one full batch);
-    ``state`` is a tensor or a tuple of tensors (a ``KVCache``)."""
-    leaves = [state] if isinstance(state, torch.Tensor) else list(state)
-    return sum(t.numel() * t.element_size() for t in leaves)
+    """Total decode-state bytes (the migration payload for one full batch):
+    every tensor of the state's tree (NamedTuples, lists and tuples
+    nested), as the reference sums ``jax.tree.leaves``."""
+    return sum(t.numel() * t.element_size() for t in tree_lib.leaves(state))
 
 
 class LaneTable:

@@ -166,12 +166,17 @@ MODULE_EXCEPTIONS = {
     "models.model": ({}, {}),
     "models.moe": ({}, {"MoE": "a thin nn.Module over one layer's params dict, for PyTorch callers"}),
     "models.attention": ({}, {"NEG_INF": "the mask value, shared with the kernels' plain versions"}),
+    "models.layers": ({}, {}),
+    "models.rwkv6": ({}, {}),
+    "models.rglru": ({}, {}),
+    "models.encdec": ({}, {}),
+    "quant": ({}, {}),
     "models.transformer": (
         {"init_cache_specs": "ShapeDtypeStruct caches belong to the dry-run and sharding slice "
                              "(ROADMAP item 15.5); Model.init_state makes the cache"},
         {name: "a layer function the reference keeps public but out of __all__"
-         for name in ("attn_decode", "attn_full", "attn_specs", "mlp_apply", "mlp_specs",
-                      "run_decode_step")}),
+         for name in ("attn_decode", "attn_full", "attn_specs", "cross_attn", "cross_attn_kv",
+                      "mlp_apply", "mlp_specs", "run_decode_step")}),
     "models.params": (
         {"abstract_params": "the dry-run and sharding slice (ROADMAP item 15.5)",
          "partition_specs": "the dry-run and sharding slice (ROADMAP item 15.5)"}, {}),
@@ -196,6 +201,29 @@ def test_training_slice_modules_export_the_references_names(module):
         assert callable(mine) == callable(theirs), (module, name)
     for name in not_ported:
         assert not hasattr(port, name), (module, name)
+
+
+def test_serving_slice_names():
+    """The state carriers of the families this slice serves, and the
+    model modules' public functions that the reference keeps out of its
+    ``__all__`` (reachable by their module paths in both packages)."""
+    import repro_torch.interop as interop
+    from repro.models import encdec as jencdec
+    from repro.models import rglru as jrglru
+    from repro.models import rwkv6 as jrwkv6
+    from repro_torch.models import encdec, rglru, rwkv6
+
+    for name in ("rwkv_state_from_numpy", "rglru_state_from_numpy", "encdec_state_from_numpy"):
+        assert name in interop.__all__ and callable(getattr(interop, name))
+    for port, ref, names in (
+            (rwkv6, jrwkv6, ("time_mix", "channel_mix", "LORA_MIX", "LORA_DECAY", "CHUNK")),
+            (rglru, jrglru, ("rec_block", "rec_block_step", "mlp_block", "CONV_WIDTH", "LRU_C")),
+            (encdec, jencdec, ("sinusoid_at",))):
+        for name in names:
+            mine, theirs = getattr(port, name), getattr(ref, name)
+            assert callable(mine) == callable(theirs), name
+            if not callable(mine):
+                assert mine == theirs, name
 
 
 def test_training_slice_packages():

@@ -99,8 +99,10 @@ def test_configs_carry_across():
     full = get_config("deepseek-moe-16b")
     assert full == ModelConfig(**dataclasses.asdict(jax_get_config("deepseek-moe-16b")))
     assert full.padded_vocab == 102_400 and full.d_ff == 1408 and full.top_k == 6
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("rwkv6-1.6b")
+    # Every id of the reference is ported; an id it does not know raises.
+    assert get_config("rwkv6-1.6b") == ModelConfig(**dataclasses.asdict(jax_get_config("rwkv6-1.6b")))
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt-2")
 
 
 def test_capacities_match_jax():

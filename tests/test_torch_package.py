@@ -888,9 +888,15 @@ def test_ownership_sweep_tiles_match_plain_version(cuda, k, n, offset, counts_dt
     [("ssm", "RWKV"), ("hybrid", "RecurrentGemma"), ("audio", "encoder-decoder"), ("vlm", "vision")],
 )
 def test_model_families_of_later_slices_raise(family, what):
+    # The four families serve (tests/test_torch_families.py); their
+    # Model.loss raises, naming the next slice, which trains them.
     cfg = dataclasses.replace(reduced(get_config("qwen3-1.7b")), family=family)
-    with pytest.raises(NotImplementedError, match=what):
-        Model(cfg, "cpu")
+    model = Model(cfg, "cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match=what) as err:
+        model.loss(params, {"tokens": tokens, "targets": tokens})
+    assert "the next slice trains the ssm, hybrid, audio and vlm families" in str(err.value)
 
 
 def test_model_loss_and_quantized_params_raise():
