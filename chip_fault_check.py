@@ -11,9 +11,10 @@ its kernels there, and runs in a process of its own. The faults:
 * ``attention_tile``: in ``flash_attention``'s TMA/wgmma kernel (the one
   these bf16, D 128 shapes run on), q tiles from row 2,048 on skip kv tile 0
   (64 of 2,049 or more keys);
-* ``decode_chunk``: in ``flash_decode``'s combine pass, a sequence longer
-  than 4,096 positions loses its last 256-position chunk (at most 6 % of
-  its positions).
+* ``decode_chunk``: in ``flash_decode``'s merge of the splits, a sequence
+  of more than 16 splits (longer than 4,096 positions at the serving
+  shape's splits of 256) leaves its last split out (at most 6 % of its
+  positions).
 
 For the sound kernels and for each fault, at ``chip_smoke.py``'s phase-2
 serving shapes (prefill attention at S 4096 and 3001, q 16 heads and k/v 8
@@ -50,8 +51,8 @@ FAULTS = {
     ),
     "decode_chunk": (
         "flash_decode",
-        "  const int ns = (read_len(p, b) + kChunk - 1) / kChunk;\n",
-        "  const int ns = (read_len(p, b) + kChunk - 1) / kChunk - (read_len(p, b) > 4096);\n",
+        "    for (int s = sg; s < ns; s += groups) {\n",
+        "    for (int s = sg; s < ns - (ns > 16); s += groups) {\n",
     ),
 }
 PROMPT = 4500

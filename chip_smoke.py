@@ -221,20 +221,24 @@ ATTN_CASES = [(2, 256, 256, 4, 2, 64, True, 0), (1, 128, 128, 8, 1, 128, True, 0
               (2, 256, 256, 4, 4, 32, True, 64), (1, 128, 384, 4, 2, 64, False, 0),
               (1, 192, 192, 6, 2, 64, True, 0)]
 DECODE_CASES = [(2, 1024, 8, 2, 64), (4, 512, 4, 1, 128), (2, 768, 16, 16, 32)]  # (b, t, h, kh, dh)
-# The TMA/wgmma kernel's masks at D 128 and 64: causal S 4096 and 3001, causal
-# ragged S 1000 and 130, a 256-key window at S 2048, non-causal S 128 over T
-# 384; GQA groups 2, 1, 8.
-TMA_CASES = [(b, s, t, h, kh, dh, causal, window) for dh in (128, 64) for b, s, t, h, kh, causal, window in (
+# The TMA/wgmma kernel's masks at D 128, 64 and 256: causal S 4096 and 3001,
+# causal ragged S 1000 and 130, a 256-key window at S 2048, non-causal S 128
+# over T 384; GQA groups 2, 1, 8.
+TMA_CASES = [(b, s, t, h, kh, dh, causal, window) for dh in (128, 64, 256) for b, s, t, h, kh, causal, window in (
     (1, 4096, 4096, 16, 8, True, 0), (1, 3001, 3001, 16, 8, True, 0), (1, 1000, 1000, 8, 8, True, 0),
     (2, 130, 130, 16, 2, True, 0), (1, 2048, 2048, 16, 8, True, 256), (2, 128, 384, 8, 1, False, 0))]
 # Rows with no allowed key (window > 0, T + window <= S: rows from T + window - 1
 # on are the mean of v), causal and not, in q tiles with and without kv tiles
-# to visit; (b, s, t, h, kh, causal, window), run through every variant.
+# to visit; (b, s, t, h, kh, causal, window), run through every variant, and
+# through mma_sync at D 256 by name (the dispatch takes D 256 to tma_wgmma).
 EMPTY_ROW_CASES = [(1, 256, 64, 4, 2, True, 16), (2, 192, 128, 4, 2, False, 24),
                    (1, 1000, 100, 8, 2, True, 30)]
 EMPTY_ROW_VARIANTS = [("f32_simt", "float32", 64), ("mma_sync", "bfloat16", 32),
                       ("mma_sync", "bfloat16", 256), ("tma_wgmma", "bfloat16", 64),
-                      ("tma_wgmma", "bfloat16", 128)]
+                      ("tma_wgmma", "bfloat16", 128), ("tma_wgmma", "bfloat16", 256)]
+# flash_decode beyond DECODE_CASES: recurrentgemma-2b's 8 rings of 2,048 slots
+# (10 q heads on 1 kv head of 256) and a group of 16 at D 256.
+DECODE_RING_CASES = [(8, 2048, 10, 1, 256), (4, 2048, 16, 1, 256)]
 
 
 def _smi() -> str:
@@ -2769,13 +2773,17 @@ def _rwkv_checks(torch, dev, cfg, model, params) -> dict:
 
 
 def _ring_kernel_times(torch, dev, cfg, lanes: int) -> dict:
-    """recurrentgemma-2b's attention kernels at its shapes: the mma.sync
-    flash_attention over a 4,096-token prefill with the 2,048 window (q [1,
-    4096, 10, 256], k/v [1, 4096, 1, 256]) beside SDPA with the window's mask
-    and ``enable_gqa``, and flash_decode over ``lanes`` full 2,048-slot rings
-    (one kv head) beside masked SDPA; each with its bound."""
+    """recurrentgemma-2b's attention kernels at its shapes, each with its
+    bound. flash_attention over a 4,096-token prefill with the 2,048 window
+    (q [1, 4096, 10, 256], k/v [1, 4096, 1, 256]) on the TMA/wgmma kernel,
+    the dispatch's choice (and at its other q tile), beside the mma.sync
+    kernel (by name) and SDPA with the window's mask and ``enable_gqa``;
+    both kernels held to the plain version. flash_decode over ``lanes`` full
+    2,048-slot rings (one kv head) at the split rule's splits (and at twice
+    their length) beside masked SDPA, with its kernel launches a call."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.flash_decode.ops import flash_decode
     from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 
@@ -2784,44 +2792,105 @@ def _ring_kernel_times(torch, dev, cfg, lanes: int) -> dict:
     gen = torch.Generator(device=dev).manual_seed(3)
     q, k, v = (torch.randn(sh, generator=gen, device=dev).to(torch.bfloat16)
                for sh in ((1, n, h, dh), (1, n, kh, dh), (1, n, kh, dh)))
-    assert fa_ops.variant(q.dtype, dh) == "mma_sync"
+    assert fa_ops.variant(q.dtype, dh) == "tma_wgmma"
+    rows = fa_ops.q_rows(n, h, 1)
     flops, nbytes = _attention_flops_bytes(1, n, n, h, kh, dh, True, win)
     bound = max(flops / BF16_OPS_PER_S, nbytes / BW_BYTES_PER_S) * 1e3
     ms = _device_ms(lambda: fa_ops._launch(q, k, v, True, win), torch, reps=5, iters=20)
+    other_ms = _device_ms(lambda: fa_ops._launch(q, k, v, True, win, "tma_wgmma", 192 - rows), torch,
+                          reps=5, iters=20)
+    mma_ms = _device_ms(lambda: fa_ops._launch(q, k, v, True, win, "mma_sync"), torch, reps=5, iters=20)
     plain = _device_ms(lambda: flash_attention_ref(q, k, v, causal=True, window=win), torch, reps=3, iters=3)
     pos = torch.arange(n, device=dev)
     mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < win)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     lib = _device_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True), torch, reps=5, iters=20)
-    err, _ = _check_close(torch, fa_ops._launch(q, k, v, True, win), flash_attention_ref(q, k, v, causal=True,
-                          window=win), q.dtype, "recurrentgemma prefill attention")
-    attn = dict(ms=ms, plain_ms=plain, sdpa_ms=lib, bound_ms=bound, max_abs_err=err,
+    want = flash_attention_ref(q, k, v, causal=True, window=win)
+    err, use = _check_close(torch, fa_ops._launch(q, k, v, True, win), want, q.dtype,
+                            "recurrentgemma prefill attention (tma_wgmma)")
+    assert use <= 0.5, f"recurrentgemma prefill attention: {use:.3f} of the scaled bar"
+    mma_err, _ = _check_close(torch, fa_ops._launch(q, k, v, True, win, "mma_sync"), want, q.dtype,
+                              "recurrentgemma prefill attention (mma_sync)")
+    attn = dict(ms=ms, variant="tma_wgmma", q_rows=rows, other_q_rows_ms=other_ms, mma_sync_ms=mma_ms,
+                plain_ms=plain, sdpa_ms=lib, bound_ms=bound, max_abs_err=err, scaled_bar_used=use,
+                mma_sync_max_abs_err=mma_err,
                 bound_by="operations" if flops / BF16_OPS_PER_S >= nbytes / BW_BYTES_PER_S else "bytes",
-                tflops=flops / ms / 1e9)
-    del q, k, v, qt, kt, vt, mask
+                tflops=flops / ms / 1e9, mma_sync_tflops=flops / mma_ms / 1e9)
+    del q, k, v, qt, kt, vt, mask, want
     dq = torch.randn((lanes, h, dh), generator=gen, device=dev).to(torch.bfloat16)
     kc, vc = (torch.randn((lanes, win, kh, dh), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
     lens = torch.full((lanes,), win, dtype=torch.int32, device=dev)
+    split = fd_ops.split_length(lanes, kh, win)
+    splits = fd_ops.num_splits(lanes, kh, win)
     dms = _device_ms(lambda: flash_decode(dq, kc, vc, lens), torch)
+    longer_ms = _device_ms(lambda: fd_ops._launch(dq, kc, vc, lens, 2 * split), torch)
     dplain = _device_ms(lambda: flash_decode_ref(dq, kc, vc, lens), torch, reps=3, iters=10)
     kct, vct = (x.transpose(1, 2).contiguous() for x in (kc, vc))
     dmask = torch.ones((lanes, 1, 1, win), dtype=torch.bool, device=dev)
     dlib = _device_ms(lambda: sdpa(dq[:, :, None], kct, vct, attn_mask=dmask, enable_gqa=True), torch)
-    derr, _ = _check_close(torch, flash_decode(dq, kc, vc, lens), flash_decode_ref(dq, kc, vc, lens),
-                           dq.dtype, "recurrentgemma ring decode")
+    derr, duse = _check_close(torch, flash_decode(dq, kc, vc, lens), flash_decode_ref(dq, kc, vc, lens),
+                              dq.dtype, "recurrentgemma ring decode")
+    calls = _kernels_per_call(torch, lambda: flash_decode(dq, kc, vc, lens), flash_decode)
+    assert calls["host_launches"] == 1 and calls["counted"] == 1, calls
     dbytes = lanes * win * kh * dh * 2 * 2 + 2 * lanes * h * dh * 2 + lanes * 4
     dflops = 4 * lanes * win * h * dh
     dbound = max(dbytes / BW_BYTES_PER_S, dflops / BF16_OPS_PER_S) * 1e3
-    decode = dict(ms=dms, plain_ms=dplain, sdpa_ms=dlib, bound_ms=dbound, max_abs_err=derr,
+    decode = dict(ms=dms, split=split, splits=splits, blocks=lanes * kh * splits, longer_split_ms=longer_ms,
+                  plain_ms=dplain, sdpa_ms=dlib, bound_ms=dbound, max_abs_err=derr, scaled_bar_used=duse,
                   bound_by="bytes" if dbytes / BW_BYTES_PER_S >= dflops / BF16_OPS_PER_S else "operations",
-                  gbs=dbytes / dms / 1e6)
-    print(f"phase 14 flash_attention mma_sync (q [1, {n}, {h}, {dh}], k/v [1, {n}, {kh}, {dh}], window {win}): "
+                  gbs=dbytes / dms / 1e6, kernels_per_call=calls["host_launches"])
+    print(f"phase 14 flash_attention tma_wgmma (q [1, {n}, {h}, {dh}], k/v [1, {n}, {kh}, {dh}], window {win}): "
           f"kernel {ms:.4f} ms ({attn['tflops']:.1f} TFLOP/s, {bound / ms:.3f} of the {attn['bound_by']} bound "
-          f"{bound:.4f} ms), plain {plain:.4f} ms, SDPA with the window's mask {lib:.4f} ms")
+          f"{bound:.4f} ms, q tile {rows}; q tile {192 - rows}: {other_ms:.4f} ms); mma_sync {mma_ms:.4f} ms "
+          f"({attn['mma_sync_tflops']:.1f} TFLOP/s, {bound / mma_ms:.3f}); plain {plain:.4f} ms, SDPA with the "
+          f"window's mask {lib:.4f} ms")
     print(f"phase 14 flash_decode ({lanes} lanes over {win}-slot rings, {kh} kv head, D {dh}): kernel "
           f"{dms:.4f} ms ({decode['gbs']:.1f} GB/s, {dbound / dms:.3f} of the {decode['bound_by']} bound "
-          f"{dbound:.4f} ms), plain {dplain:.4f} ms, masked SDPA {dlib:.4f} ms")
+          f"{dbound:.4f} ms; {splits} splits of {split}, {decode['blocks']} blocks, "
+          f"{calls['host_launches']:.0f} kernel a call; splits of {2 * split}: {longer_ms:.4f} ms), "
+          f"plain {dplain:.4f} ms, masked SDPA {dlib:.4f} ms")
     return dict(attention=attn, decode=decode)
+
+
+def _whisper_decode_times(torch, dev, cfg, lanes: int, cache: int) -> dict:
+    """whisper-base's decode attention (8 q and 8 kv heads of 64: a group of
+    1, the CUDA-core path) at its drive's shapes, each beside masked SDPA
+    and held to the plain version: cross attention over the encoder's
+    every frame, and self attention over a ``cache``-slot cache at ragged
+    lengths from seed 5 (its prompts and new tokens)."""
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device=dev).manual_seed(5)
+    lo, hi = FAMILY_DRIVES["whisper-base"]["prompt_len"]
+    out = {}
+    for name, t, lens in (
+            ("cross", cfg.num_frames, torch.full((lanes,), cfg.num_frames, dtype=torch.int32, device=dev)),
+            ("self", cache, torch.randint(lo, min(hi + FAMILY_DRIVES["whisper-base"]["max_new"], cache) + 1,
+                                          (lanes,), generator=gen, device=dev, dtype=torch.int32))):
+        q = torch.randn((lanes, h, dh), generator=gen, device=dev).to(torch.bfloat16)
+        kc, vc = (torch.randn((lanes, t, kh, dh), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+        ms = _device_ms(lambda: flash_decode(q, kc, vc, lens), torch)
+        plain = _device_ms(lambda: flash_decode_ref(q, kc, vc, lens), torch, reps=3, iters=10)
+        kct, vct = (x.transpose(1, 2).contiguous() for x in (kc, vc))
+        mask = (torch.arange(t, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        lib = _device_ms(lambda: sdpa(q[:, :, None], kct, vct, attn_mask=mask, enable_gqa=True), torch)
+        err, use = _check_close(torch, flash_decode(q, kc, vc, lens), flash_decode_ref(q, kc, vc, lens),
+                                q.dtype, f"whisper {name} decode")
+        valid = int(torch.clamp_max(lens, t).sum())
+        nbytes = valid * kh * dh * 2 * 2 + 2 * lanes * h * dh * 2 + lanes * 4
+        bound = max(nbytes / BW_BYTES_PER_S, 4 * valid * h * dh / BF16_OPS_PER_S) * 1e3
+        splits = fd_ops.num_splits(lanes, kh, t)
+        out[name] = dict(ms=ms, plain_ms=plain, sdpa_ms=lib, bound_ms=bound, bound_by="bytes", max_abs_err=err,
+                         scaled_bar_used=use, valid=valid, slots=t, split=fd_ops.split_length(lanes, kh, t),
+                         splits=splits)
+        print(f"phase 14 flash_decode whisper {name} ({lanes} lanes, {t} slots, {valid} valid, {kh} kv heads of "
+              f"{dh}, group {h // kh}): kernel {ms:.4f} ms ({bound / ms:.3f} of the bytes bound {bound:.4f} ms; "
+              f"{splits} splits), plain {plain:.4f} ms, masked SDPA {lib:.4f} ms")
+    return out
 
 
 def _int8_check(torch, dev, cfg, model, params, drive) -> dict:
@@ -3023,6 +3092,9 @@ def _families_phase(torch, dev, out_dir) -> dict:
             del lock, keng, krouter, peng
             gc.collect()
             torch.cuda.empty_cache()
+        if cfg.family == "audio":
+            fam["kernels"] = rec["whisper_decode"] = _whisper_decode_times(torch, dev, cfg, drive["lanes"],
+                                                                          drive["cache"])
         if cfg.family == "hybrid":
             fam["kernels"] = _ring_kernel_times(torch, dev, cfg, drive["lanes"])
             rec["ring_kernels"] = fam["kernels"]
@@ -3341,7 +3413,7 @@ def main() -> int:
             assert use <= 0.5, f"{ctx}: {use:.3f} of the scaled bar"
             err_attn[torch.bfloat16], use_tma = max(err_attn[torch.bfloat16], err), max(use_tma, use)
             tcases += 1
-    print(f"phase 2 flash_attention tma_wgmma ok: {tcases} cases (D 128 and 64, both q tiles), "
+    print(f"phase 2 flash_attention tma_wgmma ok: {tcases} cases (D 128, 64 and 256, both q tiles), "
           f"max_abs_err {err_attn[torch.bfloat16]}, scaled bar used {use_tma:.4f} (bar 0.5)")
     # Rows that see no key, through every variant (the TMA one through both q
     # tiles): the plain version's bars, and the rows equal to the mean of v.
@@ -3349,7 +3421,8 @@ def main() -> int:
     for b, s_, t, h, kh, causal, window in EMPTY_ROW_CASES:
         for kind, dname, dh in EMPTY_ROW_VARIANTS:
             dtype = getattr(torch, dname)
-            assert fa_ops.variant(dtype, dh) == kind and fa_ops.has_empty_rows(s_, t, window)
+            named = (kind, dh) == ("mma_sync", 256)  # launched by name: not the dispatch's choice
+            assert (fa_ops.variant(dtype, dh) == kind) != named and fa_ops.has_empty_rows(s_, t, window)
             q, k, v = (cuda_t(rng.standard_normal(sh).astype(np.float32)).to(dtype)
                        for sh in ((b, s_, h, dh), (b, t, kh, dh), (b, t, kh, dh)))
             want = flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -3364,18 +3437,20 @@ def main() -> int:
                 assert kind != "tma_wgmma" or use <= 0.5, f"{ctx}: {use:.3f} of the scaled bar"
                 err_attn[dtype] = max(err_attn[dtype], err)
                 ecases += 1
-    print(f"phase 2 flash_attention rows without keys ok: {ecases} cases (all three variants), "
+    print(f"phase 2 flash_attention rows without keys ok: {ecases} cases (all three variants, mma_sync at D 256 "
+          f"by name), "
           f"each such row the mean of v; max_abs_err f32 {err_attn[torch.float32]}, "
           f"bf16 {err_attn[torch.bfloat16]}")
 
-    # flash_decode: the reference kernel test's shapes in both dtypes, then
-    # the serving shape (16 lanes, an 8,192-slot cache), lengths random
-    # with 1 and one past T in every case, and 0 (every position masked:
-    # the mean of v) where there are three sequences or more.
+    # flash_decode: the reference kernel test's shapes and recurrentgemma-2b's
+    # rings (and a group of 16 at D 256) in both dtypes, then the serving
+    # shape (16 lanes, an 8,192-slot cache), lengths random with 1 and one
+    # past T in every case, and 0 (every position masked: the mean of v)
+    # where there are three sequences or more.
     err_dec = {torch.float32: 0.0, torch.bfloat16: 0.0}
     use_dec = 0.0
     dcases = 0
-    for case in DECODE_CASES + [(16, SERVE_CACHE, 16, 8, 128)]:
+    for case in DECODE_CASES + DECODE_RING_CASES + [(16, SERVE_CACHE, 16, 8, 128)]:
         b, t, h, kh, dh = case
         for dtype in ((torch.float32, torch.bfloat16) if t < SERVE_CACHE else (torch.bfloat16,)):
             q, k, v = (cuda_t(rng.standard_normal(sh).astype(np.float32)).to(dtype)
@@ -4047,7 +4122,8 @@ def main() -> int:
     fm_errs = record["families"]["errors"]
     ring = record["families"]["ring_kernels"]
     err_fa = max(err_fa, fm_errs["flash_attention"], ring["attention"]["max_abs_err"])
-    err_fd = max(err_fd, fm_errs["flash_decode"], ring["decode"]["max_abs_err"])
+    err_fd = max(err_fd, fm_errs["flash_decode"], ring["decode"]["max_abs_err"],
+                 *(w["max_abs_err"] for w in record["families"]["whisper_decode"].values()))
     attn_variants = {k: attn_variants[k] + record["families"]["variants"][k] for k in attn_variants}
 
     lap("phase 14")
@@ -4131,7 +4207,7 @@ def main() -> int:
              variant={k: v for k, v in attn_variants.items() if v},
              ms=fa_ms, plain_ms=fa_plain, bound_ms=fa_bound,
              bound_by="operations" if fa_flops / BF16_OPS_PER_S >= fa_bytes / BW_BYTES_PER_S else "bytes",
-             library_ms=fa_lib, mma_sync_ring=ring["attention"]),
+             library_ms=fa_lib, ring=ring["attention"]),
         dict(name="flash_decode", route="cuda",
              source="src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
              replaces="src/repro/kernels/flash_decode/kernel.py:29",
@@ -4140,7 +4216,7 @@ def main() -> int:
              max_abs_err=err_fd,
              ms=fd_ms, plain_ms=fd_plain, bound_ms=fd_bound,
              bound_by="bytes" if fd_bytes / BW_BYTES_PER_S >= fd_flops / BF16_OPS_PER_S else "operations",
-             library_ms=fd_lib, ring=ring["decode"]),
+             library_ms=fd_lib, ring=ring["decode"], whisper=record["families"]["whisper_decode"]),
         dict(name="trace_window", route="cuda",
              source="src/repro_torch/kernels/trace_window/csrc/trace_window.cu",
              replaces="none: port-only (the reference draws traces with jax.random in XLA, "

@@ -14,15 +14,18 @@
 //
 // Three kernels, chosen by shape alone (the wrapper's rule, ops.py):
 //
-// * flash_attention_tma<D, kC, kEmpty> — bf16, D in {64, 128}: the serving
-//   path's (kEmpty: the shape has rows that see no key, below).
+// * flash_attention_tma<D, kC, kEmpty> — bf16, D in {64, 128, 256}: the
+//   serving path's (kEmpty: the shape has rows that see no key, below).
 //   Warp-specialised: one producer warp keeps TMA loads in flight (the q
 //   tile once, then 64-row K and V tiles, the reference's kv block, through
-//   a ring of kStages buffers with full and empty mbarriers; 128-byte
+//   a ring of kStages buffers with full and empty mbarriers: 4 at D 64/128;
+//   at D 256, where a K or V tile is 32 KB, 2 beside a 128-row q tile and 3
+//   beside a 64-row one, within the 227 KB a block may use; 128-byte
 //   swizzle, each 64-column box of a row loaded on its own), and kC
 //   consumer warpgroups of 64 q rows each (kC = 2: a 128-row q tile;
 //   kC = 1 for small grids) run S = Q K^T as wgmma m64n64k16 with both
-//   operands in shared memory and O += P V as wgmma m64nDk16 with P taken
+//   operands in shared memory and O += P V as wgmma m64nDk16 (two m64n128k16
+//   halves at D 256) with P taken
 //   from registers (S's f32 accumulator after the softmax, rounded to bf16:
 //   the reference's rounding point) and V read through the transposed-B
 //   descriptor. The next tile's S is issued before this tile's PV, and its
@@ -38,9 +41,10 @@
 //   accumulator that is still to be read as one: the loop body is
 //   specialised (last tile, masked next tile) and chosen between tiles, and
 //   each S starts in fresh registers.
-// * flash_attention_bf16<D> — bf16, D in {32, 256}: one block of four
-//   warps per 64-row q tile, mma.sync m16n8k16 fed by ldmatrix from tiles
-//   that the threads copy into shared memory themselves.
+// * flash_attention_bf16<D> — bf16, D 32 (and, where a measurement asks
+//   for it, D 64-256): one block of four warps per 64-row q tile, mma.sync
+//   m16n8k16 fed by ldmatrix from tiles that the threads copy into shared
+//   memory themselves.
 // * flash_attention_f32<D> — f32: the same algorithm on the CUDA cores
 //   (no TF32), tiles of 64 q rows and 32 kv rows in shared memory.
 //
@@ -374,18 +378,19 @@ __global__ void __launch_bounds__(kThreads32) flash_attention_f32(Params p) {
   }
 }
 
-// ---- The TMA + wgmma kernel (bf16, D in {64, 128}) -----------------------
+// ---- The TMA + wgmma kernel (bf16, D in {64, 128, 256}) ------------------
 
 constexpr int kTmaBK = 64;       // kv rows per tile: the reference's kv block
-constexpr int kStages = 4;       // K/V ring depth
 constexpr int kBoxBytes = 128;   // one TMA box row: 64 bf16, the 128-byte swizzle span
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // setmaxnreg, two consumer warpgroups
 
 // Shared memory of one block, in bytes from a 1024-aligned base (the
 // 128-byte swizzle repeats every 1024 bytes). A tile of R rows is D / 64
-// boxes of R x 128 bytes, one after the other.
+// boxes of R x 128 bytes, one after the other. kStages: the K/V ring's
+// depth, as deep as 232,448 bytes allow up to 4.
 template <int D, int kC>
 struct TmaSmem {
+  static constexpr int kStages = D < 256 ? 4 : (kC == 2 ? 2 : 3);
   static constexpr int kBoxes = D / 64;
   static constexpr int kQRows = 64 * kC;
   static constexpr int kQBox = kQRows * kBoxBytes;   // one 64-column box of the q tile
@@ -398,6 +403,7 @@ struct TmaSmem {
   static constexpr int kBar = kV + kStages * kKVBytes;  // q_full, k_full[], v_full[], k_empty[], v_empty[]
   static constexpr int kBytes = kBar + 8 * (1 + 4 * kStages);
   static constexpr int kAlloc = kBytes + 1024;          // room to align the base
+  static_assert(kAlloc <= 232448, "a block may use 227 KB of shared memory");
 };
 
 struct TmaParams {
@@ -608,14 +614,24 @@ __device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t q_wg, uint32_t
 
 // O += P V over one V stage, issued: V is [kv, d], the product's K by N
 // with N contiguous, so B is read N-major (transposed); each k16 step is 16
-// rows (2048 bytes) on, and the next 64 columns of d are the next box.
+// rows (2048 bytes) on, and the next 64 columns of d are the next box. At
+// D 256 each k16 step is two m64n128k16 products, one a 128-column half of
+// O (its accumulator layout is the first and the second 64 registers).
 template <int D>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)[16], uint32_t v_st) {
   hold(o);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kTmaBK / 16; ++kk)
-    wgmma_rs(o, pa + 4 * kk, desc_sw128(v_st + kk * 16 * kBoxBytes, kTmaBK * kBoxBytes, 1024));
+  for (int kk = 0; kk < kTmaBK / 16; ++kk) {
+    const uint32_t v_k = v_st + kk * 16 * kBoxBytes;
+    if constexpr (D == 256) {
+      wgmma_rs(*reinterpret_cast<float(*)[64]>(&o[0]), pa + 4 * kk, desc_sw128(v_k, kTmaBK * kBoxBytes, 1024));
+      wgmma_rs(*reinterpret_cast<float(*)[64]>(&o[64]), pa + 4 * kk,
+               desc_sw128(v_k + 2 * kTmaBK * kBoxBytes, kTmaBK * kBoxBytes, 1024));
+    } else {
+      wgmma_rs(o, pa + 4 * kk, desc_sw128(v_k, kTmaBK * kBoxBytes, 1024));
+    }
+  }
   wgmma_commit();
 }
 
@@ -645,6 +661,7 @@ __global__ void __launch_bounds__(128 * (kC + 1), 1)
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base + L::kQ, sK = base + L::kK, sV = base + L::kV;
   const uint32_t q_full = base + L::kBar;
+  constexpr int kStages = L::kStages;
   const uint32_t k_full = q_full + 8, v_full = k_full + 8 * kStages;
   const uint32_t k_empty = v_full + 8 * kStages, v_empty = k_empty + 8 * kStages;
 
@@ -934,7 +951,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
   }
 }
 
-// The TMA + wgmma kernel: bf16, D in {64, 128}, q_rows (q rows per block)
+// The TMA + wgmma kernel: bf16, D in {64, 128, 256}, q_rows (q rows per block)
 // 64 or 128, the rest as above. Encodes the three tensor maps, then
 // launches.
 int flash_attention_tma_launch(const void* q, const void* k, const void* v, void* o,
@@ -949,11 +966,15 @@ int flash_attention_tma_launch(const void* q, const void* k, const void* v, void
   // Shapes with rows that see no key take the kEmpty instantiations, so the
   // epilogue of the others is the one the serving path was tuned with.
   if (vmean != nullptr) {
+    if (D == 256 && q_rows == 128) return launch_tma<256, 2, true>(m, p, B, s);
+    if (D == 256 && q_rows == 64) return launch_tma<256, 1, true>(m, p, B, s);
     if (D == 128 && q_rows == 128) return launch_tma<128, 2, true>(m, p, B, s);
     if (D == 128 && q_rows == 64) return launch_tma<128, 1, true>(m, p, B, s);
     if (D == 64 && q_rows == 128) return launch_tma<64, 2, true>(m, p, B, s);
     if (D == 64 && q_rows == 64) return launch_tma<64, 1, true>(m, p, B, s);
   } else {
+    if (D == 256 && q_rows == 128) return launch_tma<256, 2, false>(m, p, B, s);
+    if (D == 256 && q_rows == 64) return launch_tma<256, 1, false>(m, p, B, s);
     if (D == 128 && q_rows == 128) return launch_tma<128, 2, false>(m, p, B, s);
     if (D == 128 && q_rows == 64) return launch_tma<128, 1, false>(m, p, B, s);
     if (D == 64 && q_rows == 128) return launch_tma<64, 2, false>(m, p, B, s);

@@ -11,14 +11,15 @@ with no padding.
 Which kernel runs is decided by shape alone (``variant``), never by trying
 one and then another:
 
-* bf16 with D in {64, 128} → ``"tma_wgmma"``: TMA loads through an
+* bf16 with D in {64, 128, 256} → ``"tma_wgmma"``: TMA loads through an
   mbarrier ring and wgmma for both products, warp-specialised. Its q tile
   (``q_rows``) is 128 rows (two consumer warpgroups) unless the grid of
   128-row tiles, ``ceil(S / 128) * H * B`` blocks, is smaller than the
   H100's 132 SMs; then it is 64 rows (one consumer warpgroup), which
   doubles the blocks.
-* bf16 with D in {32, 256} → ``"mma_sync"``: mma.sync m16n8k16 with
-  synchronous tile loads.
+* bf16 with D 32 → ``"mma_sync"``: mma.sync m16n8k16 with synchronous tile
+  loads. It takes every D, so ``_launch(..., kind="mma_sync")`` can time
+  it beside the TMA kernel.
 * f32 → ``"f32_simt"``: the CUDA cores, no TF32.
 
 ``flash_attention.launches`` counts the kernel launches and
@@ -38,7 +39,7 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 __all__ = ["flash_attention", "variant", "q_rows", "has_empty_rows", "HEAD_DIMS", "TMA_HEAD_DIMS", "DTYPES", "VARIANTS"]
 
 HEAD_DIMS = (32, 64, 128, 256)
-TMA_HEAD_DIMS = (64, 128)
+TMA_HEAD_DIMS = (64, 128, 256)
 DTYPES = (torch.bfloat16, torch.float32)
 VARIANTS = ("tma_wgmma", "mma_sync", "f32_simt")
 NUM_SMS = 132  # H100 SXM

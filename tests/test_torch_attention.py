@@ -71,6 +71,7 @@ ATTN_CASES = [
     (2, 256, 256, 4, 4, 32, True, 64),  # MHA + sliding window
     (1, 128, 384, 4, 2, 64, False, 0),  # cross attention, T > S
     (1, 192, 192, 6, 2, 64, True, 0),  # 192 rows: three 64-row tiles
+    (1, 256, 256, 10, 1, 256, True, 64),  # recurrentgemma-2b's heads: 10 q, 1 kv of 256, a window
 ]
 
 
@@ -159,8 +160,9 @@ def test_flash_attention_window_skips_only_empty_tiles():
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
 
 
-# tests/test_kernels.py's shapes: (b, t, h, kh, dh).
-DECODE_CASES = [(2, 1024, 8, 2, 64), (4, 512, 4, 1, 128), (2, 768, 16, 16, 32)]
+# tests/test_kernels.py's shapes, then recurrentgemma-2b's heads (10 q, 1 kv
+# of 256) at a short ring: (b, t, h, kh, dh).
+DECODE_CASES = [(2, 1024, 8, 2, 64), (4, 512, 4, 1, 128), (2, 768, 16, 16, 32), (2, 512, 10, 1, 256)]
 
 
 @pytest.mark.parametrize("case", DECODE_CASES, ids=lambda c: "b{}t{}h{}kh{}d{}".format(*c))

@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.chunk_replay import ops as cr_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
 from repro_torch.kernels.latency_histogram import ops as lh_ops  # noqa: E402
 from repro_torch.kernels.moe_router import ops as mr_ops  # noqa: E402
 from repro_torch.kernels.trace_window import ops as tw_ops  # noqa: E402
@@ -53,7 +54,7 @@ def test_build_hash_covers_each_kernels_own_flags(name, monkeypatch):
 
 @pytest.mark.parametrize("dtype,head_dim,want", [
     (torch.bfloat16, 64, "tma_wgmma"), (torch.bfloat16, 128, "tma_wgmma"),
-    (torch.bfloat16, 32, "mma_sync"), (torch.bfloat16, 256, "mma_sync"),
+    (torch.bfloat16, 32, "mma_sync"), (torch.bfloat16, 256, "tma_wgmma"),
     (torch.float32, 32, "f32_simt"), (torch.float32, 64, "f32_simt"),
     (torch.float32, 128, "f32_simt"), (torch.float32, 256, "f32_simt"),
 ])
@@ -83,6 +84,61 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     out = fa_ops.flash_attention(q, k, k)
     assert out.shape == q.shape and out.dtype == q.dtype
     assert (fa_ops.flash_attention.launches, fa_ops.flash_attention.launches_by_variant) == before
+
+
+# (b, kh, t): recurrentgemma-2b's rings, qwen3-1.7b's serving cache and its
+# 32,768-slot shape, whisper-base's cross and self caches, and short, long,
+# ragged and one-sequence caches.
+DECODE_GRIDS = [(8, 1, 2048), (16, 8, 8192), (128, 8, 32768), (8, 8, 1500), (8, 8, 448), (2, 1, 512),
+                (1, 1, 100), (1, 1, 63), (1, 1, 10_000), (4, 1, 2048), (3, 1, 700), (1, 8, 4096),
+                (2, 2, 130), (16, 1, 64), (2, 8, 3000)]
+
+
+@pytest.mark.parametrize("b,kh,t", DECODE_GRIDS)
+def test_flash_decode_splits_cover_the_cache_and_fill_the_card(b, kh, t):
+    """Splits of whole tiles, at most MAX_SPLIT positions, that cover T
+    exactly (the last may be short); B x KH x splits reaches the 132 SMs
+    wherever T has the tiles for it, with the longest split that does."""
+    length, n = fd_ops.split_length(b, kh, t), fd_ops.num_splits(b, kh, t)
+    assert length % fd_ops.TILE == 0 and fd_ops.TILE <= length <= fd_ops.MAX_SPLIT
+    assert (n - 1) * length < t <= n * length
+    tiles = -(-t // fd_ops.TILE)
+    if b * kh * tiles >= fd_ops.NUM_SMS:
+        assert b * kh * n >= fd_ops.NUM_SMS
+        if length < fd_ops.MAX_SPLIT:
+            assert b * kh * -(-t // (length + fd_ops.TILE)) < fd_ops.NUM_SMS
+    else:
+        assert length == fd_ops.TILE  # as many splits as there are tiles
+    if b * kh * -(-t // fd_ops.MAX_SPLIT) >= fd_ops.NUM_SMS:
+        assert length == fd_ops.MAX_SPLIT
+
+
+def test_flash_decode_splits_at_the_serving_shapes():
+    """recurrentgemma-2b's rings (8 lanes, 1 kv head, 2,048 slots): 32
+    splits of one tile, 256 blocks; qwen3-1.7b's serving cache (16 lanes, 8
+    kv heads, 8,192 slots): 32 splits of 256, 4,096 blocks."""
+    assert (fd_ops.split_length(8, 1, 2048), fd_ops.num_splits(8, 1, 2048)) == (64, 32)
+    assert (fd_ops.split_length(16, 8, 8192), fd_ops.num_splits(16, 8, 8192)) == (256, 32)
+
+
+@pytest.mark.parametrize("group,want", [(1, 1), (2, 1), (10, 1), (16, 1), (17, 2), (40, 3), (96, 6)])
+def test_flash_decode_block_holds_every_head_of_its_kv_head_up_to_sixteen(group, want):
+    assert fd_ops.head_groups(group) == want
+
+
+def test_flash_decode_wrapper_constants_match_the_kernel():
+    source = _build.KERNEL_SOURCES["flash_decode"].read_text()
+    assert re.search(rf"constexpr int kTile = {fd_ops.TILE};", source)
+    assert re.search(rf"constexpr int kHeads = {fd_ops.MAX_HEADS};", source)
+
+
+def test_flash_decode_cpu_tensors_take_the_plain_version_and_count_no_launch():
+    before = fd_ops.flash_decode.launches
+    q = torch.zeros((2, 4, 64), dtype=torch.bfloat16)
+    k = torch.zeros((2, 9, 2, 64), dtype=torch.bfloat16)
+    out = fd_ops.flash_decode(q, k, k, torch.tensor([3, 0], dtype=torch.int32))
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert fd_ops.flash_decode.launches == before
 
 
 @pytest.mark.parametrize("s,t,window,want", [
@@ -231,6 +287,7 @@ def _c_params(source: str, fn: str) -> list:
     ("moe_router", "moe_router_launch", mr_ops._ARGTYPES),
     ("flash_attention", "flash_attention_launch", fa_ops._ARGTYPES),
     ("flash_attention", "flash_attention_tma_launch", fa_ops._ARGTYPES),
+    ("flash_decode", "flash_decode_launch", fd_ops._ARGTYPES),
     ("latency_histogram", "latency_histogram_launch", lh_ops._ARGTYPES),
     ("latency_histogram", "latency_histogram_resident", lh_ops._RESIDENT_ARGTYPES),
     ("latency_histogram", "latency_histogram_thresholds_launch", lh_ops._THRESHOLD_ARGTYPES),

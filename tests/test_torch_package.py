@@ -949,7 +949,7 @@ def _scaled_bar(want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 128, 256])
 @pytest.mark.parametrize("q_rows", [64, 128])
 @pytest.mark.parametrize(
     "b,s,t,h,kh,causal,window",
@@ -957,7 +957,7 @@ def _scaled_bar(want):
      (2, 128, 384, 8, 1, False, 0), (1, 200, 77, 4, 2, False, 0), (1, 65, 65, 2, 1, True, 64)],
 )
 def test_flash_attention_tma_kernel_matches_plain_version(cuda, b, s, t, h, kh, dh, causal, window, q_rows):
-    """The TMA/wgmma kernel at D 64 and 128, through both of its q tiles:
+    """The TMA/wgmma kernel at D 64, 128 and 256, through both of its q tiles:
     ragged causal S, a window, non-causal T != S (longer and shorter than
     S), GQA groups 1 to 8; bf16 to 2e-2 and to half of the output-scaled bar."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -978,7 +978,7 @@ def test_flash_attention_tma_kernel_matches_plain_version(cuda, b, s, t, h, kh, 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant,dtype,dh", [
     ("f32_simt", torch.float32, 64), ("mma_sync", torch.bfloat16, 32), ("mma_sync", torch.bfloat16, 256),
-    ("tma_wgmma", torch.bfloat16, 64), ("tma_wgmma", torch.bfloat16, 128),
+    ("tma_wgmma", torch.bfloat16, 64), ("tma_wgmma", torch.bfloat16, 128), ("tma_wgmma", torch.bfloat16, 256),
 ])
 @pytest.mark.parametrize("b,s,t,h,kh,causal,window", [
     (1, 256, 64, 4, 2, True, 16), (2, 192, 128, 4, 2, False, 24), (1, 1000, 100, 8, 2, True, 30),
@@ -989,11 +989,13 @@ def test_flash_attention_rows_without_keys_are_the_mean_of_v(cuda, variant, dtyp
     in q tiles with no kv tile to visit and inside tiles that visit some.
     Every variant (the TMA one through both q tiles) gives them the mean of
     v over T, as the plain version does; f32 to 2e-5, bf16 to 2e-2 and, for
-    the TMA kernel, to half of the output-scaled bar."""
+    the TMA kernel, to half of the output-scaled bar. ``mma_sync`` at D 256,
+    no longer the dispatch's choice there, is launched by name."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-    assert fa_ops.variant(dtype, dh) == variant and fa_ops.has_empty_rows(s, t, window)
+    named = (variant, dh) == ("mma_sync", 256)
+    assert (fa_ops.variant(dtype, dh) == variant) != named and fa_ops.has_empty_rows(s, t, window)
     q, k, v = _attention_inputs(b, s, t, h, kh, dh, dtype, cuda, seed=s + t + dh)
     want = flash_attention_ref(q, k, v, causal=causal, window=window)
     tiles = (64, 128) if variant == "tma_wgmma" else (None,)
@@ -1015,9 +1017,10 @@ def test_flash_attention_rows_without_keys_are_the_mean_of_v(cuda, variant, dtyp
                                          (3, 700, 12, 1, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode_kernel_matches_plain_version(cuda, b, t, h, kh, dh, dtype):
-    """tests/test_kernels.py's shapes, the serving shape, G = 12 (two head
-    groups) at D = 256; lengths random with 1 and one past T, and 0 (every
-    position masked: the mean of v) where there are three sequences or more."""
+    """tests/test_kernels.py's shapes, the serving shape, G = 12 at D = 256
+    (one block holds the 12 heads); lengths random with 1 and one past T,
+    and 0 (every position masked: the mean of v) where there are three
+    sequences or more."""
     from repro_torch.kernels.flash_decode.ops import flash_decode
     from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 
@@ -1034,6 +1037,43 @@ def test_flash_decode_kernel_matches_plain_version(cuda, b, t, h, kh, dh, dtype)
     torch.cuda.synchronize()
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,g", [(8, 2048, 10, 10), (5, 1000, 16, 16), (2, 300, 40, 20)])
+@pytest.mark.parametrize("split", [None, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_kernel_holds_the_groups_of_recurrentgemma(cuda, b, t, h, g, split, dtype):
+    """recurrentgemma-2b's group of 10 q heads a kv head at D 256 (its rings
+    are 2,048 slots), a group of 16 and one of 20 (two head groups of 10);
+    lengths 0, 1, T + 7, T and random; the split rule's splits and longer
+    and shorter ones, so rows of one split, of a few and of 32 are merged.
+    One launch a call; the result is the same bits call after call, and the
+    merge's counters are 0 after it."""
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+
+    rng = np.random.default_rng(t + g)
+    kh = h // g
+    q = torch.from_numpy(rng.standard_normal((b, h, 256)).astype(np.float32)).to(cuda, dtype)
+    _, k, v = _attention_inputs(b, 1, t, h, kh, 256, dtype, cuda, seed=t + g)
+    lengths = rng.integers(1, t, b).astype(np.int32)
+    lengths[:4] = (0, 1, t + 7, t)[:b]
+    lengths = torch.from_numpy(lengths).to(cuda)
+    before = fd_ops.flash_decode.launches
+    got = fd_ops._launch(q, k, v, lengths, split)
+    again = fd_ops._launch(q, k, v, lengths, split)
+    want = flash_decode_ref(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert fd_ops.flash_decode.launches == before + 2
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(got, again)
+    mean_v = v[0].float().mean(dim=0).repeat_interleave(g, dim=0)  # length 0: the mean of v
+    torch.testing.assert_close(got[0].float(), mean_v, atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        assert float(((got.float() - want.float()).abs() / _scaled_bar(want)).max()) <= 1.0
+    assert all(int(buf.abs().sum()) == 0 for buf in fd_ops._counters.values())
 
 
 @pytest.mark.cuda
