@@ -7,83 +7,89 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds the CUDA kernels from the sources in the checkout, holds each
 against its plain PyTorch version on the card, drives ``run_scenario`` at
-the paper's size (card against CPU, telemetry on) and at full size (100 M
-requests over a 1 M-key metadata store on the card): first without
-telemetry (phase 4), then with ``TelemetryConfig()`` for Redynis and static
-remote and with the M/M/1 contention model for Redynis (phase 5), each
-full-size run held against the same run through the plain versions on the
-card. Phase 6 drives Redynis on ML state at deepseek-moe-16b widths: 100
-steps of 32,768 Zipf tokens through the hot-row embedding cache and 4
-full-width MoE layers, both placement daemons folded every step and swept
-every 50, held every step against the same steps through the plain
-versions. Phase 7 serves qwen3-1.7b at full width and all 28 layers through
-``launch/serve.py``'s loop (32 requests to a 16-lane ``ServeEngine`` with
-an 8,192-slot cache behind a 4-pod ``SessionRouter`` whose leader fails
-half-way), first
-on the kernel path alone with its launches counted, then with every
-prefill's and every 8th decode step's attention held against the plain
-versions beside a teacher-forced plain-version engine. Phase 8 runs the
-paper's experiment grid: ``run_experiment`` for Figures 2 and 3 at the
+the paper's size (card against CPU, telemetry on) and at full size (the
+first 10 M requests of a 100 M-request trace over a 1 M-key metadata store
+on the card; the kernels timed on the whole trace): first without telemetry
+(phase 4), then with ``TelemetryConfig()`` for Redynis and static remote
+and with the M/M/1 contention model for Redynis (phase 5), each full-size
+run held against the same run through the plain versions on the card. Phase
+6 drives Redynis on ML state at deepseek-moe-16b widths: 50 steps of 32,768
+Zipf tokens through the hot-row embedding cache and 4 full-width MoE
+layers, both placement daemons folded every step and swept every 25, held
+every step against the same steps through the plain versions. Phase 7
+serves qwen3-1.7b at full width and all 28 layers through
+``launch/serve.py``'s loop (8 requests to a 16-lane ``ServeEngine`` with an
+8,192-slot cache behind a 4-pod ``SessionRouter`` whose leader fails
+half-way), first on the kernel path alone with its launches counted, then
+with every prefill's and every 8th decode step's attention held against the
+plain versions beside a teacher-forced plain-version engine. Phase 8 runs
+the paper's experiment grid: ``run_experiment`` for Figures 2 and 3 at the
 paper's size (card against the CPU port on the same traces), the policy
 head-to-head of ``benchmarks/policy_matrix.py`` and the budgets of
-``benchmarks/capacity_sweep.py`` at 1 M keys and 10 M requests (held
+``benchmarks/capacity_sweep.py`` at 1 M keys and 2.5 M requests (held
 against the plain-version engine), with the capacity projection's device
 time a sweep. Phase 10 drives the routing tier and failure injection:
 ``benchmarks/directory_staleness.py`` and ``availability.py`` at their
 default sizes (card against the CPU port, and the benchmarks' own checks),
 then publish lags, a bounded router cache, a region crash and a partition
-at 10 M requests over 1 M keys, each Redynis row held against the
+at 2.5 M requests over 1 M keys, each Redynis row held against the
 plain-version engine. Phase 2 also holds ``chunk_replay`` on empty replica
 rows and on the fault path's operands (negative ``extra_ms``, refused rows,
 a dead node's column), and ``flash_attention``'s TMA/wgmma kernel through
 every mask at D 128 and 64, and phase 7 checks that every prefill layer
-went through it. It times
-each kernel (phase 9 prints the record): attention beside SDPA at every
-prefill length, the sweep on int32 and f32 counts, the histogram at the
-static path's full-size shape on its own latencies and on log-uniform
-ones, in the flat form and in 997-row chunks. Phase 2 holds the
-histogram's threshold count against the bin rule on all 2**32 f32 bit
-patterns at five settings (two of them the cost attribution's), the
-attribution fold (80 groups a launch) and the ``trace_window`` kernel (a
-window of a trace from its threefry stream; uniform and skewed, one and five
-nodes, diurnal, a window past the trace and one at 2**30) against their plain
-versions. Phase 11 drives cost attribution, the flight recorder and streamed
-traces: ``benchmarks/latency_attribution.py`` at its defaults (card against
-the CPU port, the component-sum check, the exports byte for byte), its four
-policies at 1 M keys and 10 M requests (against the plain-version engine),
+went through it. It times each kernel (phase 9 prints the record):
+attention beside SDPA at every prefill length, the sweep on int32 and f32
+counts, the histogram at the static path's full-size shape on its own
+latencies and on log-uniform ones, in the flat form and in 997-row chunks.
+Phase 2 holds the histogram's threshold count against the bin rule on all
+2**32 f32 bit patterns at five settings (two of them the cost
+attribution's), the attribution fold (80 groups a launch) and the
+``trace_window`` kernel (a window of a trace from its threefry stream;
+uniform and skewed, one and five nodes, diurnal, a window past the trace
+and one at 2**30) against their plain versions. Phase 11 drives cost
+attribution, the flight recorder and streamed traces:
+``benchmarks/latency_attribution.py`` at its defaults (card against the CPU
+port, the component-sum check, the exports byte for byte), its four
+policies at 1 M keys and 2.5 M requests (against the plain-version engine),
 static policies at 100 M requests on the whole-trace path, and a streamed
-100 M-request Redynis run against the materialized one, bit for bit, with
+10 M-request Redynis run against the materialized one, bit for bit, with
 their peak memory. Phase 12 drives the key-sharded engine on ranks that
 share the card (``repro_torch.spmd.run_ranks``, gloo): the sharded test
-scenario at 2 and 4 ranks against the CPU port's one-rank run, the
-streamed trendline shape of ``benchmarks/engine_throughput.py`` at 10**7
-keys on 2 ranks (routing off, on, and with a bounded cache) against the
-card's one-rank run, with wall time, launches and collectives a chunk and
-each rank's peak memory, and ``publish_and_fill`` on 2 ranks at 10**6
-objects against its one-process path. Phase 13 trains through
+scenario at 2 and 4 ranks against the CPU port's one-rank run, the streamed
+trendline shape of ``benchmarks/engine_throughput.py`` at 10**7 keys and 5
+x 10**5 requests on 2 ranks (routing off, on, and with a bounded cache)
+against the card's one-rank run, with wall time, launches and collectives a
+chunk and each rank's peak memory, and ``publish_and_fill`` on 2 ranks at
+10**6 objects against its one-process path. Phase 13 trains through
 ``Trainer.run``: deepseek-moe-16b at full width (4 layers, remat, the sort
-dispatch, then the einsum dispatch) for 12 + 3 steps of 32,768 Zipf tokens,
-through a sweep of both placement daemons at step 10 (held exactly against
-plain daemons fed the same traffic), and qwen3-1.7b at full width and depth
-through a checkpoint at step 3 and a resume that replays steps 4-6; steps 1
-and 11 of the first and step 1 of the second are held against the kernels'
-plain versions (the loss, every gradient, and the router weights' gradient
-against the aux term's alone). Phase 14 serves the four other families
-through ``ServeEngine`` behind the router: rwkv6-1.6b, recurrentgemma-2b and
-whisper-base at full width and depth, llava-next-34b at full width and 30
-of its 60 layers; rwkv6-1.6b is held against the CPU port and its chunked
-form against its step form, the others' attention against the plain
-versions beside a teacher-forced plain engine, and llava-next-34b's int8
-decode against its bf16 decode and against the plain versions. Every phase
-raises on a mismatch
-and prints its duration; the script exits non-zero without a CUDA device
-or outside a checkout. The last line of its output is the JSON device
-record.
+dispatch, then the einsum dispatch) for 7 + 3 steps of 32,768 Zipf tokens,
+through a sweep of both placement daemons at step 5 (held exactly against
+plain daemons fed the same traffic), and qwen3-1.7b at full width and 14 of
+its 28 layers through a checkpoint at step 2 and a resume that replays
+steps 3-4; steps 1 and 6 of the first and step 1 of the second are held
+against the kernels' plain versions (the loss, every gradient, and the
+router weights' gradient against the aux term's alone). Phase 14 serves the
+four other families through ``ServeEngine`` behind the router: rwkv6-1.6b,
+recurrentgemma-2b and whisper-base at full width and depth, llava-next-34b
+at full width and 12 of its 60 layers; rwkv6-1.6b is held against the CPU
+port and its chunked form against its step form, the others' attention
+against the plain versions beside a teacher-forced plain engine, and
+llava-next-34b's int8 decode against its bf16 decode and against the plain
+versions. Phase 15 trains those four families at full width: rwkv6-1.6b at
+6 of its 24 layers and recurrentgemma-2b at full depth through
+``Trainer.run`` (4,096-token rows, the hot-row daemon sweeping, held
+exactly against a plain daemon), whisper-base at full depth and
+llava-next-34b at 4 of its 60 layers through ``Trainer.step`` on
+``make_batch`` batches of the train_4k cell; each first step is held
+against the kernels' plain versions. Every phase raises on a mismatch and
+prints its duration; the script exits non-zero without a CUDA device or
+outside a checkout. The last line of its output is the JSON device record.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import subprocess
@@ -104,13 +110,23 @@ F32_OPS_PER_S = 67e12  # H100 SXM f32 rate outside the tensor cores (NVIDIA data
 FULL_REQUESTS = 100_000_000
 FULL_KEYS = 1_000_000
 FULL_INTERVAL = 10_000
+# The Redynis drives of phases 4, 5 and 11 (c) (each with its plain-version
+# run) replay the first DRIVE_REQUESTS of a 100 M-request trace over the
+# 1 M-key store; the kernels are still timed on the whole trace. Reduced:
+# 100 M -> 10 M requests, for the script's time limit (the drives at 100 M
+# took about 240 s of a 1,061 s run on an NVIDIA H100 80GB HBM3 machine).
+DRIVE_REQUESTS = 10_000_000
+# Phase 11 (c): generate_trace on the card against the CPU port; reduced:
+# 5 M -> 1 M requests (the CPU port took 13.6 s at 5 M).
+GEN_CHECK_REQUESTS = 1_000_000
 # Phase 12: benchmarks/engine_throughput.py's trendline shape at its spec
-# scale of 10**7 keys; reduced: 10**8 -> 2 x 10**6 requests (200 chunks),
+# scale of 10**7 keys; reduced: 10**8 -> 5 x 10**5 requests (50 chunks),
 # interval 1,000 -> 10,000, for the time limit (at 10**7 requests the phase
-# took 163 s; at 4 x 10**6, 126 s, cut again for phase 13's time). The
-# bounded cache runs the admission fold.
+# took 163 s; at 4 x 10**6, 126 s, cut again for phase 13's time; at
+# 2 x 10**6, 115 s, cut to 5 x 10**5 for the time limit). The bounded cache
+# runs the admission fold.
 SHARD_KEYS = 10_000_000
-SHARD_REQUESTS = 2_000_000
+SHARD_REQUESTS = 500_000
 SHARD_INTERVAL = 10_000
 SHARD_CACHE = 100_000
 PUBLISH_OBJECTS, PUBLISH_PAYLOAD, PUBLISH_SLOTS = 1_000_000, 64, 1024
@@ -118,8 +134,9 @@ PUBLISH_OBJECTS, PUBLISH_PAYLOAD, PUBLISH_SLOTS = 1_000_000, 64, 1024
 # on benchmarks/common.py's WAN5_WORKLOAD_KWARGS; capacity_sweep.py's
 # budgets (KiB) at 1,000 times its keys.
 # policy_matrix and capacity_sweep at full key scale; reduced: 10 M -> 5 M
-# requests (phases 8, 10 and 11 with it), for phase 13's time.
-GRID_REQUESTS = 5_000_000
+# requests (phases 8, 10 and 11 with it), for phase 13's time, then 5 M ->
+# 2.5 M for the time limit.
+GRID_REQUESTS = 2_500_000
 GRID_ITERATIONS = 3
 MATRIX_SPECS = ("local", "remote", "replicated", "redynis", "redynis:h=0.05,decay=0.9",
                 "topk:k=100", "costgreedy", "decaylfu:alpha=0.5", "sizeaware")
@@ -128,21 +145,26 @@ CAPACITY_KIB = (float("inf"), 256_000, 128_000, 64_000, 32_000, 16_000)
 EDGE_CAPACITY_BYTES = 64 * 1024.0 * 1_000
 ML_LAYERS = 4  # deepseek-moe-16b has 28; cut for the time limit shared with the other phases
 ML_BATCH, ML_SEQ = 16, 2048  # 32,768 tokens per step
-ML_STEPS = 100  # two sweeps at sweep_period 50; reduced: 150 -> 100 for phase 13's time
+# two sweeps at sweep_period 25; reduced: 150 -> 100 steps for phase 13's
+# time, then 100 -> 50 with the sweep period 50 -> 25 for the time limit
+ML_STEPS, ML_SWEEP_PERIOD = 50, 25
 ML_NODES = 4
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
 # Phase 13: training through Trainer.run. (a) deepseek-moe-16b at full width;
-# reduced: 28 -> 4 layers (as phase 6 cuts), 12 + 3 steps with the daemons'
-# sweep_period 50 -> 10 (a step takes 2.54 s on the card, and 22 steps with a
-# sweep at 20 took the phase to 189 s). (b) qwen3-1.7b at full width and
-# depth; reduced: 6 steps of 4 x 2048 tokens.
+# reduced: 28 -> 4 layers (as phase 6 cuts), 7 + 3 steps with the daemons'
+# sweep_period 50 -> 5 (a step takes 2.54 s on the card; 22 steps with a
+# sweep at 20 took the phase to 189 s, and 12 + 3 with a sweep at 10 to 171 s,
+# cut again for phase 15's time). (b) qwen3-1.7b at full width; reduced:
+# 4 steps of 4 x 2048 tokens (6 before phase 15), the checkpoint at step 2,
+# and 28 -> 14 layers for the time limit (at 28 the checkpoint's save and
+# restore took 28 s of the phase's 101).
 TRAIN_LAYERS = ML_LAYERS
 TRAIN_BATCH, TRAIN_SEQ = 16, 2048
-TRAIN_SWEEP_PERIOD = 10
-TRAIN_STEPS = 12  # both daemons sweep at step 10; steps 11-12 run the hot path
+TRAIN_SWEEP_PERIOD = 5
+TRAIN_STEPS = 7  # both daemons sweep at step 5; steps 6-7 run the hot path
 TRAIN_EINSUM_STEPS = 3
-TRAIN_CHECK_STEPS = (1, 11)
-DENSE_BATCH, DENSE_STEPS, DENSE_CKPT_STEP = 4, 6, 3
+TRAIN_CHECK_STEPS = (1, 6)
+DENSE_BATCH, DENSE_STEPS, DENSE_CKPT_STEP, DENSE_LAYERS = 4, 4, 2, 14
 # Kernel path against the plain versions on the same state and batch: the
 # loss to 1e-3 relative and each leaf's gradient to 5e-2 relative L2 (bf16
 # activations; the kernel's gates differ from the plain version's by f32
@@ -156,7 +178,13 @@ SERVE_ARCH = "qwen3-1.7b"  # full width and all 28 layers
 SERVE_LANES, SERVE_CACHE = 16, 8192
 # reduced: 96 -> 64 requests (for phase 13's time) -> 32 over 16 sessions
 # (for phase 14's; its lockstep with the plain versions took 73 of 110 s)
-SERVE_REQUESTS, SERVE_SESSIONS, SERVE_PODS = 32, 16, 4
+# -> 8 over 4 sessions, for the time limit (16 took the phase to 96 s on a
+# slow host)
+SERVE_REQUESTS, SERVE_SESSIONS, SERVE_PODS = 8, 4, 4
+# The router ticks once a request and sweeps every SERVE_SWEEP_PERIOD ticks:
+# in an 8-request drive once before the leader fails and once after (every
+# 16 ticks before the drives were cut to 8 requests).
+SERVE_SWEEP_PERIOD = 4
 SERVE_PROMPT = (512, 4096)  # prompt lengths, uniform, inclusive
 SERVE_MAX_NEW = 64
 SERVE_FAIL_POD = 3  # the first leader (the highest id), killed half-way
@@ -172,20 +200,21 @@ SERVE_PREFILL_LENS = (512, 1024, 2048, 3001, 4096)
 # each at full width; rwkv6-1.6b, recurrentgemma-2b and whisper-base at full
 # depth. Reduced: llava-next-34b 60 -> 30 layers (its bf16 params at 30
 # layers are 35.3 GB and their int8 copy 17.7 GB, both beside the caches for
-# the int8 comparison; 60 layers in bf16 alone are 68.8 GB); every drive
-# 16 requests over 8 sessions (llava-next-34b 8 over 4, on 2 lanes) where
-# phase 7 serves 64 over 32, for the script's time limit. An RWKV-6 prompt of
+# the int8 comparison; 60 layers in bf16 alone are 68.8 GB), then 30 -> 12
+# for the time limit (it took 43 s of the phase's 107 at 30); every drive
+# 8 requests over 4 sessions (16 over 8 before the cuts for the time limit;
+# llava-next-34b on 2 lanes), as phase 7 serves 8 over 4. An RWKV-6 prompt of
 # 32 tokens or more must be a multiple of 32 (the reference asserts it), so
 # its lengths are drawn in steps of 32. ``cache`` is the KV cache's slots:
 # recurrentgemma-2b's attention keeps rings of its 2,048-token window and
 # rwkv6-1.6b keeps no cache, so both ignore it.
-FAMILY_LAYERS = {"llava-next-34b": 30}
+FAMILY_LAYERS = {"llava-next-34b": 12}
 FAMILY_DRIVES = {
-    "rwkv6-1.6b": dict(lanes=8, cache=0, requests=16, sessions=8, prompt_len=(256, 2048),
+    "rwkv6-1.6b": dict(lanes=8, cache=0, requests=8, sessions=4, prompt_len=(256, 2048),
                        prompt_step=32, max_new=32),
-    "recurrentgemma-2b": dict(lanes=8, cache=0, requests=16, sessions=8, prompt_len=(512, 4096),
+    "recurrentgemma-2b": dict(lanes=8, cache=0, requests=8, sessions=4, prompt_len=(512, 4096),
                               prompt_step=1, max_new=64),
-    "whisper-base": dict(lanes=8, cache=512, requests=16, sessions=8, prompt_len=(64, 448),
+    "whisper-base": dict(lanes=8, cache=512, requests=8, sessions=4, prompt_len=(64, 448),
                          prompt_step=1, max_new=64),
     "llava-next-34b": dict(lanes=2, cache=4096, requests=8, sessions=4, prompt_len=512,
                            prompt_step=1, max_new=32),
@@ -211,6 +240,25 @@ FAMILY_LOGIT_TOL = {"recurrentgemma-2b": 0.25, "llava-next-34b": 0.5}
 # H100 80GB HBM3; an error of the chunked form would be of order 1).
 RWKV_CPU_LAYERS, RWKV_CPU_PROMPT, RWKV_CPU_STEPS = 2, 64, 8
 CPU_STATE_REL_L2, WKV_REL_L2 = 0.05, 1e-3
+# Phase 15: the ssm, hybrid, audio and vlm families in training, each at full
+# width. rwkv6-1.6b and recurrentgemma-2b (26 layers) through
+# Trainer.run on Pipeline batches of 4,096 tokens, the hot-row daemon
+# sweeping every "sweep" steps; whisper-base (6 + 6 layers, 1,500 frames) and
+# llava-next-34b through Trainer.step on make_batch batches of the train_4k
+# cell. Reduced: the train_4k cell's global batch 256 -> the rows one card
+# holds ("batch"; recurrentgemma-2b's peak was 55.8 GB at 1 on an H100 80GB);
+# llava-next-34b 60 -> 4 layers (as phase 13 cuts deepseek-moe-16b);
+# rwkv6-1.6b 24 -> 6 layers, for the time limit (its chunk loop is host
+# dispatch: a 24-layer step of 2 rows took 19-22 s on one NVIDIA H100 80GB
+# HBM3 machine at 700 W and its three passes 105 s on a slower host);
+# sweep_period 50 -> "sweep"; 2-3 steps, the first held against the plain
+# versions, the last profiled.
+FAMILY_TRAIN = {
+    "rwkv6-1.6b": dict(batch=2, steps=2, sweep=1, run=True, layers=6),
+    "recurrentgemma-2b": dict(batch=1, steps=3, sweep=2, run=True),
+    "whisper-base": dict(batch=8, steps=3, run=False),
+    "llava-next-34b": dict(batch=1, steps=3, run=False, layers=4),
+}
 # (d) llava-next-34b int8: 16 decode steps with bf16 and with int8 params
 # from one bf16 prefill state (the int8 run teacher-forced with the bf16
 # run's tokens), held at tests/test_beyond_paper.py's bar; then 16 int8 steps
@@ -543,7 +591,7 @@ def _plain_versions():
 
 def _profile_window(torch, trace, wl, cl, policy, run_scenario, out_dir,
                     unprofiled_chunk_ms: float, label: str = "phase 4", telemetry=None,
-                    chunks: int = 200) -> dict:
+                    chunks: int = 50) -> dict:
     """Where a full-size Redynis chunk's time goes: ``torch.profiler`` over
     the first ``chunks`` chunks of the full-size trace against the full
     1 M-key store. Prints the device time per chunk, its share of the
@@ -943,7 +991,8 @@ def _serve_engines(torch, dev, model, params, drive=SERVE_DRIVE):
     from repro_torch.serving.kvcache import state_bytes
 
     engine = ServeEngine(model, params, num_lanes=drive["lanes"], cache_len=drive["cache"])
-    router = SessionRouter(num_pods=SERVE_PODS, max_sessions=2 * drive["sessions"], sweep_period=16,
+    router = SessionRouter(num_pods=SERVE_PODS, max_sessions=2 * drive["sessions"],
+                           sweep_period=SERVE_SWEEP_PERIOD,
                            session_bytes=state_bytes(engine.state) / drive["lanes"], device=dev)
     return engine, router
 
@@ -1399,7 +1448,7 @@ def _faults_routing_phase(torch, dev, out_dir) -> dict:
     (a) ``benchmarks/directory_staleness.py`` and ``availability.py`` at
         their default sizes, each run on the card and through the port on
         the CPU on the same trace, and the benchmarks' own checks;
-    (b) full width on the card: 10 M requests over 1 M keys, 1,000 chunks,
+    (b) full width on the card: 2.5 M requests over 1 M keys, 250 chunks,
         the publish lags, a bounded cache, a region crash and a partition,
         each with its wall time, simulated requests/s and peak memory, seed
         0 of every Redynis row held against the plain-version engine, and a
@@ -1459,7 +1508,7 @@ def _faults_routing_phase(torch, dev, out_dir) -> dict:
     traces = {"diurnal": generate_trace(wl_d, 0, device=dev), "wan5": generate_trace(wl_w, 0, device=dev)}
     workloads = {"diurnal": wl_d, "wan5": wl_w}
     chunks = -(-GRID_REQUESTS // FULL_INTERVAL)
-    c0, c1 = chunks // 3, chunks * 8 // 15  # chunks [333, 533) of 1,000
+    c0, c1 = chunks // 3, chunks * 8 // 15  # chunks [83, 133) of 250
 
     def crash(mode="crash", scale=1):  # the outage, on a trace of chunks // scale chunks
         return region_outage(0, c0 // scale, (c1 - c0) // scale, mode=mode)
@@ -1653,9 +1702,11 @@ def _faults_routing_phase(torch, dev, out_dir) -> dict:
           f"max rel diff {max(r.get('plain_max_rel_diff', 0.0) for r in full_rows.values())}")
 
     print(f"phase 10 (b) runs and plain-version runs took {time.perf_counter() - t_b:.1f} s")
-    # Where each run's time goes: its first 20 chunks, the outage scaled into them.
+    # Where a run's time goes: its first 20 chunks, the outage scaled into
+    # them, for the routing tier's three shapes (no lag, a lag and a bounded
+    # cache, a region crash); reduced: 10 -> 3 rows, for the time limit.
     t_p = time.perf_counter()
-    for label, name, cl_of, pol in runs_b:
+    for label, name, cl_of, pol in (runs_b[0], runs_b[3], runs_b[5]):
         full_rows[label]["profile"] = _profile_window(
             torch, traces[name], workloads[name], wan5._replace(**cl_of(chunks // 20)), pol, run_scenario,
             out_dir, unprofiled_chunk_ms=full_rows[label]["wall_s"] * 1e3 / chunks,
@@ -1690,12 +1741,12 @@ def _attribution_stream_phase(torch, dev, out_dir) -> dict:
         CPU port: counts, histograms and flight records equal, the
         component-sum check true, the JSON-lines and Chrome-trace exports
         byte for byte;
-    (b) the same configuration at 1 M keys, 10 M requests, interval 10,000
-        (1,000 chunks), a 256,000-entry cache, each policy held against the
+    (b) the same configuration at 1 M keys, 2.5 M requests, interval 10,000
+        (250 chunks), a 256,000-entry cache, each policy held against the
         plain-version engine; static ``remote`` and ``replicated`` with
         contention only at 100 M requests on the whole-trace path;
-    (c) ``generate_trace`` on the card against the CPU port at 10 M requests
-        (diurnal wan5, lognormal sizes), and Redynis at 100 M requests over
+    (c) ``generate_trace`` on the card against the CPU port at 1 M requests
+        (diurnal wan5, lognormal sizes), and Redynis at 10 M requests over
         1 M keys streamed against materialized, every result and leaf bit
         for bit, with wall time and peak memory for each.
 
@@ -1813,7 +1864,7 @@ def _attribution_stream_phase(torch, dev, out_dir) -> dict:
     rec["paper"] = dict(rows=rows, checks=checks, wall_s=time.perf_counter() - t_a)
     print(f"phase 11 (a) took {time.perf_counter() - t_a:.1f} s")
 
-    # (b) Full width: 1 M keys, 10 M requests, 1,000 chunks, each policy held
+    # (b) Full width: 1 M keys, 2.5 M requests, 250 chunks, each policy held
     # against the plain-version engine; static policies with contention only
     # at 100 M requests on the whole-trace path.
     t_b = time.perf_counter()
@@ -1872,8 +1923,8 @@ def _attribution_stream_phase(torch, dev, out_dir) -> dict:
 
     # (c) Streamed traces.
     t_c = time.perf_counter()
-    wl_g = diurnal_workload(num_requests=GRID_REQUESTS, num_keys=FULL_KEYS, affinity=0.8, read_fraction=0.7,
-                            object_bytes_sigma=1.0)
+    wl_g = diurnal_workload(num_requests=GEN_CHECK_REQUESTS, num_keys=FULL_KEYS, affinity=0.8,
+                            read_fraction=0.7, object_bytes_sigma=1.0)
     t0 = time.perf_counter()
     g_card = generate_trace(wl_g, 5, device=dev)
     torch.cuda.synchronize()
@@ -1885,9 +1936,10 @@ def _attribution_stream_phase(torch, dev, out_dir) -> dict:
     for name in g_card._fields:
         assert torch.equal(getattr(g_card, name).cpu(), getattr(g_cpu, name)), ("generate_trace", name)
     del g_card, g_cpu
-    print(f"phase 11 (c) generate_trace ({GRID_REQUESTS} requests, diurnal wan5, lognormal sizes): card "
+    print(f"phase 11 (c) generate_trace ({GEN_CHECK_REQUESTS} requests, diurnal wan5, lognormal sizes): card "
           f"{card_gen_s:.3f} s = CPU port {cpu_gen_s:.3f} s, every field exact")
     wl_r = wan5_workload(num_requests=FULL_REQUESTS, num_keys=FULL_KEYS, read_fraction=0.9)
+    wl_rd = wl_r._replace(num_requests=DRIVE_REQUESTS)
     tcfg = TelemetryConfig()
     stream = {}
     results = {}
@@ -1896,25 +1948,25 @@ def _attribution_stream_phase(torch, dev, out_dir) -> dict:
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
-        results[mode] = card_run(wl_r, wan5_cluster(), RedynisPolicy(), FULL_INTERVAL, tcfg,
+        results[mode] = card_run(wl_rd, wan5_cluster(), RedynisPolicy(), FULL_INTERVAL, tcfg,
                                  trace_mode=mode)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() - base
-        stream[mode] = dict(wall_s=wall, sim_requests_per_s=FULL_REQUESTS / wall, own_peak_bytes=peak,
+        stream[mode] = dict(wall_s=wall, sim_requests_per_s=DRIVE_REQUESTS / wall, own_peak_bytes=peak,
                             hit_rate=results[mode][0].hit_rate)
-        print(f"phase 11 (c) redynis {FULL_REQUESTS} requests {mode}: wall {wall:.3f} s "
-              f"({FULL_REQUESTS / wall:.0f} simulated req/s, trace generation included), "
+        print(f"phase 11 (c) redynis {DRIVE_REQUESTS} requests {mode}: wall {wall:.3f} s "
+              f"({DRIVE_REQUESTS / wall:.0f} simulated req/s, trace generation included), "
               f"max_memory_allocated {peak} bytes of its own")
     for a, b in zip(results["materialized"], results["streamed"]):
         _identical(a, b, "phase 11 (c) streamed against materialized")
     # The materialized trace is 9 bytes a request (keys, nodes, read flags);
     # streamed, no [R] buffer exists, so its peak is lower by nearly that.
     saved = stream["materialized"]["own_peak_bytes"] - stream["streamed"]["own_peak_bytes"]
-    assert saved > 8 * FULL_REQUESTS, stream
+    assert saved > 8 * DRIVE_REQUESTS, stream
     print(f"phase 11 (c) streamed = materialized: every SimResult field and SimTrace leaf bit for bit; "
           f"streamed peak {stream['streamed']['own_peak_bytes']} bytes, materialized "
-          f"{stream['materialized']['own_peak_bytes']} (the [R] trace: {9 * FULL_REQUESTS} bytes)")
+          f"{stream['materialized']['own_peak_bytes']} (the [R] trace: {9 * DRIVE_REQUESTS} bytes)")
     rec["stream"] = dict(runs=stream, generate_card_s=card_gen_s, generate_cpu_s=cpu_gen_s)
     launches = {"chunk_replay": chunk_replay.launches, "ownership_sweep": ownership_sweep.launches,
                 "latency_histogram": latency_histogram.launches, "trace_window": trace_window.launches}
@@ -1963,7 +2015,7 @@ def _attribution_stream_phase(torch, dev, out_dir) -> dict:
     # flight recorder, and streamed, 20 chunks each in one profiler window.
     t_p = time.perf_counter()
     trace_r = generate_trace(wl_r._replace(num_requests=20 * FULL_INTERVAL), 0, device=dev)
-    per_chunk_ms = stream["materialized"]["wall_s"] * 1e3 / -(-FULL_REQUESTS // FULL_INTERVAL)
+    per_chunk_ms = stream["materialized"]["wall_s"] * 1e3 / -(-DRIVE_REQUESTS // FULL_INTERVAL)
     rec["profiles"] = {}
     for label, telemetry, trace in (("telemetry", tcfg, trace_r), ("attribution", attr_cfg(), trace_r),
                                     ("streamed", tcfg, None)):
@@ -1983,7 +2035,9 @@ def _shard_rank(jobs: list) -> list:
     each job is ``("scenario", args, kwargs, chunks)`` (one timed
     ``run_scenario`` call, its kernel launches and collectives counted on
     this rank), ``("profile", args, kwargs, chunks)`` (host kernel launches
-    a chunk, ``torch.profiler`` over that call) or ``("publish", spec)``
+    a chunk: ``torch.profiler``'s CUDA activity over that call, its raw
+    ``cudaLaunchKernel`` records counted without ``key_averages()``, which
+    costs about a millisecond an operator) or ``("publish", spec)``
     (``publish_and_fill`` over the group, its inputs made on the card from a
     seed). Returns one record a job."""
     import torch
@@ -2015,11 +2069,11 @@ def _shard_rank(jobs: list) -> list:
             _, args, kw, chunks = job
             if job[0] == "profile":  # after the same shape's timed run: warm
                 torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     run_scenario(*args, **kw)
                     torch.cuda.synchronize()
-                launches = sum(e.count for e in prof.key_averages()
-                               if e.key.startswith("cudaLaunchKernel"))
+                launches = sum(1 for e in prof.profiler.kineto_results.events()
+                               if e.name().startswith("cudaLaunchKernel"))
                 out.append(dict(launches_per_chunk=launches / chunks))
                 continue
             for fn in kernels.values():
@@ -2098,7 +2152,7 @@ def _sharded_phase(torch, dev, out_dir) -> dict:
         static ``local`` at 2 and 4 ranks, and at 501 keys on 2 ranks, held
         against the CPU port's one-rank run;
     (b) ``benchmarks/engine_throughput.py``'s trendline shape (skewed wan5,
-        Redynis, streamed) at 10**7 keys and 4 x 10**6 requests (interval
+        Redynis, streamed) at 10**7 keys and 5 x 10**5 requests (interval
         10,000) on 2 ranks, routing off, on
         (``RoutingConfig(publish_lag_chunks=8)``) and on with a bounded
         100,000-entry cache, each held against the card's one-rank run of
@@ -2307,8 +2361,15 @@ def _train_grads(torch, model, params, batch, hot_ids, hot_embed):
 
 
 def _rel_l2(a, b) -> float:
-    a, b = a.double(), b.double()
-    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+    """``|a - b| / |b|`` in f64, a slice of 2**26 elements at a time (an f64
+    copy of a whole embedding gradient is 3.7 GB at llava-next-34b's)."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    num = den = 0.0
+    for i in range(0, b.numel(), 1 << 26):
+        x, y = a[i:i + (1 << 26)].double(), b[i:i + (1 << 26)].double()
+        num += float(((x - y) ** 2).sum())
+        den += float((y * y).sum())
+    return num ** 0.5 / max(den ** 0.5, 1e-30)
 
 
 def _train_check(torch, model, state, batch, ctx: str, log=print) -> dict:
@@ -2396,32 +2457,42 @@ def _train_check(torch, model, state, batch, ctx: str, log=print) -> dict:
 def _profile_train_step(torch, step, out_dir, label: str, unprofiled_ms: float) -> dict:
     """One warm training step under ``torch.profiler``: device ms, its share
     of the unprofiled step's wall time (the busy share), host launches and
-    the top device operations."""
+    the top device operations. CUDA activity only (CUPTI's kernel, copy and
+    runtime records, no CPU operator records), read from the raw event list:
+    building ``key_averages()``'s operator tree costs about a millisecond an
+    operator, and a step of rwkv6-1.6b's chunk loop launches over 400,000
+    kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
-    events = prof.key_averages()
+    by_name: dict = {}
+    launches = 0
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == DeviceType.CUDA:
+            entry = by_name.setdefault(name, [0, 0])
+            entry[0] += 1
+            entry[1] += e.duration_ns()
+        elif name.startswith("cudaLaunchKernel"):
+            launches += 1
+    rows = sorted(((ns / 1e6, n, name) for name, (n, ns) in by_name.items()), reverse=True)
     (out_dir / f"profile_{label.replace(' ', '_')}.txt").write_text(
-        events.table(sort_by="self_device_time_total", row_limit=40))
-    dev = [e for e in events if e.device_type == DeviceType.CUDA]
-    total = sum(e.self_device_time_total for e in dev) / 1e3
-    gemm = sum(e.self_device_time_total for e in dev
-               if any(w in e.key.lower() for w in ("gemm", "xmma", "cutlass", "wgmma", "nvjet"))) / 1e3
-    launches = sum(e.count for e in events if e.key.startswith("cudaLaunchKernel"))
-    top = sorted(dev, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+        "device ms\tcalls\tname\n" + "".join(f"{ms:.3f}\t{n}\t{name}\n" for ms, n, name in rows[:40]))
+    total = sum(ms for ms, _, _ in rows)
+    gemm = sum(ms for ms, _, name in rows
+               if any(w in name.lower() for w in ("gemm", "xmma", "cutlass", "wgmma", "nvjet")))
+    top = rows[:8]
     rec = dict(device_ms=total, unprofiled_ms=unprofiled_ms,
                device_busy_share=total / unprofiled_ms if total else None, matmul_ms=gemm,
-               host_launches=launches,
-               top_device=[(e.key[:120], e.self_device_time_total / 1e3) for e in top])
+               host_launches=launches, top_device=[(name[:120], ms) for ms, _, name in top])
     print(f"{label} profile (one step): device {total:.3f} ms, busy share "
           f"{rec['device_busy_share']} of the unprofiled {unprofiled_ms:.3f} ms step, matrix products "
           f"{gemm:.3f} ms, {launches} host launches")
-    print(f"{label} profile top device: " + "; ".join(
-        f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms" for e in top))
+    print(f"{label} profile top device: " + "; ".join(f"{name[:60]} {ms:.3f} ms" for ms, _, name in top))
     return rec
 
 
@@ -2447,13 +2518,13 @@ def _training_phase(torch, dev, out_dir) -> dict:
     step TRAIN_SWEEP_PERIOD and the last steps run the hot path, then TRAIN_EINSUM_STEPS
     steps with moe_impl "einsum" on the same state. The daemons are held
     exactly against plain daemons fed the same counts and tokens. (b)
-    qwen3-1.7b at full width and depth, DENSE_BATCH x TRAIN_SEQ tokens a
-    step in 2 microbatches: steps 1-3 with a ``save_async`` checkpoint at
-    step 3 into a temporary directory, steps 4-6, then a fresh ``Trainer``
-    restores step 3 and replays steps 4-6; the losses must agree to
+    qwen3-1.7b at full width (DENSE_LAYERS layers), DENSE_BATCH x TRAIN_SEQ
+    tokens a step in 2 microbatches: steps 1 to DENSE_CKPT_STEP with a ``save_async``
+    checkpoint at its last into a temporary directory, the steps up to
+    DENSE_STEPS, then a fresh ``Trainer`` restores the checkpoint and replays
+    them; the losses must agree to
     RESUME_RTOL. TRAIN_CHECK_STEPS of (a) and step 1 of (b) are also run
     through the kernels' plain versions (``_train_check``)."""
-    import dataclasses
     import shutil
     import tempfile
 
@@ -2607,8 +2678,8 @@ def _training_phase(torch, dev, out_dir) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ---- (b) qwen3-1.7b at full width and depth, checkpoint and resume -------
-    cfg = get_config("qwen3-1.7b")
+    # ---- (b) qwen3-1.7b at full width, checkpoint and resume ----------------
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), num_layers=DENSE_LAYERS)
     model = build(cfg, dev)
     tmp = tempfile.mkdtemp(prefix="phase13_ckpt_")
     try:
@@ -2626,7 +2697,7 @@ def _training_phase(torch, dev, out_dir) -> dict:
         before = counts()
         hist_b = []
         t0 = time.perf_counter()
-        state, h1 = tr.run(state, pipe, DENSE_CKPT_STEP, log=False)  # saves step 3 (asynchronously)
+        state, h1 = tr.run(state, pipe, DENSE_CKPT_STEP, log=False)  # saves step DENSE_CKPT_STEP (asynchronously)
         save_wait_s = time.perf_counter() - t0 - sum(h["step_time_s"] for h in h1)
         state, h2 = tr_free.run(state, pipe, DENSE_STEPS - DENSE_CKPT_STEP - 1, log=False)
         unprof_ms = float(np.median([h["step_time_s"] for h in h1[1:] + h2])) * 1e3
@@ -2717,7 +2788,6 @@ def _rwkv_checks(torch, dev, cfg, model, params) -> dict:
     RWKV_CPU_LAYERS layers, and at full depth the chunked form (a 96-token
     prefill) against the step form (64 tokens, then 32 teacher-forced
     decode steps)."""
-    import dataclasses
 
     from repro_torch import tree as tree_lib
     from repro_torch.models import rwkv6
@@ -2977,7 +3047,6 @@ def _families_phase(torch, dev, out_dir) -> dict:
     teacher-forced plain-version engine, their attention against the plain
     versions in every layer of every prefill and every SERVE_CHECK_EVERY-th
     decode step; llava-next-34b's int8 decode (``_int8_check``)."""
-    import dataclasses
 
     from repro_torch import tree as tree_lib
     from repro_torch.configs import get_config
@@ -3110,6 +3179,202 @@ def _families_phase(torch, dev, out_dir) -> dict:
     rec["variants"] = variants
     rec["errors"] = errs
     print(f"phase 14 launches {launches}; flash_attention by variant {variants}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the ssm, hybrid, audio and vlm families in training
+
+
+def _family_step_check(torch, tr, state, batch, step, ctx: str) -> dict:
+    """The main path's first step held against the kernels' plain versions:
+    ``Model.loss`` and its gradients through the plain versions
+    (``_ml_plain_versions``) on the step's params, state and batch first,
+    then ``step()`` itself on the kernel path with the gradients that it
+    feeds AdamW captured (``Trainer._grads``; the update reads them and
+    writes the params in place). Bars: phase 13's (the loss to
+    TRAIN_LOSS_RTOL, every leaf's gradient to TRAIN_GRAD_REL_L2 relative
+    L2) and ``tests/test_arch_smoke.py``'s (finite loss and gradients, a
+    positive gradient total, ``embed``'s nonzero). Returns ``(check
+    record, step()'s result)``; the record's ``step_wall_s`` is ``step()``'s
+    wall time alone."""
+    from repro_torch import tree as tree_lib
+
+    names = ["/".join(str(v) for _, v in path) for path, _ in tree_lib.leaves_with_paths(state.params)]
+    with _ml_plain_versions():
+        lp, _, gp = _train_grads(torch, tr.model, state.params, batch, None, state.hot_embed)
+    gp = [g.cpu() for g in gp]  # they wait on the host while the step runs
+    torch.cuda.empty_cache()
+    captured = {}
+    kernel_grads = tr._grads
+
+    def capture(*args):
+        grads, metrics = kernel_grads(*args)
+        captured.update(grads=grads, loss=float(metrics["loss"]))
+        return grads, metrics
+
+    tr._grads = capture
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        result = step()
+        torch.cuda.synchronize()
+    finally:
+        del tr._grads  # the class's method again
+    wall = time.perf_counter() - t0
+    lk, gk = captured["loss"], captured["grads"]
+    assert np.isfinite(lk) and abs(lk - lp) <= TRAIN_LOSS_RTOL * abs(lp), (ctx, lk, lp)
+    worst, worst_name, abs_sums = 0.0, "", {}
+    for name, a, b in zip(names, gk, gp):
+        assert bool(torch.isfinite(a).all()), (ctx, name)
+        abs_sums[name] = float(a.abs().sum(dtype=torch.float32))
+        rel = _rel_l2(a, b.to(a.device))
+        if rel >= worst:
+            worst, worst_name = rel, name
+        assert rel <= TRAIN_GRAD_REL_L2, (ctx, name, rel)
+    grad_total, embed_abs = sum(abs_sums.values()), abs_sums["embed"]
+    assert grad_total > 0 and embed_abs > 0, (ctx, grad_total, embed_abs)
+    out = dict(loss_kernel=lk, loss_plain=lp, loss_rel_diff=abs(lk - lp) / abs(lp), grad_worst_rel_l2=worst,
+               grad_worst_leaf=worst_name, grad_abs_total=grad_total, embed_grad_abs_total=embed_abs,
+               step_wall_s=wall)
+    print(f"{ctx}: loss kernel {lk!r} plain {lp!r} (rel {out['loss_rel_diff']:.3e}); worst leaf grad rel L2 "
+          f"{worst:.3e} ({worst_name}); gradient |total| {grad_total:.6g}, embed's {embed_abs:.6g}")
+    del gk, gp, captured
+    return out, result
+
+
+def _family_training_phase(torch, dev, out_dir) -> dict:
+    """Phase 15: the four families of the serving slice in training, each at
+    full width (FAMILY_TRAIN; rwkv6-1.6b at 6 of its 24 layers). rwkv6-1.6b
+    and recurrentgemma-2b train through
+    ``Trainer.run`` on ``Pipeline`` batches (Zipf 1.2) of the train_4k cell's
+    4,096 tokens, the hot-row embedding daemon folding every step and
+    sweeping every ``sweep`` steps; its state is held after every step
+    exactly against a plain daemon fed the same tokens. whisper-base and llava-next-34b train
+    through ``Trainer.step`` on a ``make_batch`` batch of the train_4k cell
+    (whisper: 1,500 frames and 4,096 tokens a row; llava: 2,880 patch rows and
+    1,216 token rows) from the same state; llava's hot-row cache first folds
+    the batch's tokens and sweeps once, so that its rows hit. Every family's
+    step is held against the kernels' plain versions on its params and batch
+    (``_family_step_check``: phase 13's bars and ``tests/test_arch_smoke.py``'s).
+    The phase asserts its launches:
+    ``hot_gather`` once a step where the config has a hot-row cache (the
+    loss's embedding; its gradient is the wrapper's scatter, no launch), and
+    no ``ownership_sweep``: the hot-row daemon's sweep is plain ops in both
+    packages, and none of these families has experts."""
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core.hot_embedding import HotEmbedding
+    from repro_torch.data import DataConfig, Pipeline
+    from repro_torch.kernels.hot_gather.ops import hot_gather
+    from repro_torch.kernels.ownership_sweep.ops import ownership_sweep
+    from repro_torch.kvsim import prng
+    from repro_torch.models import build
+    from repro_torch.train import OptConfig, TrainConfig, Trainer
+
+    smi = _smi()
+    kernels = (hot_gather, ownership_sweep)
+    rec: dict = {"card": smi, "families": {}}
+    launches = dict.fromkeys((fn.__name__ for fn in kernels), 0)
+    for arch, drive in FAMILY_TRAIN.items():
+        t_arch = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), sweep_period=drive.get("sweep", 50),
+                                  num_layers=drive.get("layers", get_config(arch).num_layers))
+        model = build(cfg, dev)
+        steps, b = drive["steps"], drive["batch"]
+        tcfg = TrainConfig(opt=OptConfig(lr=3e-5, warmup_steps=2, total_steps=steps), log_every=100)
+        tr = Trainer(model, tcfg)
+        state = tr.init_state(torch.Generator(device=dev).manual_seed(0))
+        if drive["run"]:
+            pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=SHAPES["train_4k"].seq_len,
+                                       global_batch=b, zipf_a=1.2), dev)
+            first = pipe.next(pipe.seek(0))[0]
+        else:
+            shape = dataclasses.replace(SHAPES["train_4k"], global_batch=b)
+            first = model.make_batch(shape, prng.prng_key(0))
+            if cfg.hot_embed_rows:
+                state = state._replace(hot_embed=tr.embed_daemon.sweep(tr.embed_daemon.fold(
+                    state.hot_embed, first["tokens"], tr._token_nodes(b))))
+        positions = first["tokens"].numel() + (first["patches"].shape[0] * first["patches"].shape[1]
+                                               if "patches" in first else 0)
+        print(f"phase 15 {arch} ({cfg.family}, {cfg.num_layers} layers, remat {cfg.remat}): "
+              f"{model.num_params()} params, batch {({k: tuple(v.shape) for k, v in first.items()})}, "
+              f"{positions} decoder positions a step [{smi}]")
+        daemon = None
+        if drive["run"]:  # the plain daemon, fed what the Trainer's daemon is fed
+            daemon = HotEmbedding(cfg.padded_vocab, 1, cfg.hot_embed_rows, h=cfg.ownership_h or None,
+                                  decay=cfg.traffic_decay, period=cfg.sweep_period)
+            plain = daemon.init_state(dev)
+            fed = []
+            orig_fold = tr.embed_daemon.fold
+
+            def fold(st, toks, nodes, _orig=orig_fold, _fed=fed):
+                _fed.append((toks.clone(), nodes.clone()))
+                return _orig(st, toks, nodes)
+
+            tr.embed_daemon.fold = fold
+
+        def one(st):
+            if drive["run"]:
+                return tr.run(st, pipe, 1, log=False)
+            p, o, met = tr.step(st.params, st.opt, first, None, st.hot_embed)
+            return st._replace(params=p, opt=o), [{"loss": float(met["loss"])}]
+
+        walls, losses, prof_out = [], [], []
+        for fn in kernels:
+            fn.launches = 0
+        for step in range(1, steps + 1):
+            if step == 1:  # the checked step (its plain pass runs first, outside the clock)
+                check, (state, hist) = _family_step_check(torch, tr, state, first, lambda st=state: one(st),
+                                                          f"phase 15 {arch} check step 1")
+                walls.append(check["step_wall_s"])
+                torch.cuda.reset_peak_memory_stats()  # the steps' peak, without the check's plain gradients
+            elif step == steps:  # the last step under the profiler, after its unprofiled peers
+                prof = _profile_train_step(torch, lambda st=state: prof_out.append(one(st)), out_dir,
+                                           f"phase 15 {arch}", float(np.median(walls)) * 1e3)
+                state, hist = prof_out[-1]
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, hist = one(state)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            losses.append(hist[0]["loss"])
+            if daemon is not None:
+                for toks, nodes in fed:
+                    plain = daemon.fold(plain, toks, nodes)
+                fed.clear()
+                if daemon.due(step):
+                    plain = daemon.sweep(plain)
+                for field in ("counts", "hot_ids", "slot_map", "sweeps"):
+                    assert torch.equal(getattr(state.hot_embed, field), getattr(plain, field)), (arch, step, field)
+            print(f"phase 15 {arch} step {step}: loss {losses[-1]:.4f}"
+                  + (" (profiled)" if step == steps else f", {walls[-1]:.4f} s")
+                  + (f", hot-row sweeps {int(state.hot_embed.sweeps)}" if state.hot_embed is not None else ""))
+        got = {fn.__name__: fn.launches for fn in kernels}
+        peak = torch.cuda.max_memory_allocated()
+        want = {"hot_gather": steps if cfg.hot_embed_rows else 0, "ownership_sweep": 0}
+        assert got == want, (arch, got, want)
+        assert all(np.isfinite(losses)), (arch, losses)
+        if drive["run"]:
+            assert int(state.hot_embed.sweeps) == steps // drive["sweep"] >= 1, arch
+        for name in launches:
+            launches[name] += got[name]
+        fam = _train_run_summary(f"phase 15 {arch}", walls, positions, model.active_params(), got, steps,
+                                 peak, smi, prof)
+        fam.update(family=cfg.family, layers=cfg.num_layers, batch=b, params=model.num_params(),
+                   losses=losses, walls_s=walls, check=check, wall_s=time.perf_counter() - t_arch)
+        if state.hot_embed is not None:
+            fam["embed_hit_rate"] = float(tr.embed_daemon.hit_rate(state.hot_embed))
+        rec["families"][arch] = fam
+        del state, tr, model, first, prof_out
+        if drive["run"]:
+            del pipe, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase 15 {arch} took {fam['wall_s']:.1f} s; {torch.cuda.memory_allocated()} bytes still allocated")
+    rec["launches"] = launches
+    print(f"phase 15 launches {launches}")
     return rec
 
 
@@ -3513,9 +3778,18 @@ def main() -> int:
     wl = wan5_workload(num_requests=FULL_REQUESTS, num_keys=FULL_KEYS, read_fraction=0.9)
     cl = wan5_cluster()
     trace = generate_trace(wl, seed=0, device=dev)
+
+    def head(t, w, chunks_):  # the first chunks of a trace
+        sub_r = chunks_ * FULL_INTERVAL
+        return (t._replace(keys=t.keys[:sub_r], nodes=t.nodes[:sub_r], is_read=t.is_read[:sub_r]),
+                w._replace(num_requests=sub_r))
+
+    chunks = -(-DRIVE_REQUESTS // FULL_INTERVAL)
+    trace_d, wl_d = head(trace, wl, chunks)  # the drives' DRIVE_REQUESTS
     policies = {"redynis": RedynisPolicy(), "remote": StaticPolicy("remote")}
-    for pol in policies.values():  # warm-up run
-        run_scenario(wl, cl, pol, daemon_interval=FULL_INTERVAL, trace=trace)
+    for pol in policies.values():  # warm-up run on the first 50 chunks
+        sub, sub_wl = head(trace, wl, 50)
+        run_scenario(sub_wl, cl, pol, daemon_interval=FULL_INTERVAL, trace=sub)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     chunk_replay.launches = 0
@@ -3524,25 +3798,25 @@ def main() -> int:
     full = {}
     for name, pol in policies.items():
         t0 = time.perf_counter()
-        res = run_scenario(wl, cl, pol, daemon_interval=FULL_INTERVAL, trace=trace)
+        res = run_scenario(wl_d, cl, pol, daemon_interval=FULL_INTERVAL, trace=trace_d)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        full[name] = dict(wall_s=wall, sim_requests_per_s=FULL_REQUESTS / wall,
+        full[name] = dict(wall_s=wall, sim_requests_per_s=DRIVE_REQUESTS / wall,
                           throughput_ops_s=res.throughput_ops_s, hit_rate=res.hit_rate,
                           replication_moves=res.replication_moves, result=res)
         assert np.isfinite(res.throughput_ops_s) and res.throughput_ops_s > 0
-        print(f"phase 4 {name}: wall {wall:.3f} s, {FULL_REQUESTS / wall:.0f} simulated req/s, "
+        print(f"phase 4 {name} ({DRIVE_REQUESTS} requests): wall {wall:.3f} s, "
+              f"{DRIVE_REQUESTS / wall:.0f} simulated req/s, "
               f"throughput {res.throughput_ops_s:.3f} ops/s, hit_rate {res.hit_rate:.4f}, "
               f"moves {res.replication_moves:.0f}")
     launches = {"chunk_replay": chunk_replay.launches, "ownership_sweep": ownership_sweep.launches,
                 "latency_histogram": latency_histogram.launches}
-    chunks = -(-FULL_REQUESTS // FULL_INTERVAL)
     peak_mem = torch.cuda.max_memory_allocated()
     # The same runs through the plain versions on the card: the full-size
     # results must agree to the engine tolerances.
     with _plain_versions():
         for name, pol in policies.items():
-            plain = run_scenario(wl, cl, pol, daemon_interval=FULL_INTERVAL, trace=trace)
+            plain = run_scenario(wl_d, cl, pol, daemon_interval=FULL_INTERVAL, trace=trace_d)
             rel = _check_result(full[name]["result"], plain, f"phase 4 {name}")
             full[name]["plain_max_rel_diff"] = rel
             print(f"phase 4 {name}: matches the plain-version engine, max rel diff {rel}")
@@ -3659,20 +3933,15 @@ def main() -> int:
     # and Redynis on the tail-latency contention shape (balanced regions,
     # affinity 0.8, reads only, lognormal sizes sigma 1, 128 bytes/ms,
     # capacity factor 1.0) on a trace of its own.
-    wl_c = wan5_workload(num_requests=FULL_REQUESTS, num_keys=FULL_KEYS, read_fraction=1.0,
+    wl_c = wan5_workload(num_requests=DRIVE_REQUESTS, num_keys=FULL_KEYS, read_fraction=1.0,
                          region_weights=(0.2,) * 5, affinity=0.8, object_bytes_sigma=1.0)
     cl_c = wan5_cluster(service=ServiceConfig(serve_bytes_per_ms=128.0, capacity_factor=1.0))
     trace_c = generate_trace(wl_c, seed=0, device=dev)
     runs = {
-        "redynis": (wl, cl, trace, RedynisPolicy()),
-        "remote": (wl, cl, trace, StaticPolicy("remote")),
+        "redynis": (wl_d, cl, trace_d, RedynisPolicy()),
+        "remote": (wl_d, cl, trace_d, StaticPolicy("remote")),
         "redynis_contention": (wl_c, cl_c, trace_c, RedynisPolicy()),
     }
-
-    def head(t, w, chunks_):  # the first chunks of a trace, for the warm-up
-        sub_r = chunks_ * FULL_INTERVAL
-        return (t._replace(keys=t.keys[:sub_r], nodes=t.nodes[:sub_r], is_read=t.is_read[:sub_r]),
-                w._replace(num_requests=sub_r))
 
     for w, c, t, pol in runs.values():
         sub, sub_wl = head(t, w, 50)
@@ -3690,15 +3959,16 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         tail = tr.tail_summary()
-        assert np.isfinite(res.throughput_ops_s) and tr.hist.sum() == FULL_REQUESTS, name
+        assert np.isfinite(res.throughput_ops_s) and tr.hist.sum() == DRIVE_REQUESTS, name
         assert tr.chunk_hist.shape == (chunks, 128) and np.isfinite(tr.p99_latency_ms).all(), name
-        tele[name] = dict(wall_s=wall, sim_requests_per_s=FULL_REQUESTS / wall,
+        tele[name] = dict(wall_s=wall, sim_requests_per_s=DRIVE_REQUESTS / wall,
                           throughput_ops_s=res.throughput_ops_s, hit_rate=res.hit_rate,
                           mean_latency_ms=res.mean_latency_ms, quantiles=tail,
                           convergence_chunk=tr.convergence_chunk(),
                           post_convergence_moves=tr.post_convergence_moves(),
                           max_load_factor=float(tr.load_factor.max()), result=res, trace=tr)
-        print(f"phase 5 {name}: wall {wall:.3f} s, {FULL_REQUESTS / wall:.0f} simulated req/s, "
+        print(f"phase 5 {name} ({DRIVE_REQUESTS} requests): wall {wall:.3f} s, "
+              f"{DRIVE_REQUESTS / wall:.0f} simulated req/s, "
               f"throughput {res.throughput_ops_s:.3f} ops/s, mean {res.mean_latency_ms:.3f} ms, "
               f"p50 {tail['p50']:.3f} ms, p99 {tail['p99']:.3f} ms, p99.9 {tail['p999']:.3f} ms, "
               f"max rho {float(tr.load_factor.max()):.4f}")
@@ -3764,13 +4034,14 @@ def main() -> int:
     # floor for the grouped fold, not the same function (no bucketize).
     flat = ((torch.arange(FULL_REQUESTS, device=dev) // FULL_INTERVAL) * g + group) * nb \
         + bin_index(lat, tcfg.lo_ms, tcfg.hi_ms, nb).long()
-    fold_ms = _device_ms(lambda: torch.bincount(flat, weights=weight, minlength=chunks * g * nb),
+    full_chunks = -(-FULL_REQUESTS // FULL_INTERVAL)
+    fold_ms = _device_ms(lambda: torch.bincount(flat, weights=weight, minlength=full_chunks * g * nb),
                          torch, reps=3, iters=5)
     del flat
-    hist_bytes = FULL_REQUESTS * 12 + chunks * g * nb * 4
+    hist_bytes = FULL_REQUESTS * 12 + full_chunks * g * nb * 4
     hist_calls = _kernels_per_call(torch, lambda: latency_histogram(lat, group, weight, **hkw),
                                    latency_histogram)
-    print(f"phase 5 latency_histogram ({FULL_REQUESTS} requests -> [{chunks}, {g}, {nb}]): "
+    print(f"phase 5 latency_histogram ({FULL_REQUESTS} requests -> [{full_chunks}, {g}, {nb}]): "
           f"kernel {hist_ms:.4f} ms, plain {hist_plain:.4f} ms, "
           f"bound {hist_bytes / BW_BYTES_PER_S * 1e3:.4f} ms "
           f"({hist_bytes / BW_BYTES_PER_S * 1e3 / hist_ms:.3f} of it), bincount fold floor "
@@ -3800,10 +4071,10 @@ def main() -> int:
                                             bound_ms=hist_bytes / BW_BYTES_PER_S * 1e3,
                                             kernels_per_call=hist_calls, **extra)
 
-    # ``runs``, the warm-up's sub-traces and phase 4's chunk slices (views:
-    # ``contiguous`` of a slice is the slice) still hold both 100 M-request
+    # ``runs``, the drives' and the warm-up's sub-traces and phase 4's chunk
+    # slices (views: ``contiguous`` of a slice is the slice) still hold the
     # traces, and ``x`` the latencies.
-    del trace, lat, group, weight, allv, hosts, multi, counts, live, last, runs, sub, t, x
+    del trace, trace_d, lat, group, weight, allv, hosts, multi, counts, live, last, runs, sub, t, x
     del ck, cn, cr, cv, sweep_inputs, traffic
     torch.cuda.empty_cache()
 
@@ -3812,10 +4083,10 @@ def main() -> int:
     # ---- phase 6: Redynis on ML state at deepseek-moe-16b widths ---------
     # The Trainer's daemon step, forward only: hot-row embedding cache
     # (hot_gather), ML_LAYERS MoE layers at full width (moe_router), both
-    # daemons folded every step and swept every 50 (ownership_sweep on f32
-    # traffic), held every step against the same steps through the plain
-    # versions on the card.
-    cfg = get_config("deepseek-moe-16b")
+    # daemons folded every step and swept every ML_SWEEP_PERIOD
+    # (ownership_sweep on f32 traffic), held every step against the same
+    # steps through the plain versions on the card.
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"), sweep_period=ML_SWEEP_PERIOD)
     for fn in (chunk_replay, ownership_sweep, latency_histogram):
         fn.launches = 0
     t0 = time.perf_counter()
@@ -4128,12 +4399,18 @@ def main() -> int:
 
     lap("phase 14")
 
+    # ---- phase 15: the ssm, hybrid, audio and vlm families in training -----
+    record["family_training"] = _family_training_phase(torch, dev, out_dir)
+    ft_launches = record["family_training"]["launches"]
+
+    lap("phase 15")
+
     # ---- phase 9: the kernel record ------------------------------------
     # Launches: the telemetry path's run (phase 5), the routing and fault
     # runs (phase 10), the attribution and streamed runs (phase 11) and the
     # sharded runs (phase 12, summed over the ranks) drive the first three,
-    # the ML-state run (phase 6) and training (phase 13; its sweeps are
-    # ownership_sweep's too) the next two, the serving drive (phase 7)
+    # the ML-state run (phase 6) and training (phases 13 and 15; phase 13's
+    # expert sweeps are ownership_sweep's too, phase 15 has none) the next two, the serving drive (phase 7)
     # the two after, phases 11 and 12 the last (a port-only kernel); phase
     # 8's launches of the first three are on a line of their own ("phase 8
     # launches").
@@ -4156,14 +4433,15 @@ def main() -> int:
              launches=tele_launches["ownership_sweep"] + fr_launches["ownership_sweep"]
              + as_launches["ownership_sweep"] + sh_launches["ownership_sweep"]
              + tr_launches["ownership_sweep"] + serve_launches["ownership_sweep"]
-             + fm_launches["ownership_sweep"],
+             + fm_launches["ownership_sweep"] + ft_launches["ownership_sweep"],
              launches_by_phase={"5": tele_launches["ownership_sweep"],
                                 "7": serve_launches["ownership_sweep"],
                                 "10": fr_launches["ownership_sweep"],
                                 "11": as_launches["ownership_sweep"],
                                 "12": sh_launches["ownership_sweep"],
                                 "13": tr_launches["ownership_sweep"],
-                                "14": fm_launches["ownership_sweep"]},
+                                "14": fm_launches["ownership_sweep"],
+                                "15": ft_launches["ownership_sweep"]},
              max_abs_err=err_sweep,
              ms=sweep_ms, plain_ms=sweep_plain,
              bound_ms=sweep_bytes / BW_BYTES_PER_S * 1e3, bound_by="bytes",
@@ -4193,8 +4471,9 @@ def main() -> int:
         dict(name="hot_gather", route="cuda",
              source="src/repro_torch/kernels/hot_gather/csrc/hot_gather.cu",
              replaces="src/repro/kernels/hot_gather/kernel.py:34",
-             launches=ml_launches["hot_gather"] + tr_launches["hot_gather"],
-             launches_by_phase={"6": ml_launches["hot_gather"], "13": tr_launches["hot_gather"]},
+             launches=ml_launches["hot_gather"] + tr_launches["hot_gather"] + ft_launches["hot_gather"],
+             launches_by_phase={"6": ml_launches["hot_gather"], "13": tr_launches["hot_gather"],
+                                "15": ft_launches["hot_gather"]},
              max_abs_err=err_gather,
              ms=gather_ms, plain_ms=gather_plain, bound_ms=gather_bound, bound_by="bytes",
              library_ms=None),

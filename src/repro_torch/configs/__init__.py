@@ -1,8 +1,10 @@
 """Model configurations (counterpart of ``src/repro/configs/``): the
-``ModelConfig`` dataclass, ``reduced`` for CPU-sized copies, and
-``get_config`` for the reference's ten architectures."""
+``ModelConfig`` dataclass, ``reduced`` for CPU-sized copies, ``get_config``
+for the reference's ten architectures, and the four shape cells
+(``ShapeConfig``, ``SHAPES``, ``get_shape``, ``cells``)."""
 
-from repro_torch.configs.base import ModelConfig, reduced
-from repro_torch.configs.registry import ARCH_IDS, get_config
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig, reduced
+from repro_torch.configs.registry import ARCH_IDS, cells, get_config, get_shape
 
-__all__ = ["ModelConfig", "reduced", "ARCH_IDS", "get_config"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "reduced", "ARCH_IDS", "get_config", "get_shape",
+           "cells"]

@@ -1,9 +1,10 @@
 """The architecture config (counterpart of ``src/repro/configs/base.py``).
 
 ``ModelConfig`` is the reference's dataclass field for field, so a config
-carries across with ``ModelConfig(**dataclasses.asdict(ref_cfg))``. The
-shape cells (``ShapeConfig``, ``SHAPES``) belong to the launch layer, which
-is not ported yet.
+carries across with ``ModelConfig(**dataclasses.asdict(ref_cfg))``. The four
+input-shape cells are global (``SHAPES``, each a ``ShapeConfig``), with the
+reference's names and values; ``Model.input_specs`` and ``Model.make_batch``
+turn a cell into a batch.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 
-__all__ = ["ModelConfig", "reduced"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "reduced"]
 
 
 @dataclass(frozen=True)
@@ -110,6 +111,22 @@ class ModelConfig:
     def has_decode(self) -> bool:
         """Encoder-only archs have none; everything assigned here decodes."""
         return True
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

@@ -1,15 +1,14 @@
 """Architecture ids -> ``ModelConfig`` (counterpart of
-``src/repro/configs/registry.py``): the reference's ten ids in its order.
-The shape cells (``get_shape``, ``cells``) belong to the launch layer's
-dry run, which is not ported yet."""
+``src/repro/configs/registry.py``): the reference's ten ids in its order,
+and the shape cells each architecture runs (``get_shape``, ``cells``)."""
 
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig, reduced
 
-__all__ = ["ARCH_IDS", "get_config"]
+__all__ = ["ARCH_IDS", "get_config", "get_shape", "cells", "reduced", "SHAPES"]
 
 _MODULES = {
     "yi-9b": "yi_9b",
@@ -31,3 +30,16 @@ def get_config(arch: str) -> ModelConfig:
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}").CONFIG
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+def cells(arch: str) -> list[str]:
+    """The shape cells this arch runs: all but ``long_500k``, which only
+    the sub-quadratic families (ssm, hybrid) run."""
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if get_config(arch).is_subquadratic:
+        out.append("long_500k")
+    return out

@@ -5,7 +5,12 @@ By default it trains the reduced config of the architecture; ``--full``
 takes the architecture at full size. The Redynis daemons (expert placement
 and the hot-row embedding cache) run inside the loop whenever the
 architecture enables them. It runs on the card; ``--device cpu`` runs the
-plain versions of the kernels on the CPU.
+plain versions of the kernels on the CPU. Every id of ``ARCH_IDS`` is
+taken; the pipeline gives tokens and targets only, as the reference's does,
+so the audio and vlm families (whisper-base, llava-next-34b) stop at their
+first step with the reference driver's ``KeyError`` (``frames``,
+``patches``): they train through ``Model.loss`` and ``Trainer.step`` on a
+``Model.make_batch`` batch.
 """
 
 from __future__ import annotations

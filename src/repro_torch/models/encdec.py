@@ -9,12 +9,20 @@ both pre-LayerNorm with parameter-free sinusoidal positions.
 
 The decode state is the decoder's self-attention cache and the
 cross-attention K/V, projected once from the encoder memory at prefill and
-read-only after. Attention goes through the kernels: the encoder
+read-only after. Serving attention goes through the kernels: the encoder
 (non-causal, T = S = F) and the decoder's prefill through
 ``flash_attention``, the prefill's cross attention through it too (T = F
 != S), and at decode both the self attention over the cache and the cross
 attention over the memory through ``flash_decode``. The decode step writes
 each layer's new self-attention row in place, as ``run_decode_step`` does.
+
+Training (``encode`` and ``decode_prefill`` with ``train=True``) takes the
+reference's route: every attention through ``blockwise_attention`` in
+chunks of ``cfg.attn_chunk`` (the encoder's non-causal, the decoder's
+causal, the cross attention non-causal over a memory that the chunk need
+not divide), each layer's body under activation checkpointing when
+``cfg.remat == "full"``. The training decoder keeps no caches: the loss
+does not read them.
 """
 
 from __future__ import annotations
@@ -101,31 +109,54 @@ def sinusoid_at(positions: torch.Tensor, d: int) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def encode(params: dict, frames: torch.Tensor, cfg, dist=None) -> torch.Tensor:
+def encode(params: dict, frames: torch.Tensor, cfg, dist=None, train: bool = False) -> torch.Tensor:
     """frames ``[B, F, D]`` (stub embeddings) -> the encoder memory ``[B,
-    F, D]``."""
+    F, D]``. ``train`` takes the training route (module docstring)."""
     b, f, d = frames.shape
     h = frames + sinusoid(f, d, frames.device).to(frames.dtype)[None]
     positions = torch.arange(f, device=frames.device)
     enc = params["encoder"]
+    chunk = cfg.attn_chunk if train else None
+
+    def body(x, layer):
+        x, _ = tfm.attn_full(layer["attn"], x, cfg, dist, positions, 0, chunk, causal=False)
+        x, _ = tfm.mlp_apply(layer["mlp"], x, cfg, dist)
+        return x
+
+    if train:
+        body = tfm._maybe_remat(body, cfg)
     for layer in tfm._unstack({"attn": enc["attn"], "mlp": enc["mlp"]}, cfg.encoder_layers):
-        h, _ = tfm.attn_full(layer["attn"], h, cfg, dist, positions, 0, causal=False)
-        h, _ = tfm.mlp_apply(layer["mlp"], h, cfg, dist)
+        h = body(h, layer)
     return apply_norm(enc["ln_post"], h, cfg.norm)
 
 
-def decode_prefill(params: dict, tokens_embedded: torch.Tensor, memory: torch.Tensor, cfg, dist=None):
+def decode_prefill(params: dict, tokens_embedded: torch.Tensor, memory: torch.Tensor, cfg, dist=None,
+                   train: bool = False):
     """The full decoder pass over ``tokens_embedded [B, S, D]`` (positions
     already added). Returns ``(hidden, (self_k, self_v), (cross_k,
-    cross_v))``, each cache stacked ``[L, B, ., KH, Dh]``."""
+    cross_v))``, each cache stacked ``[L, B, ., KH, Dh]``; with ``train``
+    (the training route, module docstring) ``(hidden, None, None)``."""
     b, s, _ = tokens_embedded.shape
     positions = torch.arange(s, device=tokens_embedded.device)
     l, kh, dh, f = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim, memory.shape[1]
+    layers = tfm._unstack(params["decoder"], l)
+    x = tokens_embedded
+    if train:
+        def body(x, layer):
+            x, _ = tfm.attn_full(layer["attn"], x, cfg, dist, positions, 0, cfg.attn_chunk, causal=True)
+            kv = tfm.cross_attn_kv(layer["cross"], memory, cfg)
+            x = tfm.cross_attn(layer["cross"], x, kv, cfg, dist, cfg.attn_chunk)
+            x, _ = tfm.mlp_apply(layer["mlp"], x, cfg, dist)
+            return x
+
+        body = tfm._maybe_remat(body, cfg)
+        for layer in layers:
+            x = body(x, layer)
+        return x, None, None
     dt, dev = tokens_embedded.dtype, tokens_embedded.device
     k_all, v_all = (torch.empty((l, b, s, kh, dh), dtype=dt, device=dev) for _ in range(2))
     ck_all, cv_all = (torch.empty((l, b, f, kh, dh), dtype=dt, device=dev) for _ in range(2))
-    x = tokens_embedded
-    for i, layer in enumerate(tfm._unstack(params["decoder"], l)):
+    for i, layer in enumerate(layers):
         x, (k_all[i], v_all[i]) = tfm.attn_full(layer["attn"], x, cfg, dist, positions, 0, causal=True)
         ck_all[i], cv_all[i] = tfm.cross_attn_kv(layer["cross"], memory, cfg)
         x = tfm.cross_attn(layer["cross"], x, (ck_all[i], cv_all[i]), cfg, dist)

@@ -2,7 +2,8 @@
 ``Model`` over the six block families.
 
   dense | moe | vlm  -> the decoder-only transformer (GQA; the MoE FFN when
-                        cfg.num_experts; vlm prepends stub patch embeddings)
+                        cfg.num_experts; vlm, the LLaVA vision-language
+                        model, prepends stub patch embeddings)
   ssm                -> the RWKV-6 stack (attention-free)
   hybrid             -> the RecurrentGemma stack (RG-LRU and local attention)
   audio              -> the Whisper encoder-decoder (stub frame embeddings)
@@ -12,15 +13,18 @@
   init_state(batch, cache_len)               — zeroed decode state
   prefill(params, batch, dist, cache_len)    — full sequence, builds state
   decode_step(params, state, tokens, dist)   — one new token per sequence
+  input_specs(shape)                         — a cell's batch as meta tensors
+  make_batch(shape, key)                     — a synthetic batch of a cell
 
 A ``Model`` lives on one device (``device=None`` means CUDA and raises
-without a card; see ``device.resolve_device``). ``loss`` of the ``ssm``,
-``hybrid``, ``audio`` and ``vlm`` families raises ``NotImplementedError``
-naming the slice that trains them. int8 params (``repro_torch.quant``) are
-taken where the reference takes them, by ``decode_step`` of ``dense``,
-``moe`` and ``vlm``: ``embed`` and ``head`` are dequantized once a step,
-the blocks a layer at a time. ``prefill`` and ``loss`` raise on them, and so
-does the decode step of the other families, as the reference fails there.
+without a card; see ``device.resolve_device``). ``loss`` trains all six
+families through the reference's branches, the training forwards of each
+stack (``train`` mode: blockwise attention under autograd, remat by
+``cfg.remat``). int8 params (``repro_torch.quant``) are taken where the
+reference takes them, by ``decode_step`` of ``dense``, ``moe`` and
+``vlm``: ``embed`` and ``head`` are dequantized once a step, the blocks a
+layer at a time. ``prefill`` and ``loss`` raise on them, and so does the
+decode step of the other families, as the reference fails there.
 """
 
 from __future__ import annotations
@@ -29,9 +33,11 @@ from typing import Any
 
 import torch
 
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.hot_embedding import embed_with_cache
 from repro_torch.device import resolve_device
 from repro_torch.dist import embed_lookup, softmax_xent, unembed_logits
+from repro_torch.kvsim import prng
 from repro_torch.models import encdec, rglru, rwkv6
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import apply_norm, norm_specs
@@ -42,12 +48,6 @@ __all__ = ["Model", "build"]
 
 DECODER_FAMILIES = ("dense", "moe", "vlm")
 FAMILIES = DECODER_FAMILIES + ("ssm", "hybrid", "audio")
-_UNTRAINED = {
-    "ssm": "RWKV-6",
-    "hybrid": "RecurrentGemma",
-    "audio": "the Whisper encoder-decoder",
-    "vlm": "the LLaVA vision-language model",
-}
 
 
 def _check_not_quantized(tree, where: str) -> None:
@@ -133,22 +133,34 @@ class Model:
     def loss(self, params: dict, batch: dict, dist=None, hot_ids: torch.Tensor | None = None,
              hot_embed=None):
         """Mean next-token cross-entropy (plus the MoE aux loss). batch holds
-        ``tokens`` and ``targets`` ``[B, S]`` (a target below 0 is masked);
-        ``hot_ids [L, R]`` are the expert replica sets, ``hot_embed`` the
-        hot-row cache state. Returns ``(loss, metrics)`` with the
-        reference's keys: ``xent``, ``loss`` and, for MoE, ``moe_counts
-        [L, G, E]``, ``moe_aux``, ``moe_dropped``, ``moe_hot_frac``."""
+        ``tokens`` and ``targets`` ``[B, S]`` (a target below 0 is masked),
+        and ``patches [B, P, D]`` (vlm: prepended to the token rows, whose
+        outputs alone are scored) or ``frames [B, F, D]`` (audio: the
+        encoder's input); ``hot_ids [L, R]`` are the expert replica sets,
+        ``hot_embed`` the hot-row cache state. Returns ``(loss, metrics)``
+        with the reference's keys: ``xent``, ``loss`` and, for MoE,
+        ``moe_counts [L, G, E]``, ``moe_aux``, ``moe_dropped``,
+        ``moe_hot_frac``."""
         cfg = self.cfg
-        if cfg.family in _UNTRAINED:
-            raise NotImplementedError(
-                f"Model.loss of the {cfg.family!r} family ({_UNTRAINED[cfg.family]}) is not ported "
-                "yet: the next slice trains the ssm, hybrid, audio and vlm families")
         _check_not_quantized(params, "Model.loss")
         tokens, targets = batch["tokens"], batch["targets"]
         h = self.embed_tokens(params, tokens, dist, hot_embed)
-        h, _, moe_stats = tfm.run_decoder(params["blocks"], h, cfg, dist, mode="train",
-                                          window=cfg.window, attn_chunk=cfg.attn_chunk,
-                                          hot_ids=hot_ids)
+        moe_stats = None
+        if cfg.family in DECODER_FAMILIES:
+            if cfg.family == "vlm":
+                h = torch.cat([batch["patches"].to(h.dtype), h], dim=1)
+            h, _, moe_stats = tfm.run_decoder(params["blocks"], h, cfg, dist, mode="train",
+                                              window=cfg.window, attn_chunk=cfg.attn_chunk,
+                                              hot_ids=hot_ids)
+            if cfg.family == "vlm":
+                h = h[:, batch["patches"].shape[1]:]
+        elif cfg.family == "ssm":
+            h, _ = rwkv6.rwkv_forward(params["blocks"], h, cfg, dist, train=True)
+        elif cfg.family == "hybrid":
+            h, _ = rglru.rglru_forward(params["blocks"], h, cfg, dist, train=True)
+        else:
+            memory = encdec.encode(params["blocks"], batch["frames"].to(h.dtype), cfg, dist, train=True)
+            h, _, _ = encdec.decode_prefill(params["blocks"], h, memory, cfg, dist, train=True)
         h = apply_norm(params["ln_f"], h, cfg.norm)
         mask = targets >= 0
         xent = softmax_xent(h, self._head_table(params), torch.where(mask, targets, 0), dist,
@@ -248,6 +260,55 @@ class Model:
             h, state = encdec.encdec_decode_step(params["blocks"], h, state, cfg, dist)
         h = apply_norm(params["ln_f"], h[:, None, :], cfg.norm)[:, 0]
         return unembed_logits(h, self._head_table(params), dist, cfg.vocab_size), state
+
+    # ------------------------------------------------------------- shapes
+    def input_specs(self, shape: ShapeConfig) -> dict:
+        """One batch of the cell ``shape`` as tensors on the ``meta`` device
+        (shapes and dtypes only), by the reference's rules: a decode cell
+        gives ``tokens [B]``; vlm ``tokens [B, max(S - P, 1)]`` and bf16
+        ``patches [B, P, D]``; audio ``tokens [B, S]`` and bf16 ``frames
+        [B, F, D]``; the others ``tokens [B, S]``; a train cell adds
+        ``targets`` shaped as ``tokens``."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+
+        def tok(*sh):
+            return torch.empty(sh, dtype=torch.int32, device="meta")
+
+        def emb(*sh):
+            return torch.empty(sh, dtype=torch.bfloat16, device="meta")
+
+        if shape.kind == "decode":
+            return {"tokens": tok(b)}
+        if cfg.family == "vlm":
+            out = {"tokens": tok(b, max(s - cfg.num_patches, 1)),
+                   "patches": emb(b, cfg.num_patches, cfg.d_model)}
+        elif cfg.family == "audio":
+            out = {"tokens": tok(b, s), "frames": emb(b, cfg.num_frames, cfg.d_model)}
+        else:
+            out = {"tokens": tok(b, s)}
+        if shape.kind == "train":
+            out["targets"] = tok(*out["tokens"].shape)
+        return out
+
+    def make_batch(self, shape: ShapeConfig, key: tuple[int, int]) -> dict:
+        """A synthetic batch matching ``input_specs`` on the model's device,
+        drawn as the reference draws it from the same key (a
+        ``kvsim.prng.prng_key``): one ``split`` a field in the specs' order,
+        int32 fields by ``randint(0, vocab_size)`` (the reference's values
+        bit for bit), bf16 fields by ``normal`` in f32, then cast (``normal``
+        is within a few f32 ulps of the reference's, so the cast leaves a
+        few values one bf16 ulp apart)."""
+        out = {}
+        for name, spec in self.input_specs(shape).items():
+            key, sub = prng.split(key)
+            pos = torch.arange(spec.numel(), device=self.device)
+            if spec.dtype == torch.int32:
+                vals = prng.randint(sub, pos, 0, self.cfg.vocab_size)
+            else:
+                vals = prng.normal(sub, pos).to(spec.dtype)
+            out[name] = vals.reshape(spec.shape)
+        return out
 
 
 def build(cfg, device=None) -> Model:

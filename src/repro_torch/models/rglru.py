@@ -21,6 +21,15 @@ through ``flash_attention`` with the window, decode through
 the ring in place). The layer pattern is heterogeneous, so the params are
 per-layer lists, as in the reference.
 
+Training (``rglru_forward(train=True)``) takes the reference's route:
+the attention layers attend through ``blockwise_attention`` in chunks of
+``cfg.attn_chunk`` with the window, and with ``cfg.remat == "full"`` each
+recurrent block and each attention block runs under activation
+checkpointing (the MLP blocks do not), as the reference wraps them in
+``jax.checkpoint``. ``associative_scan`` writes its interleaved halves
+into a ``new_empty`` tensor by slices, which autograd differentiates as
+it does any slice write.
+
 The recurrence, the gates and the convolution are plain ``jnp`` in the
 reference, outside any Pallas kernel, so they are torch ops here.
 """
@@ -234,27 +243,31 @@ def mlp_block(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def rglru_forward(blocks: dict, h: torch.Tensor, cfg, dist=None, state: RGLRUState | None = None,
-                  collect_cache: bool = False):
+                  collect_cache: bool = False, train: bool = False):
     """Full-sequence forward. With ``collect_cache`` it builds the decode
     state: each attention layer's last ``window`` positions in its ring
     (slot = position % window) and each recurrent layer's final state.
-    Returns ``(h, RGLRUState | None)``."""
+    With ``train`` it is the training forward (blockwise attention, remat;
+    see the module docstring). Returns ``(h, RGLRUState | None)``."""
     b, s, _ = h.shape
     window = cfg.window or 2048
     ri = ai = 0
     conv_out, h_out, cache_out = [], [], []
     positions = torch.arange(s, device=h.device)
+    rec, attn, chunk = rec_block, tfm.attn_full, None
+    if train:
+        rec, attn, chunk = tfm._maybe_remat(rec_block, cfg), tfm._maybe_remat(tfm.attn_full, cfg), cfg.attn_chunk
     for li, kind in enumerate(layer_kinds(cfg)):
         if kind == "rec":
             conv0 = state.conv[ri] if state else None
             h0 = state.h[ri] if state else None
-            h, conv1, hl = rec_block(blocks["rec"][ri], h, cfg, conv0, h0)
+            h, conv1, hl = rec(blocks["rec"][ri], h, cfg, conv0, h0)
             if collect_cache:
                 conv_out.append(conv1)
                 h_out.append(hl)
             ri += 1
         else:
-            h, (k, v) = tfm.attn_full(blocks["attn"][ai], h, cfg, dist, positions, window)
+            h, (k, v) = attn(blocks["attn"][ai], h, cfg, dist, positions, window, chunk)
             if collect_cache:
                 take = min(window, s)
                 slots = positions[-take:] % window

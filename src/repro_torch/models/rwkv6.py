@@ -19,7 +19,10 @@ reference's (it is not rescaled): the decay is clipped so that a chunk of
 
 There is no kernel here: the reference's recurrence is plain ``jnp``
 outside any Pallas kernel, so it is torch ops in the port. Decode returns
-new state tensors; it writes nothing in place.
+new state tensors; it writes nothing in place. Training runs the same
+chunked form under autograd (``rwkv_forward(train=True)``), each layer
+under activation checkpointing when ``cfg.remat == "full"``, as the
+reference wraps its scan body in ``jax.checkpoint``.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import layernorm
 from repro_torch.models.params import ParamSpec, dense_init, ones_init, zeros_init
-from repro_torch.models.transformer import _unstack
+from repro_torch.models.transformer import _maybe_remat, _unstack
 
 __all__ = ["RWKVState", "rwkv_block_specs", "rwkv_forward", "rwkv_decode_step", "init_rwkv_state"]
 
@@ -215,15 +218,24 @@ def channel_mix(p: dict, x: torch.Tensor, x_prev: torch.Tensor):
 # Stack execution
 
 
-def rwkv_forward(blocks: dict, h: torch.Tensor, cfg, dist=None, state: RWKVState | None = None):
-    """All layers over a full sequence (prefill). ``state`` carries in
-    (zeros for a fresh sequence); returns ``(h, RWKVState)``."""
+def rwkv_forward(blocks: dict, h: torch.Tensor, cfg, dist=None, state: RWKVState | None = None,
+                 train: bool = False):
+    """All layers over a full sequence (prefill, or with ``train`` the
+    training forward, each layer under ``_maybe_remat``). ``state`` carries
+    in (zeros for a fresh sequence); returns ``(h, RWKVState)``."""
     if state is None:
         state = init_rwkv_state(cfg, h.shape[0], device=h.device)
+
+    def body(x, p, x_tm0, x_cm0, wkv0):
+        x, xt, st = time_mix(p["tm"], x, cfg, x_tm0, wkv0)
+        x, xc = channel_mix(p["cm"], x, x_cm0)
+        return x, xt, xc, st
+
+    if train:
+        body = _maybe_remat(body, cfg)
     x_tm, x_cm, wkv = [], [], []
     for i, p in enumerate(_unstack(blocks, cfg.num_layers)):
-        h, xt, st = time_mix(p["tm"], h, cfg, state.x_tm[i], state.wkv[i])
-        h, xc = channel_mix(p["cm"], h, state.x_cm[i])
+        h, xt, xc, st = body(h, p, state.x_tm[i], state.x_cm[i], state.wkv[i])
         x_tm.append(xt)
         x_cm.append(xc)
         wkv.append(st)

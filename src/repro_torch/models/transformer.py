@@ -24,12 +24,13 @@ once an idle lane's length outgrows it); here that row writes back the
 value already there, which is the same result without a host sync.
 
 Serving attention never takes ``blockwise_attention``: ``attn_full``
-without a ``chunk`` (prefill, and the Whisper encoder, non-causal) and
-``cross_attn`` over a memory of several queries run ``flash_attention``,
-and every one-query attention (``attn_decode``, the decoder's cross
-attention at decode) runs ``flash_decode``. The reference passes
-``cfg.attn_chunk`` at every call site; the port passes a chunk only where
-it trains. int8 params (``repro_torch.quant``) are dequantized one layer
+and ``cross_attn`` without a ``chunk`` (prefill, the Whisper encoder and
+its cross attention) run ``flash_attention`` over several queries, and
+every one-query attention (``attn_decode``, the decoder's cross attention
+at decode) runs ``flash_decode``. The reference passes ``cfg.attn_chunk``
+at every call site; the port passes a chunk only where it trains (this
+module's train mode, and the ``train=True`` forwards of ``rglru`` and
+``encdec``). int8 params (``repro_torch.quant``) are dequantized one layer
 at a time in ``run_decode_step``, as the reference does in its scan body.
 """
 
@@ -182,17 +183,21 @@ def cross_attn(
     memory_kv: tuple,  # precomputed (k, v) [B, F, KH, Dh]
     cfg,
     dist,
+    chunk: int | None = None,
 ) -> torch.Tensor:
     """Encoder-decoder cross attention against precomputed memory K/V,
-    non-causal (serving: the training slice of the audio family adds the
-    blockwise path). One query a sequence (decode) goes through
-    ``flash_decode`` with every memory position valid (the function the
-    reference's blockwise pass computes at S = 1), several through
-    ``flash_attention``."""
+    non-causal. With ``chunk`` (training) through ``blockwise_attention``
+    in blocks of ``chunk``, as the reference, which pads and masks a memory
+    that ``chunk`` does not divide. Without (serving), one query a sequence
+    (decode) goes through ``flash_decode`` with every memory position valid
+    (the function the reference's blockwise pass computes at S = 1),
+    several through ``flash_attention``."""
     xn = apply_norm(p["ln"], x, cfg.norm)
     q = torch.einsum("bsd,dhk->bshk", xn, p["wq"])
     k, v = memory_kv
-    if q.shape[1] == 1:
+    if chunk is not None:
+        o = blockwise_attention(q, k, v, causal=False, chunk=chunk)
+    elif q.shape[1] == 1:
         full = torch.full((q.shape[0],), k.shape[1], dtype=torch.int32, device=q.device)
         o = flash_decode(q[:, 0].contiguous(), k.contiguous(), v.contiguous(), full)[:, None]
     else:

@@ -8,7 +8,9 @@ reachable by their paths. The training slice's modules (``train/*``,
 module's ``__all__`` with their own listed exceptions; ``repro_torch.models``
 exports ``Model`` and ``build`` as ``repro.models`` does, and
 ``repro_torch.train`` and ``.data`` (namespace packages in the reference)
-export their modules' names. ``chunk_latency`` equals the reference's on the
+export their modules' names; ``configs/base`` and ``configs/registry``
+export their reference module's ``__all__`` (the shape cells
+``ShapeConfig``, ``SHAPES``, ``get_shape`` and ``cells`` among them). ``chunk_latency`` equals the reference's on the
 CPU (exact: the same f32 expressions), and a legacy ``Scenario`` passed as
 a policy raises the reference's message."""
 
@@ -163,6 +165,8 @@ MODULE_EXCEPTIONS = {
     "train.trainer": ({}, {}),
     "train.fault": ({}, {}),
     "data.pipeline": ({}, {}),
+    "configs.base": ({}, {}),  # ModelConfig, ShapeConfig, SHAPES, reduced
+    "configs.registry": ({}, {}),  # ARCH_IDS, get_config, get_shape, cells, reduced, SHAPES
     "models.model": ({}, {}),
     "models.moe": ({}, {"MoE": "a thin nn.Module over one layer's params dict, for PyTorch callers"}),
     "models.attention": ({}, {"NEG_INF": "the mask value, shared with the kernels' plain versions"}),

@@ -888,15 +888,35 @@ def test_ownership_sweep_tiles_match_plain_version(cuda, k, n, offset, counts_dt
     [("ssm", "RWKV"), ("hybrid", "RecurrentGemma"), ("audio", "encoder-decoder"), ("vlm", "vision")],
 )
 def test_model_families_of_later_slices_raise(family, what):
-    # The four families serve (tests/test_torch_families.py); their
-    # Model.loss raises, naming the next slice, which trains them.
-    cfg = dataclasses.replace(reduced(get_config("qwen3-1.7b")), family=family)
-    model = Model(cfg, "cpu")
+    # The four families serve (tests/test_torch_families.py) and train: their
+    # Model.loss gives a finite loss and a gradient in every leaf (against
+    # the reference in tests/test_torch_family_train.py); it raises on
+    # quantized params, as every family's does. ``what`` names the stack
+    # that the family trains through, in its module's docstring.
+    from repro_torch import tree as tree_lib
+    from repro_torch.models import encdec, model as model_mod, rglru, rwkv6
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kvsim import prng
+
+    arch = {"ssm": "rwkv6-1.6b", "hybrid": "recurrentgemma-2b", "audio": "whisper-base",
+            "vlm": "llava-next-34b"}[family]
+    stack = {"ssm": rwkv6, "hybrid": rglru, "audio": encdec, "vlm": model_mod}[family]
+    assert what in stack.__doc__
+    model = Model(reduced(get_config(arch)), "cpu")
+    assert model.cfg.family == family
     params = model.init(torch.Generator().manual_seed(0))
-    tokens = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match=what) as err:
-        model.loss(params, {"tokens": tokens, "targets": tokens})
-    assert "the next slice trains the ssm, hybrid, audio and vlm families" in str(err.value)
+    leaves = tree_lib.leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    batch = model.make_batch(ShapeConfig("cell", 32, 2, "train"), prng.prng_key(0))
+    loss, met = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    assert bool(torch.isfinite(loss)) and set(met) == {"xent", "loss"}
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert sum(float(g.float().abs().sum()) for g in grads) > 0
+    params["embed"] = {"q": params["embed"].detach().to(torch.int8), "s": torch.ones(1)}
+    with pytest.raises(NotImplementedError, match="quantized"):
+        model.loss(params, batch)
 
 
 def test_model_loss_and_quantized_params_raise():
@@ -1177,3 +1197,87 @@ def test_attribution_fold_through_latency_histogram_matches_plain_version(cuda, 
     assert torch.equal(attribution_trace_hist(*dev, acfg, n, rows_per_chunk=9_999).cpu(),
                        attribution_trace_hist(*cpu, acfg, n, rows_per_chunk=9_999))
     assert check_bin_rule(acfg.lo_ms, acfg.hi_ms, num_bins, cuda) == (0, None)
+
+
+# The families of the training slice (reduced configs; the CPU parity with
+# the reference is tests/test_torch_family_train.py): case -> (arch, config
+# overrides, token rows a sequence).
+FAMILY_TRAIN_CASES = {
+    "ssm": ("rwkv6-1.6b", {}, 64),
+    "hybrid": ("recurrentgemma-2b", {"attn_chunk": 32}, 160),
+    "audio": ("whisper-base", {}, 24),
+    "audio_padded": ("whisper-base", {"num_frames": 40, "attn_chunk": 16}, 24),
+    "vlm": ("llava-next-34b", {}, 48),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FAMILY_TRAIN_CASES))
+def test_family_loss_on_the_card_matches_plain_versions(cuda, case, monkeypatch):
+    """``Model.loss`` and every gradient on the card, through ``hot_gather``
+    (where the config has a hot-row cache holding the batch's 8 most
+    frequent tokens) and through its plain version with the wrapper's own
+    backward, on the same bf16 params and batch, at ``chip_smoke.py`` phase
+    13's bars: the loss within 1e-3 relative and every leaf's gradient
+    within 5e-2 relative L2 (a hit row equals the table's row, so the two
+    differ only where the card's atomic adds of the embedding's backward run
+    in another order); all finite, ``embed``'s nonzero; one ``hot_gather``
+    launch a loss where there is a cache."""
+    import repro_torch.core.hot_embedding as he_mod
+    from repro_torch import tree as tree_lib
+    from repro_torch.kernels.hot_gather import ops as hg_ops
+    from repro_torch.kernels.hot_gather.ref import hot_gather_ref
+
+    arch, over, seq = FAMILY_TRAIN_CASES[case]
+    cfg = reduced(get_config(arch), remat="full", **over)
+    model = Model(cfg, cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    leaves = tree_lib.leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, 64, (2, seq)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks).to(cuda),
+             "targets": torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, seq)).astype(np.int32)).to(cuda)}
+    extra = {"vlm": ("patches", cfg.num_patches), "audio": ("frames", cfg.num_frames)}.get(cfg.family)
+    if extra:
+        batch[extra[0]] = torch.from_numpy(rng.standard_normal((2, extra[1], cfg.d_model)).astype(np.float32)
+                                           ).to(cuda, torch.bfloat16)
+    he = None
+    if cfg.hot_embed_rows:
+        vals, cnt = np.unique(toks, return_counts=True)
+        hot = vals[np.argsort(-cnt, kind="stable")][:8].astype(np.int32)
+        hot_ids = np.full(cfg.hot_embed_rows, -1, np.int32)
+        hot_ids[: len(hot)] = hot
+        slot_map = np.full(cfg.padded_vocab, -1, np.int32)
+        slot_map[hot] = np.arange(len(hot), dtype=np.int32)
+        he = hot_embedding_state_from_numpy(np.zeros((cfg.padded_vocab, 1), np.float32), hot_ids, slot_map,
+                                            np.zeros((), np.int32), device=cuda)
+
+    class Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, tok, smap, table):
+            rows, hit = hot_gather_ref(tok, smap, table)
+            ctx.save_for_backward(tok, smap)
+            ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+            ctx.mark_non_differentiable(hit)
+            return rows, hit
+
+        backward = hg_ops._HotGather.backward
+
+    def rel(a, b):
+        a, b = a.double(), b.double()
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    before = hg_ops.hot_gather.launches
+    loss_k, _ = model.loss(params, batch, hot_embed=he)
+    grads_k = torch.autograd.grad(loss_k, leaves)
+    assert hg_ops.hot_gather.launches - before == (0 if he is None else 1)
+    monkeypatch.setattr(he_mod, "hot_gather", Plain.apply)
+    loss_p, _ = model.loss(params, batch, hot_embed=he)
+    grads_p = torch.autograd.grad(loss_p, leaves)
+    assert bool(torch.isfinite(loss_k)) and abs(float(loss_k) - float(loss_p)) <= 1e-3 * abs(float(loss_p))
+    for a, b in zip(grads_k, grads_p):
+        assert bool(torch.isfinite(a).all()) and rel(a, b) <= 5e-2
+    paths = [path for path, _ in tree_lib.leaves_with_paths(params)]
+    assert float(grads_k[paths.index((("key", "embed"),))].float().abs().sum()) > 0
