@@ -64,14 +64,14 @@ chunk and each rank's peak memory, and ``publish_and_fill`` on 2 ranks at
 ``Trainer.run``: deepseek-moe-16b at full width (4 layers, remat, the sort
 dispatch, then the einsum dispatch) for 7 + 3 steps of 32,768 Zipf tokens,
 through a sweep of both placement daemons at step 5 (held exactly against
-plain daemons fed the same traffic), and qwen3-1.7b at full width and 14 of
+plain daemons fed the same traffic), and qwen3-1.7b at full width and 8 of
 its 28 layers through a checkpoint at step 2 and a resume that replays
 steps 3-4; steps 1 and 6 of the first and step 1 of the second are held
 against the kernels' plain versions (the loss, every gradient, and the
 router weights' gradient against the aux term's alone). Phase 14 serves the
 four other families through ``ServeEngine`` behind the router: rwkv6-1.6b,
 recurrentgemma-2b and whisper-base at full width and depth, llava-next-34b
-at full width and 12 of its 60 layers; rwkv6-1.6b is held against the CPU
+at full width and 8 of its 60 layers; rwkv6-1.6b is held against the CPU
 port and its chunked form against its step form, the others' attention
 against the plain versions beside a teacher-forced plain engine, and
 llava-next-34b's int8 decode against its bf16 decode and against the plain
@@ -84,14 +84,31 @@ llava-next-34b at 4 of its 60 layers through ``Trainer.step`` on
 against the kernels' plain versions. Every phase raises on a mismatch and
 prints its duration; the script exits non-zero without a CUDA device or
 outside a checkout. The last line of its output is the JSON device record.
+
+Phase 16 drives the distribution seam (``dist.py``, ``launch/sharding.py``)
+on two gloo ranks that share the card, mesh (data 1, model 2): qwen3-1.7b
+at full width and depth prefills 2 x 1,024 tokens (``flash_attention`` on
+each rank's 8 of 16 heads) and decodes 8 tokens (``flash_decode`` on its 4
+of 8 kv heads), against one rank with ``dist=None``; one training step of
+qwen3-1.7b (4 layers) and of granite-moe-1b-a400m (all 24 layers, its 32
+experts over the model axis through ``moe_router``) and granite's prefill,
+against one rank; the collectives by kind and bytes, each rank's peak
+memory and the walls. It prints the analytic memory model on one card for
+every (arch x cell) against 80 GB, runs one decode step of rwkv6-1.6b and
+recurrentgemma-2b ``long_500k`` at full size and depth beside the model's
+bytes, and prints the dry run of qwen3-1.7b train_4k on the fake 16 x 16
+mesh (``python -m repro_torch.launch.dryrun``, a CPU subprocess started
+after the build and run beside the other phases).
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -157,14 +174,14 @@ BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate (NVIDIA data she
 # cut again for phase 15's time). (b) qwen3-1.7b at full width; reduced:
 # 4 steps of 4 x 2048 tokens (6 before phase 15), the checkpoint at step 2,
 # and 28 -> 14 layers for the time limit (at 28 the checkpoint's save and
-# restore took 28 s of the phase's 101).
+# restore took 28 s of the phase's 101), 14 -> 8 for phase 16's time.
 TRAIN_LAYERS = ML_LAYERS
 TRAIN_BATCH, TRAIN_SEQ = 16, 2048
 TRAIN_SWEEP_PERIOD = 5
 TRAIN_STEPS = 7  # both daemons sweep at step 5; steps 6-7 run the hot path
 TRAIN_EINSUM_STEPS = 3
 TRAIN_CHECK_STEPS = (1, 6)
-DENSE_BATCH, DENSE_STEPS, DENSE_CKPT_STEP, DENSE_LAYERS = 4, 4, 2, 14
+DENSE_BATCH, DENSE_STEPS, DENSE_CKPT_STEP, DENSE_LAYERS = 4, 4, 2, 8
 # Kernel path against the plain versions on the same state and batch: the
 # loss to 1e-3 relative and each leaf's gradient to 5e-2 relative L2 (bf16
 # activations; the kernel's gates differ from the plain version's by f32
@@ -208,7 +225,7 @@ SERVE_PREFILL_LENS = (512, 1024, 2048, 3001, 4096)
 # its lengths are drawn in steps of 32. ``cache`` is the KV cache's slots:
 # recurrentgemma-2b's attention keeps rings of its 2,048-token window and
 # rwkv6-1.6b keeps no cache, so both ignore it.
-FAMILY_LAYERS = {"llava-next-34b": 12}
+FAMILY_LAYERS = {"llava-next-34b": 8}  # 12 -> 8 for phase 16's time
 FAMILY_DRIVES = {
     "rwkv6-1.6b": dict(lanes=8, cache=0, requests=8, sessions=4, prompt_len=(256, 2048),
                        prompt_step=32, max_new=32),
@@ -784,7 +801,7 @@ def _ml_drive(torch, dev, cfg, *, layers: int, batch: int, seq: int, steps: int,
     params = [init_params(moe_specs(cfg), gen, dev) for _ in range(layers)]
     # Unit-scale rows stand in for the RMS-normed hidden state a real layer
     # routes (there is no attention or norm in this slice).
-    table = init_params(ParamSpec((cfg.padded_vocab, cfg.d_model), embed_init(1.0)), gen, dev)
+    table = init_params(ParamSpec((cfg.padded_vocab, cfg.d_model), ("vocab", "embed_rep"), embed_init(1.0)), gen, dev)
     ranks = torch.arange(1, cfg.padded_vocab + 1, device=dev, dtype=torch.float64) ** -1.1
     zipf = (ranks / ranks.sum()).to(torch.float32)
     dkw = dict(h=cfg.ownership_h or None, decay=cfg.traffic_decay, period=cfg.sweep_period)
@@ -3378,6 +3395,334 @@ def _family_training_phase(torch, dev, out_dir) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the distribution seam on a mesh, the memory model, the dry run.
+
+MESH_SHAPE, MESH_AXES = (1, 2), ("data", "model")  # two gloo ranks sharing the card
+MESH_PROMPT, MESH_PROMPTS, MESH_STEPS = 1024, 2, 8  # qwen3 prefill 2 x 1,024, then 8 decode steps
+MESH_TRAIN_LAYERS = 4  # phase 13's depth for the qwen3 training step
+MESH_TRAIN_ROWS, MESH_TRAIN_SEQ = 2, 1024
+MESH_DECODE_ATOL, MESH_DECODE_RTOL = 0.15, 0.05  # tests/test_distributed.py's sharded decode bars
+MESH_LOSS_RTOL = 2e-2  # tests/test_distributed.py's sharded loss bar
+LONG_CELLS = ("rwkv6-1.6b", "recurrentgemma-2b")  # long_500k at full size and depth
+DRYRUN_CELL = ("qwen3-1.7b", "train_4k")
+
+
+def _mesh_counters():
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.kernels.hot_gather.ops import hot_gather
+    from repro_torch.kernels.moe_router.ops import moe_router
+
+    return dict(flash_attention=flash_attention, flash_decode=flash_decode, moe_router=moe_router,
+                hot_gather=hot_gather)
+
+
+def _mesh_rank(jobs: list) -> list:
+    """Phase 16 (a) on one rank of a ``spmd.run_ranks`` group of two sharing
+    the card, mesh (data 1, model 2). Each job runs the sharded main path
+    once (this rank's blocks of full-width params made from a seed; kernel
+    launches, collectives by kind and bytes, wall and peak memory counted
+    on this rank), then, on rank 0, the same path with ``dist=None`` on the
+    whole params (the one-rank result it is held against). Returns one
+    record a job."""
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch import dist as D
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train.optim import init_opt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(jobs[0].get("device", "cuda"))  # "cpu" rehearses the phase's logic
+    cuda = dev.type == "cuda"
+    rank = tdist.get_rank()
+    dist = sh.make_dist(make_mesh(MESH_SHAPE, MESH_AXES, device_type=dev.type))
+    kernels = _mesh_counters()
+    out = []
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    for job in jobs:
+        cfg = get_config(job["arch"])
+        if job.get("overrides"):  # a rehearsal's reduced widths
+            cfg = dataclasses.replace(cfg, **job["overrides"])
+        if job.get("layers"):
+            cfg = dataclasses.replace(cfg, num_layers=job["layers"])
+        model = Model(cfg, dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        local = sh.place_tree(params, sh.param_shardings(model, dist.mesh), dist)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        toks = torch.randint(0, cfg.vocab_size, (job["rows"], job["seq"] + 1), device=dev,
+                             dtype=torch.int32, generator=gen)
+
+        def run(p, d, feed=None):
+            """The job's path; returns (numbers, tokens fed to the decode)."""
+            res = {}
+            if job["kind"] == "serve":
+                with torch.no_grad():
+                    logits, state = model.prefill(p, {"tokens": toks[:, :-1]}, d,
+                                                  cache_len=job["seq"] + MESH_STEPS)
+                    logits = D.gather_logits(logits, d)
+                    steps, fed = [logits.float()], []
+                    for i in range(MESH_STEPS):
+                        tok = (torch.argmax(logits, -1).to(torch.int32) if feed is None else feed[i])
+                        fed.append(tok)
+                        logits, state = model.decode_step(p, state, tok, d)
+                        logits = D.gather_logits(logits, d)
+                        steps.append(logits.float())
+                res["logits"] = torch.stack(steps).cpu().numpy()
+                return res, fed
+            tr = Trainer(model, TrainConfig(), d)
+            pp = p if d is not None else tree_lib.tree_map(lambda t: t.detach().clone(), p)
+            for leaf in tree_lib.leaves(pp):
+                leaf.requires_grad_(True)
+            batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+            _, _, met = tr.step(pp, init_opt(pp), batch, None, None)
+            res["loss"] = float(met["loss"])
+            if job["kind"] == "moe":  # and a prefill
+                with torch.no_grad():
+                    logits, _ = model.prefill(p, {"tokens": toks[:, :-1]}, d)
+                res["prefill_logits"] = D.gather_logits(logits, d).float().cpu().numpy()
+            return res, None
+
+        for fn in kernels.values():
+            fn.launches = 0
+        D.reset_comm()
+        tdist.barrier()
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() if cuda else 0
+        t0 = time.perf_counter()
+        res, fed = run(local, dist)
+        sync()
+        rec = dict(wall_s=time.perf_counter() - t0, comm=D.comm_totals(),
+                   launches={name: getattr(fn, "launches", 0) for name, fn in kernels.items()},
+                   peak_bytes=(torch.cuda.max_memory_allocated() - held) if cuda else 0, **res)
+        del local
+        tdist.barrier()
+        if rank == 0:  # the one-rank run on the card, fed the same tokens
+            sync()
+            t0 = time.perf_counter()
+            ref, _ = run(params, None, fed)
+            sync()
+            rec["one_rank"] = dict(wall_s=time.perf_counter() - t0, **ref)
+        tdist.barrier()
+        out.append(rec)
+        del params, model
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def _start_dryrun(out_dir):
+    """Phase 16 (c)'s dry run as a CPU subprocess: ``python -m
+    repro_torch.launch.dryrun`` for ``DRYRUN_CELL`` on the fake 16 x 16 mesh,
+    its JSON written to ``out_dir`` and printed."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", DRYRUN_CELL[0],
+                             "--shape", DRYRUN_CELL[1], "--out", str(out_dir / "dryrun_16x16.json")],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _mesh_phase(torch, dev, out_dir, dry=None) -> dict:
+    """Phase 16: the distribution seam (``dist.py``, ``launch/sharding.py``)
+    and the dry run (``launch/dryrun.py``) on the card.
+
+    (a) Two gloo ranks sharing the card, mesh (data 1, model 2): qwen3-1.7b
+        at full width and all 28 layers, a prefill of 2 x 1,024 tokens
+        (``flash_attention`` on each rank's 8 of 16 heads) and 8 greedy
+        decode steps (``flash_decode`` on its 4 of 8 kv heads), held against
+        one rank with ``dist=None`` on the card fed the same tokens (decode
+        logits atol 0.15, rtol 0.05); one ``Trainer.step`` of qwen3-1.7b at
+        phase 13's depth (4 layers, 2 x 1,024 tokens) and of
+        granite-moe-1b-a400m at full width and all 24 layers (its 32 experts
+        over the model axis through ``moe_router``), loss within rtol 2e-2
+        of one rank's, and granite's prefill logits at the decode bars. The
+        collectives a step by kind and bytes, each rank's peak memory and
+        the wall against one rank's.
+    (b) ``analytic_memory_per_chip`` on a one-card mesh for every (arch x
+        cell) against 80 GB; then one decode step at full size and depth of
+        rwkv6-1.6b and recurrentgemma-2b ``long_500k`` (the ring caches full,
+        ``flash_decode`` over them), ``max_memory_allocated`` beside the
+        analytic params + state bytes.
+    (c) ``python -m repro_torch.launch.dryrun`` for qwen3-1.7b train_4k on
+        the fake 16 x 16 mesh (a CPU subprocess, ``dry`` where the caller
+        started it earlier, else started here): it must exit 0 and print
+        its JSON."""
+    from repro_torch.configs import ARCH_IDS, cells, get_config, get_shape
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    from repro_torch.kernels.moe_router.ops import moe_router
+    from repro_torch.kernels.moe_router.ref import router_ref
+    from repro_torch.launch.dryrun import analytic_memory_per_chip
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models.model import Model
+    from repro_torch.spmd import run_ranks
+
+    rec: dict = {}
+    smi = _smi()
+    t_phase = time.perf_counter()
+    dry = dry or _start_dryrun(out_dir)
+    try:
+        # The kernels at the sharded path's shapes, against their plain versions.
+        gen = torch.Generator(device=dev).manual_seed(16)
+        q, k, v = (torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
+                   for s in ((MESH_PROMPTS, MESH_PROMPT, 8, 128), (MESH_PROMPTS, MESH_PROMPT, 4, 128),
+                             (MESH_PROMPTS, MESH_PROMPT, 4, 128)))
+        err_fa, _ = _check_close(torch, flash_attention(q, k, v), flash_attention_ref(q, k, v),
+                                 torch.bfloat16, "phase 16 flash_attention 8 of 16 heads")
+        lens = torch.tensor([MESH_PROMPT + 1, MESH_PROMPT + 5], dtype=torch.int32, device=dev)
+        kc, vc = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, MESH_STEPS)) for x in (k, v))
+        q0 = q[:, 0].contiguous()
+        err_fd, _ = _check_close(torch, flash_decode(q0, kc, vc, lens),
+                                 flash_decode_ref(q0, kc, vc, lens), torch.bfloat16,
+                                 "phase 16 flash_decode 4 of 8 kv heads")
+        logits = torch.randn((MESH_TRAIN_ROWS * MESH_TRAIN_SEQ, 32), generator=gen, device=dev)
+        near, err_rt = _router_near_ties(moe_router(logits, k=8, group=512), router_ref(logits, 8, 512),
+                                         _plain_probs(logits), "phase 16 moe_router granite")
+        del q, q0, k, v, kc, vc, logits
+        rec["kernel_errors"] = dict(flash_attention=err_fa, flash_decode=err_fd, moe_router=err_rt)
+        print(f"phase 16 kernels at the sharded shapes ok: flash_attention max_abs_err {err_fa}, "
+              f"flash_decode {err_fd}, moe_router gates {err_rt} ({int(near.sum())} near-tie rows)")
+
+        # (a) sharded against one rank
+        jobs = [dict(arch="qwen3-1.7b", kind="serve", rows=MESH_PROMPTS, seq=MESH_PROMPT),
+                dict(arch="qwen3-1.7b", kind="train", rows=MESH_TRAIN_ROWS, seq=MESH_TRAIN_SEQ,
+                     layers=MESH_TRAIN_LAYERS),
+                dict(arch="granite-moe-1b-a400m", kind="moe", rows=MESH_TRAIN_ROWS, seq=MESH_TRAIN_SEQ)]
+        t0 = time.perf_counter()
+        ranks = run_ranks(_mesh_rank, 2, jobs, timeout=900)
+        rec["a_wall_s"] = time.perf_counter() - t0
+        launches = dict.fromkeys(_mesh_counters(), 0)
+        rec["a"] = {}
+        for i, job in enumerate(jobs):
+            r0, r1 = ranks[0][i], ranks[1][i]
+            one = r0["one_rank"]
+            label = f"{job['arch']} {job['kind']}"
+            for name in launches:
+                launches[name] += r0["launches"][name] + r1["launches"][name]
+            row = dict(wall_s=[r0["wall_s"], r1["wall_s"]], one_rank_wall_s=one["wall_s"],
+                       peak_bytes=[r0["peak_bytes"], r1["peak_bytes"]], comm=r0["comm"],
+                       launches=[r0["launches"], r1["launches"]])
+            if job["kind"] == "serve":
+                got, want = r0["logits"], one["logits"]
+                assert np.array_equal(got, r1["logits"]), label
+                assert np.isfinite(got).all(), label
+                np.testing.assert_allclose(got, want, atol=MESH_DECODE_ATOL, rtol=MESH_DECODE_RTOL,
+                                           err_msg=label)
+                row["max_logit_diff"] = float(np.abs(got - want).max())
+                layers = get_config(job["arch"]).num_layers
+                for r in (r0, r1):  # a layer a prefill and a layer a step, on each rank
+                    assert r["launches"]["flash_attention"] == layers, r["launches"]
+                    assert r["launches"]["flash_decode"] == layers * MESH_STEPS, r["launches"]
+            else:
+                assert r0["loss"] == r1["loss"] and np.isfinite(r0["loss"]), label
+                np.testing.assert_allclose(r0["loss"], one["loss"], rtol=MESH_LOSS_RTOL, err_msg=label)
+                row.update(loss=r0["loss"], one_rank_loss=one["loss"])
+                if job["kind"] == "moe":
+                    np.testing.assert_allclose(r0["prefill_logits"], one["prefill_logits"],
+                                               atol=MESH_DECODE_ATOL, rtol=MESH_DECODE_RTOL, err_msg=label)
+                    row["max_logit_diff"] = float(np.abs(r0["prefill_logits"] - one["prefill_logits"]).max())
+                    layers = get_config(job["arch"]).num_layers
+                    for r in (r0, r1):  # the step's forward and its remat, and the prefill
+                        assert r["launches"]["moe_router"] == 3 * layers, r["launches"]
+                        assert r["launches"]["flash_attention"] == layers, r["launches"]
+            rec["a"][label] = row
+            comm = ", ".join(f"{kind} {c['calls']} calls {c['bytes']:.0f} bytes"
+                             for kind, c in r0["comm"].items())
+            extra = (f"loss {row['loss']} against one rank's {row['one_rank_loss']} (rtol "
+                     f"{MESH_LOSS_RTOL})" if "loss" in row else "")
+            if "max_logit_diff" in row:
+                extra += (f"{'; ' if extra else ''}max logit difference {row['max_logit_diff']} "
+                          f"(atol {MESH_DECODE_ATOL}, rtol {MESH_DECODE_RTOL})")
+            print(f"phase 16 (a) {label}: 2 ranks (data 1, model 2) {extra}; wall {r0['wall_s']:.3f} / "
+                  f"{r1['wall_s']:.3f} s against one rank's {one['wall_s']:.3f} s; peak memory "
+                  f"{r0['peak_bytes']} / {r1['peak_bytes']} bytes; collectives a rank: {comm}; "
+                  f"launches a rank {r0['launches']} [{smi}]")
+        rec["launches"] = launches
+        print(f"phase 16 launches {launches}; (a) took {rec['a_wall_s']:.1f} s")
+
+        # (b) the memory model on one card, and two long_500k cells at full size
+        one_card = AbstractMesh((1, 1), ("data", "model"))
+        table = {}
+        for arch in ARCH_IDS:
+            model = Model(get_config(arch), "cpu")
+            for cell in cells(arch):
+                shape = get_shape(cell)
+                m = analytic_memory_per_chip(model, shape, one_card, shape.kind)
+                table[f"{arch} {cell}"] = dict(total_bytes=m["total_bytes"], fits_80GB=m["total_bytes"] < 80e9)
+        print("phase 16 (b) analytic memory on one card (1 x 1 mesh; fits 80 GB): " + "; ".join(
+            f"{k} {v['total_bytes'] / 1e9:.3f} GB {'fits' if v['fits_80GB'] else 'does not fit'}"
+            for k, v in table.items()))
+        rec["memory_table"] = table
+        rec["long_500k"] = {}
+        fd_launches = 0
+        for arch in LONG_CELLS:
+            cfg, shape = get_config(arch), get_shape("long_500k")
+            model = Model(cfg, dev)
+            params = model.init(torch.Generator(device=dev).manual_seed(0))
+            state = model.init_state(shape.global_batch, shape.seq_len)
+            if hasattr(state, "length"):  # a 524,287-token context before this token
+                state = state._replace(length=torch.full_like(state.length, shape.seq_len - 1))
+            if hasattr(state, "caches"):  # the rings hold a 524,287-token context's last window
+                for kc_, vc_ in state.caches:
+                    kc_.normal_(generator=gen)
+                    vc_.normal_(generator=gen)
+            tok = torch.zeros((shape.global_batch,), dtype=torch.int32, device=dev)
+            flash_decode.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with torch.no_grad():
+                logits, _ = model.decode_step(params, state, tok)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            assert torch.isfinite(logits[:, : cfg.vocab_size]).all(), arch
+            fd_launches += flash_decode.launches
+            m = analytic_memory_per_chip(model, shape, one_card, "decode")
+            analytic = m["params_bytes"] + m["state_bytes"]
+            rec["long_500k"][arch] = dict(peak_bytes=peak, analytic_bytes=analytic, ratio=peak / analytic,
+                                          flash_decode_launches=flash_decode.launches)
+            print(f"phase 16 (b) {arch} long_500k decode step at full size and depth: "
+                  f"max_memory_allocated {peak} bytes, analytic params + state {analytic:.0f} bytes, "
+                  f"ratio {peak / analytic:.4f}; flash_decode launches {flash_decode.launches} [{smi}]")
+            del model, params, state, logits
+            gc.collect()
+            torch.cuda.empty_cache()
+        launches["flash_decode"] += fd_launches
+        rec["long_500k_flash_decode_launches"] = fd_launches
+
+        # (c) the dry run
+        t_wait = time.perf_counter()
+        stdout, stderr = dry.communicate(timeout=900)
+        rec["dryrun_wait_s"] = time.perf_counter() - t_wait
+        print(f"phase 16 (a) and (b) took {t_wait - t_phase:.1f} s; waited {rec['dryrun_wait_s']:.1f} s "
+              f"for the dry run")
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+    if dry.returncode != 0:
+        raise RuntimeError(f"phase 16 (c) dry run exited {dry.returncode}:\n{stderr[-3000:]}")
+    res = json.loads(stdout[stdout.index("{"):])
+    assert res["ok"] and res["chips"] == 256, res
+    rec["dryrun"] = res
+    print("phase 16 (c) dry run " + json.dumps(
+        {k: res[k] for k in ("arch", "shape", "mesh", "chips", "compile_s", "memory", "roofline")}))
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -3450,6 +3795,8 @@ def main() -> int:
     print(smi)
     print(f"phase 1 ok: {torch.cuda.get_device_name(0)}, kernels built in {build_s:.2f} s")
     record["build_s"] = build_s
+    dry = _start_dryrun(out_dir)  # phase 16 (c), on the host's CPU beside the card's phases
+    atexit.register(lambda: dry.poll() is None and (dry.kill(), dry.wait()))
 
     lap("phase 1")
 
@@ -3706,6 +4053,25 @@ def main() -> int:
           f"by name), "
           f"each such row the mean of v; max_abs_err f32 {err_attn[torch.float32]}, "
           f"bf16 {err_attn[torch.bfloat16]}")
+    # flash_attention at 1,024 tokens (qwen3-1.7b's heads, causal, bf16) beside
+    # SDPA, in turns (kernel, SDPA) three times; the median of each.
+    sdpa_ = torch.nn.functional.scaled_dot_product_attention
+    q, k, v = (cuda_t(rng.standard_normal(sh).astype(np.float32)).to(torch.bfloat16)
+               for sh in ((1, 1024, 16, 128), (1, 1024, 8, 128), (1, 1024, 8, 128)))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    turns_1k = {"kernel": [], "sdpa": []}
+    for _ in range(3):
+        turns_1k["kernel"].append(_device_ms(lambda: flash_attention(q, k, v), torch, reps=5, iters=20))
+        turns_1k["sdpa"].append(_device_ms(lambda: sdpa_(qt, kt, vt, is_causal=True, enable_gqa=True),
+                                           torch, reps=5, iters=20))
+    f1k, b1k = _attention_flops_bytes(1, 1024, 1024, 16, 8, 128, True, 0)
+    bound_1k = max(f1k / BF16_OPS_PER_S, b1k / BW_BYTES_PER_S) * 1e3
+    med_k, med_s = float(np.median(turns_1k["kernel"])), float(np.median(turns_1k["sdpa"]))
+    record["flash_attention_1024"] = dict(turns_ms=turns_1k, ms=med_k, sdpa_ms=med_s, bound_ms=bound_1k)
+    print(f"phase 2 flash_attention S 1024 (q [1, 1024, 16, 128], k/v [1, 1024, 8, 128] bf16, causal) "
+          f"in turns: kernel {turns_1k['kernel']} ms, SDPA {turns_1k['sdpa']} ms; medians {med_k:.4f} "
+          f"against {med_s:.4f} ms, bound {bound_1k:.4f} ms")
+    del qt, kt, vt
 
     # flash_decode: the reference kernel test's shapes and recurrentgemma-2b's
     # rings (and a group of 16 at D 256) in both dtypes, then the serving
@@ -4405,6 +4771,12 @@ def main() -> int:
 
     lap("phase 15")
 
+    # ---- phase 16: the distribution seam, the memory model, the dry run ----
+    record["mesh"] = _mesh_phase(torch, dev, out_dir, dry)
+    ms_launches = record["mesh"]["launches"]
+
+    lap("phase 16")
+
     # ---- phase 9: the kernel record ------------------------------------
     # Launches: the telemetry path's run (phase 5), the routing and fault
     # runs (phase 10), the attribution and streamed runs (phase 11) and the
@@ -4461,8 +4833,9 @@ def main() -> int:
         dict(name="moe_router", route="cuda",
              source="src/repro_torch/kernels/moe_router/csrc/moe_router.cu",
              replaces="src/repro/kernels/moe_router/kernel.py:28",
-             launches=ml_launches["moe_router"] + tr_launches["moe_router"],
-             launches_by_phase={"6": ml_launches["moe_router"], "13": tr_launches["moe_router"]},
+             launches=ml_launches["moe_router"] + tr_launches["moe_router"] + ms_launches["moe_router"],
+             launches_by_phase={"6": ml_launches["moe_router"], "13": tr_launches["moe_router"],
+                                "16": ms_launches["moe_router"]},
              max_abs_err=err_router,
              ms=router_ms, plain_ms=router_plain, bound_ms=router_bound,
              bound_by="bytes" if router_bytes / BW_BYTES_PER_S >= router_ops / F32_OPS_PER_S
@@ -4480,8 +4853,10 @@ def main() -> int:
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/kernel.py:31",
-             launches=serve_launches["flash_attention"] + fm_launches["flash_attention"],
-             launches_by_phase={"7": serve_launches["flash_attention"], "14": fm_launches["flash_attention"]},
+             launches=serve_launches["flash_attention"] + fm_launches["flash_attention"]
+             + ms_launches["flash_attention"],
+             launches_by_phase={"7": serve_launches["flash_attention"], "14": fm_launches["flash_attention"],
+                                "16": ms_launches["flash_attention"]},
              max_abs_err=err_fa,
              variant={k: v for k, v in attn_variants.items() if v},
              ms=fa_ms, plain_ms=fa_plain, bound_ms=fa_bound,
@@ -4490,8 +4865,10 @@ def main() -> int:
         dict(name="flash_decode", route="cuda",
              source="src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
              replaces="src/repro/kernels/flash_decode/kernel.py:29",
-             launches=serve_launches["flash_decode"] + fm_launches["flash_decode"],
-             launches_by_phase={"7": serve_launches["flash_decode"], "14": fm_launches["flash_decode"]},
+             launches=serve_launches["flash_decode"] + fm_launches["flash_decode"]
+             + ms_launches["flash_decode"],
+             launches_by_phase={"7": serve_launches["flash_decode"], "14": fm_launches["flash_decode"],
+                                "16": ms_launches["flash_decode"]},
              max_abs_err=err_fd,
              ms=fd_ms, plain_ms=fd_plain, bound_ms=fd_bound,
              bound_by="bytes" if fd_bytes / BW_BYTES_PER_S >= fd_flops / BF16_OPS_PER_S else "operations",
@@ -4508,6 +4885,10 @@ def main() -> int:
              whole_trace_ms=tw_rec["whole_trace_ms"], whole_trace_bound_ms=tw_rec["whole_trace_bound_ms"],
              kernels_per_call=tw_rec["kernels_per_call"]["host_launches"]),
     ]
+    mesh_errs = record["mesh"]["kernel_errors"]
+    for entry in kernels:
+        if entry["name"] in mesh_errs:
+            entry["max_abs_err"] = max(entry["max_abs_err"], mesh_errs[entry["name"]])
     record["kernels"] = kernels
     record["ml_launches"] = ml_launches
     record["card"] = smi

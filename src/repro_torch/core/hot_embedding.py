@@ -19,7 +19,7 @@ import torch
 from repro_torch.core.expert_placement import top_k_stable
 from repro_torch.core.ownership import validate_coefficient
 from repro_torch.device import resolve_device
-from repro_torch.dist import embed_lookup
+from repro_torch.dist import embed_lookup, vocab_rows
 from repro_torch.kernels.hot_gather.ops import hot_gather
 
 __all__ = ["HotEmbeddingState", "HotEmbedding", "embed_with_cache"]
@@ -124,7 +124,7 @@ def embed_with_cache(
     b, s = tokens.shape
     flat = tokens.reshape(-1).to(torch.int32).contiguous()
     safe_hot = state.hot_ids.clamp(0, table.shape[0] - 1).long()
-    hot_table = table[safe_hot]  # [R, D], fresh every step
+    hot_table = vocab_rows(table, safe_hot, dist)  # [R, D], fresh every step
     rows_hot, hit = hot_gather(flat, state.slot_map, hot_table)
     cold_tokens = torch.where(hit, 0, flat).reshape(b, s)
     rows_cold = embed_lookup(table, cold_tokens, dist).reshape(b * s, -1)

@@ -34,11 +34,12 @@ def norm_specs(d: int, kind: str, prefix: tuple = ()) -> dict:
     """``kind``: 'rmsnorm' | 'layernorm'. ``prefix`` holds ``(size,
     axis_name)`` pairs that stack the params (e.g. layers)."""
     shape = tuple(s for s, _ in prefix) + (d,)
+    axes = tuple(a for _, a in prefix) + (None,)
     if kind == "rmsnorm":
-        return {"scale": ParamSpec(shape, ones_init, torch.float32)}
+        return {"scale": ParamSpec(shape, axes, ones_init, torch.float32)}
     return {
-        "scale": ParamSpec(shape, ones_init, torch.float32),
-        "bias": ParamSpec(shape, zeros_init, torch.float32),
+        "scale": ParamSpec(shape, axes, ones_init, torch.float32),
+        "bias": ParamSpec(shape, axes, zeros_init, torch.float32),
     }
 
 
@@ -61,13 +62,13 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4) -> torch.
 
 
 def swiglu_specs(d_model: int, d_ff: int, prefix: tuple = ()) -> dict:
-    """``prefix`` holds ``(size, axis_name)`` pairs, as the reference's does;
-    only the sizes are used."""
+    """``prefix`` holds ``(size, axis_name)`` pairs that stack the params."""
     ps = tuple(s for s, _ in prefix)
+    pa = tuple(a for _, a in prefix)
     return {
-        "w_gate": ParamSpec(ps + (d_model, d_ff), dense_init(d_model)),
-        "w_up": ParamSpec(ps + (d_model, d_ff), dense_init(d_model)),
-        "w_down": ParamSpec(ps + (d_ff, d_model), dense_init(d_ff)),
+        "w_gate": ParamSpec(ps + (d_model, d_ff), pa + ("embed", "mlp"), dense_init(d_model)),
+        "w_up": ParamSpec(ps + (d_model, d_ff), pa + ("embed", "mlp"), dense_init(d_model)),
+        "w_down": ParamSpec(ps + (d_ff, d_model), pa + ("mlp", "embed"), dense_init(d_ff)),
     }
 
 
@@ -80,11 +81,12 @@ def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 def gelu_mlp_specs(d_model: int, d_ff: int, prefix: tuple = ()) -> dict:
     ps = tuple(s for s, _ in prefix)
+    pa = tuple(a for _, a in prefix)
     return {
-        "w_in": ParamSpec(ps + (d_model, d_ff), dense_init(d_model)),
-        "b_in": ParamSpec(ps + (d_ff,), zeros_init),
-        "w_out": ParamSpec(ps + (d_ff, d_model), dense_init(d_ff)),
-        "b_out": ParamSpec(ps + (d_model,), zeros_init),
+        "w_in": ParamSpec(ps + (d_model, d_ff), pa + ("embed", "mlp"), dense_init(d_model)),
+        "b_in": ParamSpec(ps + (d_ff,), pa + ("mlp",), zeros_init),
+        "w_out": ParamSpec(ps + (d_ff, d_model), pa + ("mlp", "embed"), dense_init(d_ff)),
+        "b_out": ParamSpec(ps + (d_model,), pa + ("embed",), zeros_init),
     }
 
 

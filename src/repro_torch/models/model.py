@@ -17,7 +17,14 @@
   make_batch(shape, key)                     — a synthetic batch of a cell
 
 A ``Model`` lives on one device (``device=None`` means CUDA and raises
-without a card; see ``device.resolve_device``). ``loss`` trains all six
+without a card; see ``device.resolve_device``). With a ``dist`` on a mesh
+each rank runs these methods on its own blocks (``dist.py``, local view;
+``launch/sharding.py`` places them): the decoder families (dense, moe,
+vlm) split heads, MLP width, experts and vocabulary over the model axis
+and gather each layer's FSDP-split params in its body; the ssm, hybrid and
+audio stacks gather their params and run whole over the model axis (their
+decode state too), the vocabulary still split. Logits come back
+vocab-split (``dist.gather_logits`` assembles them). ``loss`` trains all six
 families through the reference's branches, the training forwards of each
 stack (``train`` mode: blockwise attention under autograd, remat by
 ``cfg.remat``). int8 params (``repro_torch.quant``) are taken where the
@@ -36,12 +43,13 @@ import torch
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.hot_embedding import embed_with_cache
 from repro_torch.device import resolve_device
-from repro_torch.dist import embed_lookup, softmax_xent, unembed_logits
+from repro_torch.dist import constrain, embed_lookup, gather_tree, on_mesh, softmax_xent, unembed_logits
 from repro_torch.kvsim import prng
 from repro_torch.models import encdec, rglru, rwkv6
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import apply_norm, norm_specs
-from repro_torch.models.params import ParamSpec, count_params, embed_init, init_params
+from repro_torch.models.params import (ParamSpec, abstract_params, count_params, embed_init,
+                                       init_params, map_specs)
 from repro_torch.quant import dequant_leaf, has_quantized
 
 __all__ = ["Model", "build"]
@@ -72,11 +80,11 @@ class Model:
         cfg = self.cfg
         d, v = cfg.d_model, cfg.padded_vocab
         specs: dict[str, Any] = {
-            "embed": ParamSpec((v, d), embed_init(0.02)),
+            "embed": ParamSpec((v, d), ("vocab", "embed_rep"), embed_init(0.02)),
             "ln_f": norm_specs(d, cfg.norm),
         }
         if not cfg.tie_embeddings:
-            specs["head"] = ParamSpec((v, d), embed_init(0.02))
+            specs["head"] = ParamSpec((v, d), ("vocab", "embed_rep"), embed_init(0.02))
         fam = cfg.family
         if fam in DECODER_FAMILIES:
             specs["blocks"] = tfm.stacked_block_specs(cfg)
@@ -94,6 +102,43 @@ class Model:
     def init(self, gen: torch.Generator) -> dict:
         """Params on the model's device; ``gen`` must live there too."""
         return init_params(self._specs, gen, self.device)
+
+    def abstract_params(self) -> dict:
+        """The params as ``meta`` tensors (the dry run; no allocation)."""
+        return abstract_params(self._specs)
+
+    # ------------------------------------------------------------- mesh
+    def gathers(self, dist):
+        """``None`` off a mesh; else the params' partition entries of the
+        dims their compute gathers: every split dim but the vocabulary and,
+        in the decoder families under TP, the heads, kv heads, MLP width
+        and experts, which stay split over the model axis."""
+        if not on_mesh(dist):
+            return None
+        from repro_torch.launch.sharding import param_rules
+
+        rules = param_rules(self.cfg, dist.mesh)
+        keep = {"vocab"}
+        if dist.tensor_parallel and self.cfg.family in DECODER_FAMILIES:
+            keep |= {"heads", "kv_heads", "mlp", "experts"}
+
+        def one(spec):
+            ent = tuple(None if ax is None else rules[ax] for ax in spec.axes)
+            return tuple(None if (e == dist.model_axis and ax in keep) else e
+                         for ax, e in zip(spec.axes, ent))
+
+        return map_specs(one, self._specs)
+
+    def _stack(self, params: dict, dist):
+        """``(blocks, stack dist, decoder gathers)``: the decoder families'
+        blocks as they are (each layer gathers in its body); the other
+        families' blocks gathered whole, their stacks run with no mesh."""
+        gathers = self.gathers(dist)
+        if gathers is None:
+            return params["blocks"], dist, None
+        if self.cfg.family in DECODER_FAMILIES:
+            return params["blocks"], dist, gathers["blocks"]
+        return gather_tree(params["blocks"], gathers["blocks"], dist), None, None
 
     # ------------------------------------------------------------- embed
     def _head_table(self, params: dict) -> torch.Tensor:
@@ -145,22 +190,23 @@ class Model:
         _check_not_quantized(params, "Model.loss")
         tokens, targets = batch["tokens"], batch["targets"]
         h = self.embed_tokens(params, tokens, dist, hot_embed)
+        blocks, sdist, gathers = self._stack(params, dist)
         moe_stats = None
         if cfg.family in DECODER_FAMILIES:
             if cfg.family == "vlm":
                 h = torch.cat([batch["patches"].to(h.dtype), h], dim=1)
-            h, _, moe_stats = tfm.run_decoder(params["blocks"], h, cfg, dist, mode="train",
+            h, _, moe_stats = tfm.run_decoder(blocks, h, cfg, sdist, mode="train",
                                               window=cfg.window, attn_chunk=cfg.attn_chunk,
-                                              hot_ids=hot_ids)
+                                              hot_ids=hot_ids, gathers=gathers)
             if cfg.family == "vlm":
                 h = h[:, batch["patches"].shape[1]:]
         elif cfg.family == "ssm":
-            h, _ = rwkv6.rwkv_forward(params["blocks"], h, cfg, dist, train=True)
+            h, _ = rwkv6.rwkv_forward(blocks, h, cfg, sdist, train=True)
         elif cfg.family == "hybrid":
-            h, _ = rglru.rglru_forward(params["blocks"], h, cfg, dist, train=True)
+            h, _ = rglru.rglru_forward(blocks, h, cfg, sdist, train=True)
         else:
-            memory = encdec.encode(params["blocks"], batch["frames"].to(h.dtype), cfg, dist, train=True)
-            h, _, _ = encdec.decode_prefill(params["blocks"], h, memory, cfg, dist, train=True)
+            memory = encdec.encode(blocks, batch["frames"].to(h.dtype), cfg, sdist, train=True)
+            h, _, _ = encdec.decode_prefill(blocks, h, memory, cfg, sdist, train=True)
         h = apply_norm(params["ln_f"], h, cfg.norm)
         mask = targets >= 0
         xent = softmax_xent(h, self._head_table(params), torch.where(mask, targets, 0), dist,
@@ -182,14 +228,12 @@ class Model:
         ``cache_len``) or an ``EncDecState``. ``abstract`` gives shapes and
         dtypes only (tensors on the ``meta`` device)."""
         cfg = self.cfg
-        dev = "meta" if abstract else self.device
         if cfg.family in DECODER_FAMILIES:
-            shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads, cfg.resolved_head_dim)
-            return tfm.KVCache(
-                k=torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-                v=torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-                length=torch.zeros(batch, dtype=torch.int32, device=dev),
-            )
+            specs = tfm.init_cache_specs(cfg, batch, cache_len)
+            if abstract:
+                return specs
+            return tfm.KVCache(*(torch.zeros(t.shape, dtype=t.dtype, device=self.device)
+                                 for t in specs))
         if cfg.family == "ssm":
             return rwkv6.init_rwkv_state(cfg, batch, abstract, self.device)
         if cfg.family == "hybrid":
@@ -209,22 +253,30 @@ class Model:
         b, s = tokens.shape
         cache_len = cache_len or s
         h = self.embed_tokens(params, tokens, dist)
+        blocks, sdist, gathers = self._stack(params, dist)
         if cfg.family in DECODER_FAMILIES:
             if cfg.family == "vlm":
                 h = torch.cat([batch["patches"].to(h.dtype), h], dim=1)
-            h, state, _ = tfm.run_decoder(params["blocks"], h, cfg, dist, mode="prefill",
-                                          window=cfg.window, hot_ids=hot_ids)
+            h, state, _ = tfm.run_decoder(blocks, h, cfg, sdist, mode="prefill",
+                                          window=cfg.window, hot_ids=hot_ids, gathers=gathers)
             if cache_len > state.max_len:
                 pad = (0, 0, 0, 0, 0, cache_len - state.max_len)  # the T dim of [L, B, T, KH, Dh]
                 state = state._replace(k=torch.nn.functional.pad(state.k, pad),
                                        v=torch.nn.functional.pad(state.v, pad))
+            if tfm.seq_split(cfg, dist):  # the cache's layout: the sequence over model
+                if state.max_len % dist.model_size:
+                    raise ValueError(f"cache_len {state.max_len} does not split over the model "
+                                     f"axis ({dist.model_size}), as the kv heads do not")
+                spec = (None, None, dist.model_axis, None, None)
+                state = state._replace(k=constrain(state.k, dist, *spec).contiguous(),
+                                       v=constrain(state.v, dist, *spec).contiguous())
         elif cfg.family == "ssm":
-            h, state = rwkv6.rwkv_forward(params["blocks"], h, cfg, dist)
+            h, state = rwkv6.rwkv_forward(blocks, h, cfg, sdist)
         elif cfg.family == "hybrid":
-            h, state = rglru.rglru_forward(params["blocks"], h, cfg, dist, collect_cache=True)
+            h, state = rglru.rglru_forward(blocks, h, cfg, sdist, collect_cache=True)
         else:
-            memory = encdec.encode(params["blocks"], batch["frames"].to(h.dtype), cfg, dist)
-            h, (sk, sv), (ck, cv) = encdec.decode_prefill(params["blocks"], h, memory, cfg, dist)
+            memory = encdec.encode(blocks, batch["frames"].to(h.dtype), cfg, sdist)
+            h, (sk, sv), (ck, cv) = encdec.decode_prefill(blocks, h, memory, cfg, sdist)
             if cache_len > s:
                 pad = (0, 0, 0, 0, 0, cache_len - s)
                 sk, sv = torch.nn.functional.pad(sk, pad), torch.nn.functional.pad(sv, pad)
@@ -246,18 +298,19 @@ class Model:
         if cfg.family not in DECODER_FAMILIES:
             _check_not_quantized(params["blocks"], f"the {cfg.family!r} family's decode step")
         h = embed_lookup(params["embed"], tokens[:, None], dist)[:, 0].to(torch.bfloat16)
+        blocks, sdist, gathers = self._stack(params, dist)
         if cfg.family in DECODER_FAMILIES:
             if cfg.pos == "sinusoidal":
                 h = h + encdec.sinusoid_at(state.length, cfg.d_model).to(h.dtype)
-            h, state, _ = tfm.run_decode_step(params["blocks"], h, state, cfg, dist,
-                                              window=cfg.window, hot_ids=hot_ids)
+            h, state, _ = tfm.run_decode_step(blocks, h, state, cfg, sdist, window=cfg.window,
+                                              hot_ids=hot_ids, gathers=gathers)
         elif cfg.family == "ssm":
-            h, state = rwkv6.rwkv_decode_step(params["blocks"], h, cfg, state, dist)
+            h, state = rwkv6.rwkv_decode_step(blocks, h, cfg, state, sdist)
         elif cfg.family == "hybrid":
-            h, state = rglru.rglru_decode_step(params["blocks"], h, cfg, state, dist)
+            h, state = rglru.rglru_decode_step(blocks, h, cfg, state, sdist)
         else:
             h = h + encdec.sinusoid_at(state.length, cfg.d_model).to(h.dtype)
-            h, state = encdec.encdec_decode_step(params["blocks"], h, state, cfg, dist)
+            h, state = encdec.encdec_decode_step(blocks, h, state, cfg, sdist)
         h = apply_norm(params["ln_f"], h[:, None, :], cfg.norm)[:, 0]
         return unembed_logits(h, self._head_table(params), dist, cfg.vocab_size), state
 

@@ -23,6 +23,18 @@ to XLA; the hot path is the einsum form in both modes, as there.
 (``router``, ``w_gate``, ``w_up``, ``w_down``, ``shared``), so reference
 weights carry across one to one (``interop.params_from_numpy``).
 
+On a mesh (local view, see ``dist.py``): the dispatch groups are the
+reference's (their size from the global token count) and split over the
+batch axes; a group that spans ranks (fewer groups than batch ranks) is
+gathered and computed whole on each, each rank keeping its own rows. The
+routing is replicated over the model axis; the experts are split over it
+(EP): each rank dispatches to and runs its own experts, and one
+all-reduce over the model axis combines them with the shared experts'
+TP-split output, as the reference's combine is one psum over the model
+axis. Hot replicas are gathered from the split expert stacks by a masked
+local gather and an all-reduce. The stats are global (``counts [G, E]``
+and every scalar the same on every rank).
+
 Emitted stats (the Redynis traffic feed):
   counts  [G, E] — tokens each group routed to each expert
   aux     []     — switch-style load-balance loss
@@ -37,7 +49,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist import check_local
+from repro_torch import dist as dist_lib
+from repro_torch.dist import all_gather, all_reduce, copy_to, on_mesh
 from repro_torch.kernels.moe_router.ops import moe_router
 from repro_torch.models.layers import swiglu, swiglu_specs
 from repro_torch.models.params import ParamSpec, dense_init
@@ -45,16 +58,43 @@ from repro_torch.models.params import ParamSpec, dense_init
 __all__ = ["MoE", "moe_specs", "moe_apply", "cold_capacity", "hot_capacity"]
 
 
+def _model(dist) -> tuple:
+    return (dist.model_axis,) if on_mesh(dist) and dist.model_axis is not None else ()
+
+
+def row_parallel(spec: str, a: torch.Tensor, w: torch.Tensor, dist, reduce: bool = True) -> torch.Tensor:
+    """``einsum(spec, a, w)`` whose contraction is split over the model axis:
+    each rank's partial sum is formed in f32 (bf16 products are exact in
+    it) and all-reduced in f32, then rounded once to ``a``'s dtype, as the
+    one-device product rounds once. ``reduce=False`` leaves the f32 partial."""
+    y = torch.einsum(spec, a.float(), w.float())
+    return all_reduce(y, dist, _model(dist)).to(a.dtype) if reduce else y
+
+
+def swiglu_tp(p: dict, x: torch.Tensor, dist, width: int, reduce: bool = True) -> torch.Tensor:
+    """``swiglu`` whose hidden width ``width`` may be split over the model
+    axis: the replicated input enters through ``copy_to`` and the down
+    projection is ``row_parallel`` (its f32 partial left with
+    ``reduce=False``)."""
+    if p["w_up"].shape[-1] >= width:
+        return swiglu(p, x)
+    x = copy_to(x, dist, _model(dist))
+    gate = torch.einsum("bsd,df->bsf", x, p["w_gate"])
+    up = torch.einsum("bsd,df->bsf", x, p["w_up"])
+    hidden = F.silu(gate.float()).to(x.dtype) * up
+    return row_parallel("bsf,fd->bsd", hidden, p["w_down"], dist, reduce)
+
+
 def moe_specs(cfg, prefix: tuple = ()) -> dict:
-    """``prefix`` holds ``(size, axis_name)`` pairs, as the reference's does;
-    only the sizes are used."""
+    """``prefix`` holds ``(size, axis_name)`` pairs that stack the params."""
     e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
     ps = tuple(s for s, _ in prefix)
+    pa = tuple(a for _, a in prefix)
     specs = {
-        "router": ParamSpec(ps + (d, e), dense_init(d), torch.float32),
-        "w_gate": ParamSpec(ps + (e, d, f), dense_init(d)),
-        "w_up": ParamSpec(ps + (e, d, f), dense_init(d)),
-        "w_down": ParamSpec(ps + (e, f, d), dense_init(f)),
+        "router": ParamSpec(ps + (d, e), pa + ("embed", "experts"), dense_init(d), torch.float32),
+        "w_gate": ParamSpec(ps + (e, d, f), pa + ("experts", "embed", "expert_mlp"), dense_init(d)),
+        "w_up": ParamSpec(ps + (e, d, f), pa + ("experts", "embed", "expert_mlp"), dense_init(d)),
+        "w_down": ParamSpec(ps + (e, f, d), pa + ("experts", "expert_mlp", "embed"), dense_init(f)),
     }
     if cfg.num_shared_experts:
         specs["shared"] = swiglu_specs(d, f * cfg.num_shared_experts, prefix)
@@ -208,25 +248,44 @@ def _route(idx, gates, active, n_targets: int, capacity: int, dtype):
 def moe_apply(p: dict, x: torch.Tensor, cfg, dist=None, hot_ids: torch.Tensor | None = None):
     """MoE FFN. x ``[B, S, D]``; hot_ids ``[R]`` int32 expert ids in the
     replica cache (-1 empty). Returns ``(y [B, S, D], stats)``."""
-    check_local(dist)
     if cfg.moe_impl not in ("einsum", "sort"):
         raise ValueError(f"moe_impl={cfg.moe_impl!r}; expected 'einsum' or 'sort'")
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
-    tokens = b * s
+    mesh = on_mesh(dist)
+    nb = dist.batch_size if mesh else 1  # the ranks the rows are split over
+    tokens = b * s * nb
     group = min(cfg.moe_group_size, tokens)
     while tokens % group:
         group -= 1
-    g = tokens // group
+    g_all = tokens // group
+    span = nb > 1 and g_all % nb != 0  # a group spans ranks: compute all rows here
+    if span:
+        x = all_gather(x, 0, dist, dist.batch_axes)
+    g = g_all if (span or nb == 1) else g_all // nb
     xg = x.reshape(g, group, d)
+    router = p["router"]
+    if router.shape[-1] < e:  # experts split over the model axis: route over all
+        router = all_gather(router, router.dim() - 1, dist, _model(dist))
 
-    logits = torch.einsum("gsd,de->gse", xg.to(torch.float32), p["router"].to(torch.float32))
+    logits = torch.einsum("gsd,de->gse", xg.to(torch.float32), router.to(torch.float32))
     gates, idx, counts = _top_k_gates(logits, k)  # [G, S, K], [G, E]
 
     # Switch-style load-balance aux: E * sum_e frac_tokens_e * mean_prob_e.
     frac_tok = counts / torch.clamp_min(counts.sum(dim=-1, keepdim=True), 1.0)
     mean_prob = torch.softmax(logits, dim=-1).mean(dim=1)
-    aux = e * (frac_tok * mean_prob).sum(dim=-1).mean()
+    aux_g = (frac_tok * mean_prob).sum(dim=-1)
+    if nb > 1:  # the mean over all groups: each rank adds its share
+        aux = e * all_reduce(aux_g.sum() / (g_all * (nb if span else 1)), dist, dist.batch_axes)
+    else:
+        aux = e * aux_g.mean()
+
+    # Experts split over the model axis (EP): this rank's block of them.
+    el = p["w_gate"].shape[0]
+    ep = el < e
+    lo = dist_lib.coord(dist, _model(dist)) * el if ep else 0
+    xr = copy_to(xg, dist, _model(dist)) if ep else xg
+    gr = copy_to(gates, dist, _model(dist)) if ep else gates
 
     use_hot = hot_ids is not None and cfg.hot_expert_slots > 0
     r = cfg.hot_expert_slots if use_hot else 0
@@ -242,31 +301,47 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, dist=None, hot_ids: torch.Tensor | 
     # ---- cold path: capacity dispatch over all experts ----
     c_cold = cold_capacity(cfg, group)
     if cfg.moe_impl == "sort":
-        expert_in, src_tok, dest, keep_gates = sort_dispatch(xg, idx, gates, ~is_hot, e, c_cold)
-        expert_out = _expert_ffn(p["w_gate"], p["w_up"], p["w_down"], expert_in, "egcd", "e")
+        expert_in, src_tok, dest, keep_gates = sort_dispatch(xr, idx, gr, ~is_hot, e, c_cold)
+        expert_out = _expert_ffn(p["w_gate"], p["w_up"], p["w_down"], expert_in[lo:lo + el],
+                                 "egcd", "e")
         # The gate scaling on the expert side, as on the einsum path.
         slots = e * c_cold + 1
         gate_buf = keep_gates.new_zeros(g * slots, dtype=torch.float32).index_add(
             0, _flat_rows(dest, slots), keep_gates.reshape(-1).to(torch.float32))
         gate_ec = gate_buf.reshape(g, slots)[:, : e * c_cold].reshape(g, e, c_cold).permute(1, 0, 2)
-        expert_out = expert_out * gate_ec[..., None].to(expert_out.dtype)
+        expert_out = expert_out * gate_ec[lo:lo + el, ..., None].to(expert_out.dtype)
+        if ep:  # the other ranks' experts contribute zeros here; an f32 partial sum
+            expert_out = expert_out.float()
+            expert_out = torch.cat([expert_out.new_zeros((lo, *expert_out.shape[1:])), expert_out,
+                                    expert_out.new_zeros((e - lo - el, *expert_out.shape[1:]))])
         y = sort_combine(expert_out, src_tok, dest, group)
         kept_total = (keep_gates.detach() > 0).sum().to(torch.float32)
         del expert_in, expert_out
     else:
-        disp, gate_ec, kept_total = _route(idx, gates, ~is_hot, e, c_cold, xg.dtype)
-        expert_in = torch.einsum("gsec,gsd->egcd", disp, xg)
+        disp, gate_ec, kept_total = _route(idx, gr, ~is_hot, e, c_cold, xg.dtype)
+        if ep:
+            disp, gate_ec = disp[:, :, lo:lo + el], gate_ec[lo:lo + el]
+        expert_in = torch.einsum("gsec,gsd->egcd", disp, xr)
         expert_out = _expert_ffn(p["w_gate"], p["w_up"], p["w_down"], expert_in, "egcd", "e")
         expert_out = expert_out * gate_ec[..., None].to(expert_out.dtype)
-        y = torch.einsum("gsec,egcd->gsd", disp, expert_out)
+        if ep:  # an f32 partial sum over this rank's experts
+            y = torch.einsum("gsec,egcd->gsd", disp.float(), expert_out.float())
+        else:
+            y = torch.einsum("gsec,egcd->gsd", disp, expert_out)
         del disp, expert_in, expert_out  # freed before the hot path's buffers are made
+    if cfg.num_shared_experts:
+        shared = swiglu_tp(p["shared"], xg, dist, cfg.d_ff * cfg.num_shared_experts, reduce=not ep)
+        y = y + shared if ep else y
+    if ep:  # the experts' (and the TP shared experts') f32 partial sums, rounded once
+        y = all_reduce(y, dist, _model(dist)).to(xg.dtype)
 
     # ---- hot path: local dispatch against in-forward-gathered replicas ----
     hot_kept = torch.zeros((), dtype=torch.float32, device=x.device)
     if use_hot:
         c_hot = hot_capacity(cfg, group)
         safe_ids = hot_ids.clamp(0, e - 1).long()
-        hw_gate, hw_up, hw_down = (p[w][safe_ids] for w in ("w_gate", "w_up", "w_down"))
+        hw_gate, hw_up, hw_down = (dist_lib.vocab_rows(p[w], safe_ids, dist) if ep else p[w][safe_ids]
+                                   for w in ("w_gate", "w_up", "w_down"))
         hdisp, hgate, hot_kept = _route(hot_slot, gates, is_hot, r, c_hot, xg.dtype)
         hot_in = torch.einsum("gsrc,gsd->grcd", hdisp, xg)
         hot_out = _expert_ffn(hw_gate, hw_up, hw_down, hot_in, "grcd", "r")
@@ -274,17 +349,22 @@ def moe_apply(p: dict, x: torch.Tensor, cfg, dist=None, hot_ids: torch.Tensor | 
         y = y + torch.einsum("gsrc,grcd->gsd", hdisp, hot_out)
         kept_total = kept_total + hot_kept
 
-    if cfg.num_shared_experts:
-        y = y + swiglu(p["shared"], xg)
+    if cfg.num_shared_experts and not ep:
+        y = y + shared
 
-    n_assign = torch.full((), float(g * group * k), dtype=torch.float32, device=x.device)
+    n_assign = torch.full((), float(g_all * group * k), dtype=torch.float32, device=x.device)
+    if nb > 1 and not span:  # the global counts, as the reference's
+        counts = dist_lib.all_gather(counts.detach(), 0, dist, dist.batch_axes)
+        kept_total = dist_lib.all_reduce(kept_total.detach(), dist, dist.batch_axes)
+        hot_kept = dist_lib.all_reduce(hot_kept.detach(), dist, dist.batch_axes)
     stats = {
         "counts": counts,
         "aux": aux,
         "dropped": 1.0 - kept_total / n_assign,
         "hot_frac": hot_kept / n_assign,
     }
-    return y.reshape(b, s, d), stats
+    y = y.reshape(g * group // s, s, d)
+    return (y.narrow(0, dist_lib.coord(dist, dist.batch_axes) * b, b) if span else y), stats
 
 
 class MoE(torch.nn.Module):

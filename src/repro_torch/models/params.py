@@ -1,10 +1,19 @@
 """Declarative parameters (counterpart of ``src/repro/models/params.py``).
 
-Every parameter is declared once as a :class:`ParamSpec` (shape, init,
-dtype); ``init_params`` materialises a tree of specs (nested dicts and lists) into
-tensors with the same structure, so a reference params tree carries across one to one
-(``interop.params_from_numpy``). The reference's logical axes and partition
-specs belong to the sharding slice and are not carried.
+Every parameter is declared once as a :class:`ParamSpec`: shape, logical
+axis names (one a dim, ``None`` for a dim no rule shards), init and dtype.
+From that one declaration come
+
+  * ``init_params``      — tensors, a tree of the specs' structure (nested
+    dicts and lists), so a reference params tree carries across one to one
+    (``interop.params_from_numpy``);
+  * ``abstract_params``  — the same tree as ``meta`` tensors (the dry run;
+    nothing is allocated);
+  * ``partition_specs``  — per dim, the mesh axes a dim is split over, by
+    logical-to-mesh rules (``launch/sharding.param_rules``).
+
+Logical axes used by the models: layers, vocab, embed, embed_rep, heads,
+kv_heads, head_dim, mlp, experts, expert_mlp, state.
 
 Draws come from one explicit ``torch.Generator``, leaf by leaf in
 ``jax.tree``'s order (dict keys sorted, lists by index): the same
@@ -21,13 +30,14 @@ import torch
 from repro_torch.device import resolve_device
 
 __all__ = ["ParamSpec", "dense_init", "embed_init", "zeros_init", "ones_init", "init_params",
-           "count_params"]
+           "abstract_params", "partition_specs", "count_params"]
 
 Init = Callable[[torch.Generator, tuple, torch.dtype, torch.device], torch.Tensor]
 
 
 class ParamSpec(NamedTuple):
     shape: tuple[int, ...]
+    axes: tuple[str | None, ...]  # logical axis name a dim (None = replicated)
     init: Init
     dtype: torch.dtype = torch.bfloat16
 
@@ -85,6 +95,42 @@ def init_params(specs, gen: torch.Generator, device=None):
         built = {key: init_params(specs[key], gen, device) for key in sorted(specs)}
         return {key: built[key] for key in specs}
     return [init_params(val, gen, device) for val in specs]
+
+
+def abstract_params(specs):
+    """The tree of ``meta`` tensors of the specs' shapes and dtypes: a dry
+    run's params, never allocated."""
+    return map_specs(lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"), specs)
+
+
+def partition_specs(specs, rules: dict):
+    """Logical axes -> a tuple a leaf of mesh-axis entries (a mesh axis, a
+    tuple of them, or ``None``), one a dim, by ``rules`` (logical name ->
+    entry). An unknown logical name raises ``KeyError``: sharding is a
+    decision taken for every axis."""
+
+    def one(s: ParamSpec) -> tuple:
+        parts = []
+        for ax in s.axes:
+            if ax is None:
+                parts.append(None)
+            elif ax in rules:
+                parts.append(rules[ax])
+            else:
+                raise KeyError(f"no sharding rule for logical axis {ax!r}")
+        return tuple(parts)
+
+    return map_specs(one, specs)
+
+
+def map_specs(fn, specs):
+    """``fn`` of every ``ParamSpec`` of a tree, in a tree of the same
+    structure."""
+    if isinstance(specs, ParamSpec):
+        return fn(specs)
+    if isinstance(specs, dict):
+        return {key: map_specs(fn, val) for key, val in specs.items()}
+    return [map_specs(fn, val) for val in specs]
 
 
 def count_params(specs) -> int:

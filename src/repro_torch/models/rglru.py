@@ -105,16 +105,16 @@ def _rec_specs(cfg) -> dict:
     bs = w // nb
     return {
         "ln": norm_specs(d, cfg.norm),
-        "w_in": ParamSpec((d, w), dense_init(d)),
-        "w_gate_in": ParamSpec((d, w), dense_init(d)),
-        "conv_w": ParamSpec((CONV_WIDTH, w), dense_init(CONV_WIDTH)),
-        "conv_b": ParamSpec((w,), zeros_init),
-        "gate_a": ParamSpec((nb, bs, bs), dense_init(bs)),
-        "gate_a_b": ParamSpec((w,), zeros_init),
-        "gate_x": ParamSpec((nb, bs, bs), dense_init(bs)),
-        "gate_x_b": ParamSpec((w,), zeros_init),
-        "lam": ParamSpec((w,), ones_init, torch.float32),
-        "w_out": ParamSpec((w, d), dense_init(w)),
+        "w_in": ParamSpec((d, w), ("embed", "state"), dense_init(d)),
+        "w_gate_in": ParamSpec((d, w), ("embed", "state"), dense_init(d)),
+        "conv_w": ParamSpec((CONV_WIDTH, w), (None, "state"), dense_init(CONV_WIDTH)),
+        "conv_b": ParamSpec((w,), ("state",), zeros_init),
+        "gate_a": ParamSpec((nb, bs, bs), (None, None, None), dense_init(bs)),
+        "gate_a_b": ParamSpec((w,), ("state",), zeros_init),
+        "gate_x": ParamSpec((nb, bs, bs), (None, None, None), dense_init(bs)),
+        "gate_x_b": ParamSpec((w,), ("state",), zeros_init),
+        "lam": ParamSpec((w,), ("state",), ones_init, torch.float32),
+        "w_out": ParamSpec((w, d), ("state", "embed"), dense_init(w)),
     }
 
 

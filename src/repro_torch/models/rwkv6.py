@@ -65,30 +65,30 @@ def init_rwkv_state(cfg, batch: int, abstract: bool = False, device=None) -> RWK
 
 def rwkv_block_specs(cfg) -> dict:
     d, f, l = cfg.d_model, cfg.d_ff, cfg.num_layers
-    ps = (l,)
+    ps, pa = (l,), ("layers",)
 
     def vec(init=zeros_init):
-        return ParamSpec(ps + (d,), init, torch.float32)
+        return ParamSpec(ps + (d,), pa + (None,), init, torch.float32)
 
     def ln():
-        return {"scale": ParamSpec(ps + (d,), ones_init, torch.float32),
-                "bias": ParamSpec(ps + (d,), zeros_init, torch.float32)}
+        return {"scale": ParamSpec(ps + (d,), pa + (None,), ones_init, torch.float32),
+                "bias": ParamSpec(ps + (d,), pa + (None,), zeros_init, torch.float32)}
 
     return {
         "tm": {
             "ln": ln(),
             "mu_x": vec(),
-            "mu": ParamSpec(ps + (5, d), zeros_init, torch.float32),
-            "lora_a": ParamSpec(ps + (d, 5 * LORA_MIX), dense_init(d)),
-            "lora_b": ParamSpec(ps + (5, LORA_MIX, d), zeros_init),
-            "w_r": ParamSpec(ps + (d, d), dense_init(d)),
-            "w_k": ParamSpec(ps + (d, d), dense_init(d)),
-            "w_v": ParamSpec(ps + (d, d), dense_init(d)),
-            "w_g": ParamSpec(ps + (d, d), dense_init(d)),
-            "w_o": ParamSpec(ps + (d, d), dense_init(d)),
+            "mu": ParamSpec(ps + (5, d), pa + (None, None), zeros_init, torch.float32),
+            "lora_a": ParamSpec(ps + (d, 5 * LORA_MIX), pa + ("embed", None), dense_init(d)),
+            "lora_b": ParamSpec(ps + (5, LORA_MIX, d), pa + (None, None, "embed"), zeros_init),
+            "w_r": ParamSpec(ps + (d, d), pa + ("embed", "heads"), dense_init(d)),
+            "w_k": ParamSpec(ps + (d, d), pa + ("embed", "heads"), dense_init(d)),
+            "w_v": ParamSpec(ps + (d, d), pa + ("embed", "heads"), dense_init(d)),
+            "w_g": ParamSpec(ps + (d, d), pa + ("embed", "heads"), dense_init(d)),
+            "w_o": ParamSpec(ps + (d, d), pa + ("heads", "embed"), dense_init(d)),
             "decay_base": vec(),  # w0
-            "decay_a": ParamSpec(ps + (d, LORA_DECAY), dense_init(d)),
-            "decay_b": ParamSpec(ps + (LORA_DECAY, d), zeros_init),
+            "decay_a": ParamSpec(ps + (d, LORA_DECAY), pa + ("embed", None), dense_init(d)),
+            "decay_b": ParamSpec(ps + (LORA_DECAY, d), pa + (None, "embed"), zeros_init),
             "bonus": vec(),  # u, flattened [D] = [H * Dh]
             "ln_x": ln(),  # the per-head group norm's params (over Dh)
         },
@@ -96,9 +96,9 @@ def rwkv_block_specs(cfg) -> dict:
             "ln": ln(),
             "mu_r": vec(),
             "mu_k": vec(),
-            "w_r": ParamSpec(ps + (d, d), dense_init(d)),
-            "w_k": ParamSpec(ps + (d, f), dense_init(d)),
-            "w_v": ParamSpec(ps + (f, d), dense_init(f)),
+            "w_r": ParamSpec(ps + (d, d), pa + ("embed", "mlp"), dense_init(d)),
+            "w_k": ParamSpec(ps + (d, f), pa + ("embed", "mlp"), dense_init(d)),
+            "w_v": ParamSpec(ps + (f, d), pa + ("mlp", "embed"), dense_init(f)),
         },
     }
 

@@ -13,7 +13,13 @@ All lanes advance together each ``step()``, idle ones included, as in the
 reference (continuous batching at lane granularity).
 
 The engine runs on its model's device (CUDA unless the model was built
-with ``device="cpu"``). ``temperature > 0`` samples by the Gumbel-max rule
+with ``device="cpu"``). With a ``dist`` on a mesh every rank runs the same
+engine on its own blocks: the params are given placed (this rank's blocks
+of ``launch/sharding.param_shardings``), the decode state is placed here
+(the decoder families by ``state_shardings``; the others' lanes only, their
+stacks running whole over the model axis), a prefill writes its lane on
+the rank that holds it, and each step's logits are gathered whole (lanes
+and vocabulary) so that every rank samples the same tokens. ``temperature > 0`` samples by the Gumbel-max rule
 with a ``torch.Generator`` seeded with ``seed``, as the reference seeds
 ``jax.random``; the bits differ from the reference's.
 """
@@ -26,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tree_lib
+from repro_torch.dist import all_gather, coord, gather_logits, on_mesh
 from repro_torch.serving.kvcache import LaneTable, state_bytes
 
 __all__ = ["Request", "ServeEngine"]
@@ -75,6 +82,9 @@ class ServeEngine:
         self.lanes = LaneTable(num_lanes)
         self.num_lanes = num_lanes
         self.state = model.init_state(num_lanes, cache_len)
+        self.step_dist, self.lane_lo, self.local_lanes = dist, 0, num_lanes
+        if on_mesh(dist):
+            self._place_state()
         self.last_token = torch.zeros(num_lanes, dtype=torch.int32, device=self.device)
         self.remaining = np.zeros((num_lanes,), np.int64)
         self.outputs: dict[str, list[int]] = {}
@@ -97,12 +107,14 @@ class ServeEngine:
         if cfg.family == "audio":
             batch["frames"] = torch.zeros((1, cfg.num_frames, cfg.d_model), dtype=torch.bfloat16,
                                           device=self.device)
+        pdist = self.dist._replace(batch_axes=()) if on_mesh(self.dist) else self.dist
         logits, lane_state = self.model.prefill(
-            self.params, batch, self.dist,
+            self.params, batch, pdist,
             cache_len=self.cache_len, hot_ids=self.hot_ids,
         )
-        _write_lane(self.state, lane_state, lane, self.num_lanes)
-        tok = self._sample(logits)[0]
+        if self.lane_lo <= lane < self.lane_lo + self.local_lanes:
+            _write_lane(self.state, lane_state, lane - self.lane_lo, self.local_lanes)
+        tok = self._sample(gather_logits(logits, pdist))[0]
         self.last_token[lane] = tok
         self.remaining[lane] = req.max_new
         self.outputs[req.session] = [int(tok)]
@@ -124,10 +136,11 @@ class ServeEngine:
         active = {s: l for s, l in self.lanes.active.items() if self.remaining[l] > 0}
         if not active:
             return {}
+        mine = self.last_token[self.lane_lo:self.lane_lo + self.local_lanes]
         logits, self.state = self.model.decode_step(
-            self.params, self.state, self.last_token, self.dist, hot_ids=self.hot_ids
+            self.params, self.state, mine, self.step_dist, hot_ids=self.hot_ids
         )
-        self.last_token = self._sample(logits)
+        self.last_token = self._sample(self._whole_logits(logits))
         toks = self.last_token.tolist()
         out = {}
         for session, lane in active.items():
@@ -146,6 +159,44 @@ class ServeEngine:
             if not self.step():
                 break
         return dict(self.outputs)
+
+    # -------------------------------------------------------------- mesh
+    def _place_state(self) -> None:
+        """This rank's blocks of the decode state: lanes over the batch
+        axes where they divide them; the decoder families' caches over the
+        model axis as ``state_shardings`` lays them out."""
+        from repro_torch.launch.sharding import NamedSharding, dist_for_batch, place_tree, state_shardings
+        from repro_torch.models.model import DECODER_FAMILIES
+        from repro_torch.models.transformer import seq_split
+
+        model, dist = self.model, self.dist
+        self.step_dist = dist_for_batch(dist, self.num_lanes)
+        if self.step_dist.batch_axes:
+            self.local_lanes = self.num_lanes // dist.batch_size
+            self.lane_lo = coord(dist, dist.batch_axes) * self.local_lanes
+        if model.cfg.family in DECODER_FAMILIES:
+            if seq_split(model.cfg, dist) and self.cache_len % dist.model_size:
+                raise ValueError(f"cache_len {self.cache_len} does not split over the model axis")
+            sh = state_shardings(model, dist.mesh, self.state)
+        else:
+            lanes = self.step_dist.batch
+
+            def rows(leaf):  # the lane dim: the first one num_lanes wide
+                spec = [None] * leaf.dim()
+                for d in range(leaf.dim()):
+                    if leaf.shape[d] == self.num_lanes:
+                        spec[d] = lanes
+                        break
+                return NamedSharding(dist.mesh, spec)
+
+            sh = tree_lib.tree_map(rows, self.state)
+        self.state = place_tree(self.state, sh, dist)
+
+    def _whole_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """Every lane's logits over the whole vocabulary, on every rank."""
+        if not on_mesh(self.dist):
+            return logits
+        return all_gather(gather_logits(logits, self.step_dist), 0, self.dist, self.step_dist.batch_axes)
 
     # -------------------------------------------------------------- stats
     def cache_bytes(self) -> int:

@@ -44,15 +44,19 @@ class QuantGrad(NamedTuple):
         return self.q.numel() + 4
 
 
-def quantize_int8(g: torch.Tensor, key: tuple | None = None) -> QuantGrad:
+def quantize_int8(g: torch.Tensor, key: tuple | None = None, amax=None,
+                  positions: torch.Tensor | None = None) -> QuantGrad:
     """Symmetric int8 with scale ``max|g| / 127``; with ``key``, stochastic
     rounding ``floor(x + u)`` with ``u`` the reference's uniform draw of
-    ``g``'s shape, else round half to even."""
+    ``g``'s shape, else round half to even. A block of a larger tensor (a
+    mesh rank's) passes the whole tensor's ``amax`` and its elements' flat
+    ``positions`` in it, so that the block gets the whole tensor's bits."""
     gf = g.float()
-    scale = torch.clamp_min(gf.abs().max(), 1e-12) / 127.0
+    scale = torch.clamp_min(gf.abs().max() if amax is None else amax, 1e-12) / 127.0
     x = gf / scale
     if key is not None:
-        u = prng.uniform(key, torch.arange(x.numel(), device=x.device)).reshape(x.shape)
+        pos = torch.arange(x.numel(), device=x.device) if positions is None else positions.reshape(-1)
+        u = prng.uniform(key, pos).reshape(x.shape)
         x = torch.floor(x + u)
     else:
         x = torch.round(x)

@@ -67,11 +67,14 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_updates(cfg: OptConfig, params, grads, state: OptState):
+def apply_updates(cfg: OptConfig, params, grads, state: OptState, gnorm=None):
     """One AdamW step: clip by the global norm, decoupled weight decay on
     leaves with ``ndim >= 2``. Writes the params, ``m`` and ``v`` in place;
-    returns ``(params, OptState, metrics)`` with ``grad_norm`` and ``lr``."""
-    gnorm = global_norm(grads)
+    returns ``(params, OptState, metrics)`` with ``grad_norm`` and ``lr``.
+    ``gnorm`` is the gradient's norm where the caller knows it (a mesh's
+    blocks: ``global_norm`` of the local blocks is not it)."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
     step = state.step + 1
     lr = lr_at(cfg, step)

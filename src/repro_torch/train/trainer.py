@@ -16,6 +16,21 @@ pipeline position as metadata.
 The daemons fold the counts of the step's forward pass only: under
 ``remat="full"`` the backward pass runs each layer again (and launches
 ``moe_router`` again), but its counts are not returned.
+
+With a ``dist`` on a mesh every rank runs the same loop on its own blocks
+(``dist.py``): params and optimizer state are placed by
+``launch/sharding.py``'s param shardings, a batch passed to ``step`` is
+this rank's rows (``run`` places the pipeline's batches by
+``batch_shardings``), the gradients are summed over the batch axes where
+other ranks' rows add to them (``dist.sync_grads``), and the gradient
+norm and the int8 codec's scale are global (their sums and maxima reduced
+over the axes each leaf is split over; the stochastic rounding draws at
+each element's global position, so a key gives the one-device bits). The
+daemons see the global counts and tokens and run the same on every rank.
+Microbatch ``i`` is each rank's ``i``-th block of its rows (a rank with
+fewer rows than microbatches runs one microbatch a row). A checkpoint
+holds the whole params (gathered; rank 0 writes it) and is placed again on
+restore.
 """
 
 from __future__ import annotations
@@ -29,13 +44,46 @@ from repro_torch import tree as tree_lib
 from repro_torch.core.expert_placement import ExpertPlacement, ExpertPlacementState
 from repro_torch.core.hot_embedding import HotEmbedding, HotEmbeddingState
 from repro_torch.data.pipeline import Pipeline
-from repro_torch.dist import check_local
+from repro_torch import dist as dist_lib
+from repro_torch.dist import on_mesh
 from repro_torch.kvsim import prng
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train.compress import dequantize_int8, quantize_int8
 from repro_torch.train.optim import OptConfig, OptState, apply_updates, init_opt
 
 __all__ = ["TrainConfig", "TrainState", "Trainer"]
+
+
+def _entry_leaves(entries) -> list:
+    """A tree of per-dim partition entries (dicts and lists, tuple leaves)
+    as a list in ``jax.tree``'s order, the order of the params' leaves."""
+    if isinstance(entries, dict):
+        return [e for key in sorted(entries) for e in _entry_leaves(entries[key])]
+    if isinstance(entries, list):
+        return [e for val in entries for e in _entry_leaves(val)]
+    return [entries]
+
+
+def _global_positions(shape, entries, dist) -> torch.Tensor:
+    """The flat index in the whole leaf of each element of this rank's
+    block (``shape``, split as ``entries`` say), as an int64 tensor."""
+    sizes = dist_lib.axis_sizes(dist.mesh)
+    whole, offs = [], []
+    for n, e in zip(shape, entries):
+        axes = dist_lib.entry_axes(e)
+        k = 1
+        for a in axes:
+            k *= sizes[a]
+        whole.append(n * k)
+        offs.append(dist_lib.coord(dist, axes) * n if axes else 0)
+    dev = dist.mesh.device_type
+    pos = torch.zeros((), dtype=torch.int64, device=dev)
+    stride = 1
+    for d in range(len(shape) - 1, -1, -1):
+        idx = torch.arange(shape[d], dtype=torch.int64, device=dev) + offs[d]
+        pos = pos + (idx * stride).reshape((-1,) + (1,) * (len(shape) - 1 - d))
+        stride *= whole[d]
+    return pos.expand(tuple(shape)).contiguous()
 
 
 class TrainConfig(NamedTuple):
@@ -60,7 +108,6 @@ class TrainState(NamedTuple):
 
 class Trainer:
     def __init__(self, model, cfg: TrainConfig, dist=None, num_nodes: int = 1):
-        check_local(dist)
         self.model = model
         self.cfg = cfg
         self.dist = dist
@@ -72,6 +119,12 @@ class Trainer:
             self.expert_daemon = ExpertPlacement(
                 mcfg.num_layers, mcfg.num_experts, num_nodes, mcfg.hot_expert_slots,
                 h=mcfg.ownership_h or None, decay=mcfg.traffic_decay, period=mcfg.sweep_period)
+        self.shardings = self.entries = None
+        if on_mesh(dist):
+            from repro_torch.launch.sharding import param_entries, param_shardings
+
+            self.shardings = param_shardings(model, dist.mesh)
+            self.entries = _entry_leaves(param_entries(model, dist.mesh))
         self.embed_daemon = None
         if mcfg.hot_embed_rows:
             self.embed_daemon = HotEmbedding(
@@ -82,7 +135,7 @@ class Trainer:
     def init_state(self, gen: torch.Generator) -> TrainState:
         """Fresh params from ``gen`` (a generator on the model's device),
         zeroed optimizer state and empty daemon states."""
-        params = self.model.init(gen)
+        params = self.place(self.model.init(gen))
         for p in tree_lib.leaves(params):
             p.requires_grad_(True)
         return TrainState(
@@ -93,18 +146,59 @@ class Trainer:
             data_step=0,
         )
 
+    def place(self, params):
+        """This rank's blocks of whole params (the params themselves off a
+        mesh)."""
+        if self.shardings is None:
+            return params
+        from repro_torch.launch.sharding import place_tree
+
+        return place_tree(params, self.shardings, self.dist)
+
     # ------------------------------------------------------------------ step
     def _grads(self, params, batch, hot_ids, hot_embed):
         leaves = tree_lib.leaves(params)
         loss, metrics = self.model.loss(params, batch, self.dist, hot_ids=hot_ids, hot_embed=hot_embed)
         grads = torch.autograd.grad(loss, leaves)
+        if self.entries is not None:
+            grads = dist_lib.sync_grads(list(grads), self.entries, self.dist)
         return list(grads), {k: v.detach() for k, v in metrics.items()}
+
+    def _split_axes(self, i: int) -> tuple:
+        return tuple(a for e in self.entries[i] for a in dist_lib.entry_axes(e))
+
+    def _global_norm(self, grads):
+        """The L2 norm of the whole gradient: a leaf's sum of squares summed
+        over the axes it is split over, in tree order."""
+        if self.entries is None:
+            return None
+        total = 0
+        for i, g in enumerate(grads):
+            sq = g.float().square().sum()
+            total = total + dist_lib._reduce_(sq, self.dist, self._split_axes(i))
+        return torch.sqrt(total)
+
+    def _int8(self, grads, keys):
+        """int8 compression of each leaf (``compress.py``); on a mesh the
+        scale is the whole leaf's and the uniforms are drawn at each
+        element's global position."""
+        if self.entries is None:
+            return [dequantize_int8(quantize_int8(g, k)) for g, k in zip(grads, keys)]
+        out = []
+        for i, (g, k) in enumerate(zip(grads, keys)):
+            axes = self._split_axes(i)
+            amax = dist_lib.all_max(g.float().abs().max(), self.dist, axes)
+            pos = _global_positions(g.shape, self.entries[i], self.dist)
+            out.append(dequantize_int8(quantize_int8(g, k, amax=amax, positions=pos)))
+        return out
 
     def step(self, params, opt: OptState, batch: dict, hot_ids, hot_embed):
         """One training step on ``batch``: the params and ``opt``'s tensors
         are updated in place. Returns ``(params, opt', metrics)``."""
         cfg = self.cfg
         m = cfg.microbatches
+        if self.entries is not None:  # a rank's rows may be fewer than the microbatches
+            m = max(min(m, batch["tokens"].shape[0]), 1)
         if m > 1:
             rows = batch["tokens"].shape[0] // m
             g_acc, metrics = None, None
@@ -125,8 +219,9 @@ class Trainer:
         if cfg.grad_compression == "int8":
             key = prng.fold_in(prng.prng_key(12), int(opt.step))
             keys = prng.split(key, len(grads))
-            grads = [dequantize_int8(quantize_int8(g, k)) for g, k in zip(grads, keys)]
-        params, opt, opt_metrics = apply_updates(cfg.opt, params, tree_lib.unflatten(params, grads), opt)
+            grads = self._int8(grads, keys)
+        params, opt, opt_metrics = apply_updates(cfg.opt, params, tree_lib.unflatten(params, grads), opt,
+                                                 gnorm=self._global_norm(grads))
         metrics.update(opt_metrics)
         return params, opt, metrics
 
@@ -141,7 +236,8 @@ class Trainer:
             batch, pstate = pipeline.next(pstate)
             hot_ids = state.expert_placement.hot_ids if state.expert_placement is not None else None
             t0 = time.perf_counter()
-            params, opt, metrics = self.step(state.params, state.opt, batch, hot_ids, state.hot_embed)
+            params, opt, metrics = self.step(state.params, state.opt, self._rows(batch), hot_ids,
+                                             state.hot_embed)
             step_idx = int(opt.step)  # waits for the step
             dt = time.perf_counter() - t0
 
@@ -163,10 +259,11 @@ class Trainer:
             if cfg.checkpoint_every and step_idx % cfg.checkpoint_every == 0:
                 if pending_save is not None:
                     pending_save.wait()
-                pending_save = ckpt_lib.save_async(
-                    cfg.checkpoint_dir, step_idx, {"params": state.params, "opt": state.opt},
-                    metadata={"data_step": state.data_step})
-                ckpt_lib.gc_checkpoints(cfg.checkpoint_dir, cfg.keep_checkpoints)
+                tree = self._whole({"params": state.params, "opt": state.opt})
+                if tree is not None:
+                    pending_save = ckpt_lib.save_async(
+                        cfg.checkpoint_dir, step_idx, tree, metadata={"data_step": state.data_step})
+                    ckpt_lib.gc_checkpoints(cfg.checkpoint_dir, cfg.keep_checkpoints)
 
             scalars = {k: float(v) for k, v in metrics.items() if v.dim() == 0}
             scalars["step"] = step_idx
@@ -180,6 +277,30 @@ class Trainer:
         if pending_save is not None:
             pending_save.wait()
         return state, history
+
+    def _rows(self, batch: dict) -> dict:
+        """This rank's rows of a whole batch (``batch_shardings``)."""
+        if self.entries is None:
+            return batch
+        from repro_torch.launch.sharding import batch_shardings, place
+
+        sh = batch_shardings(self.model, self.dist.mesh, batch)
+        return {k: place(v, sh[k], self.dist) for k, v in batch.items()}
+
+    def _whole(self, tree):
+        """The checkpoint tree: off a mesh ``tree``; on one the params and
+        ``m``/``v`` gathered whole, on rank 0 (``None`` elsewhere)."""
+        if self.entries is None:
+            return tree
+        params, opt = tree["params"], tree["opt"]
+        gathered = []
+        for t in (params, opt.m, opt.v):
+            leaves = [dist_lib.gather_tree(x.detach(), self.entries[i], self.dist)
+                      for i, x in enumerate(tree_lib.leaves(t))]
+            gathered.append(tree_lib.unflatten(t, leaves))
+        if torch.distributed.get_rank() != 0:
+            return None
+        return {"params": gathered[0], "opt": OptState(m=gathered[1], v=gathered[2], step=opt.step)}
 
     # ------------------------------------------------------------------ maps
     def _group_nodes(self, g: int) -> torch.Tensor:
@@ -199,11 +320,15 @@ class Trainer:
         state = self.init_state(gen)
         if not self.cfg.checkpoint_dir:
             return state
+        template = {"params": state.params, "opt": state.opt}  # the structure only
         try:
-            tree, manifest = ckpt_lib.restore_checkpoint(
-                self.cfg.checkpoint_dir, template={"params": state.params, "opt": state.opt})
+            tree, manifest = ckpt_lib.restore_checkpoint(self.cfg.checkpoint_dir, template=template)
         except FileNotFoundError:
             return state
+        if self.entries is not None:
+            tree = {"params": self.place(tree["params"]),
+                    "opt": OptState(m=self.place(tree["opt"].m), v=self.place(tree["opt"].v),
+                                    step=tree["opt"].step)}
         with torch.no_grad():
             for dst, src in zip(tree_lib.leaves({"params": state.params, "opt": state.opt}),
                                 tree_lib.leaves(tree)):

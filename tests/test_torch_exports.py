@@ -16,6 +16,7 @@ a policy raises the reference's message."""
 
 import importlib
 import inspect
+import os
 import sys
 
 import numpy as np
@@ -176,24 +177,33 @@ MODULE_EXCEPTIONS = {
     "models.encdec": ({}, {}),
     "quant": ({}, {}),
     "models.transformer": (
-        {"init_cache_specs": "ShapeDtypeStruct caches belong to the dry-run and sharding slice "
-                             "(ROADMAP item 15.5); Model.init_state makes the cache"},
+        {},
         {name: "a layer function the reference keeps public but out of __all__"
          for name in ("attn_decode", "attn_full", "attn_specs", "cross_attn", "cross_attn_kv",
                       "mlp_apply", "mlp_specs", "run_decode_step")}),
-    "models.params": (
-        {"abstract_params": "the dry-run and sharding slice (ROADMAP item 15.5)",
-         "partition_specs": "the dry-run and sharding slice (ROADMAP item 15.5)"}, {}),
-    "dist": (
-        {"DistSpec": "the mesh part of dist.py, after the sharding slice (ROADMAP item 15.5)",
-         "local_dist": "the mesh part of dist.py, after the sharding slice (ROADMAP item 15.5)"},
-        {"check_local": "the one-device guard every model entry point runs on its dist argument"}),
+    "models.params": ({}, {}),
+    "dist": ({}, {}),
+    "launch.mesh": ({}, {}),
+    "launch.sharding": ({}, {}),
+    "launch.roofline": (
+        {"HloAnalysis": "the reference parses compiled XLA HLO; the port counts the step on torch "
+                        "(StepCount)",
+         "analyze_hlo": "the same: count_step runs the step under torch's counters"},
+        {"StepCount": "the counts of one step (FLOPs, operator bytes, collectives), in place of "
+                      "HloAnalysis",
+         "count_step": "runs a step under FlopCounterMode, CommDebugMode and an operator-bytes "
+                       "counter, in place of analyze_hlo"}),
 }
 
 
 @pytest.mark.parametrize("module", list(MODULE_EXCEPTIONS))
 def test_training_slice_modules_export_the_references_names(module):
-    ref = importlib.import_module(f"repro.{module}")
+    xla = os.environ.get("XLA_FLAGS")
+    ref = importlib.import_module(f"repro.{module}")  # repro.launch.dryrun sets XLA_FLAGS
+    if xla is None:
+        os.environ.pop("XLA_FLAGS", None)
+    else:
+        os.environ["XLA_FLAGS"] = xla
     port = importlib.import_module(f"repro_torch.{module}")
     not_ported, port_only = MODULE_EXCEPTIONS[module]
     want, got = set(ref.__all__), set(port.__all__)
@@ -247,3 +257,20 @@ def test_training_slice_packages():
     assert set(repro_torch.train.__all__) == {n for m in modules for n in m.__all__}
     for name in repro_torch.train.__all__:
         assert any(getattr(m, name, None) is getattr(repro_torch.train, name) for m in modules), name
+
+
+def test_dryrun_has_the_references_entry_points():
+    """``repro.launch.dryrun`` keeps no ``__all__``; the port's exports the
+    reference's public names, each of the same kind."""
+    xla = os.environ.get("XLA_FLAGS")
+    ref = importlib.import_module("repro.launch.dryrun")  # sets XLA_FLAGS
+    if xla is None:
+        os.environ.pop("XLA_FLAGS", None)
+    else:
+        os.environ["XLA_FLAGS"] = xla
+    port = importlib.import_module("repro_torch.launch.dryrun")
+    names = ("TRAIN_MICROBATCHES", "analytic_memory_per_chip", "model_flops_per_chip", "build_cell",
+             "run_cell", "main")
+    assert set(port.__all__) == set(names)
+    for name in names:
+        assert callable(getattr(port, name)) == callable(getattr(ref, name)), name

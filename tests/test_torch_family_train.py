@@ -6,7 +6,10 @@ on; remat's gradients against no-remat's; the RG-LRU scan's gradient.
 ``Trainer`` and the launcher are in ``tests/test_torch_family_trainer.py``;
 the card's kernel path against the kernels' plain versions
 (``cuda``-marked, in a file that imports no JAX) in
-``tests/test_torch_package.py``.
+``tests/test_torch_package.py``. The loss cases of the audio and vlm
+families run from ``tests/test_torch_family_train_encdec.py`` (this file's
+``check_family_loss``), so that the two files spread over the test
+workers.
 
 The reduced configs (``reduced``), each cut so that the training paths
 that the full configs take are taken: rwkv6 over 64 tokens (two chunks of
@@ -173,9 +176,19 @@ def _cfgs(case, **extra):
     return jcfg, ModelConfig(**dataclasses.asdict(jcfg)), seq
 
 
-@pytest.mark.parametrize("precision,remat", [("f32", "none"), ("f32", "full"), ("bf16", "full")])
-@pytest.mark.parametrize("case", list(CASES))
+PRECISIONS = [("f32", "none"), ("f32", "full"), ("bf16", "full")]
+# The cases this file runs; the others' are in tests/test_torch_family_train_encdec.py.
+HERE = ("ssm", "hybrid")
+
+
+@pytest.mark.parametrize("precision,remat", PRECISIONS)
+@pytest.mark.parametrize("case", HERE)
 def test_family_loss_and_grads_match_jax(case, precision, remat):
+    check_family_loss(case, precision, remat)
+
+
+def check_family_loss(case, precision, remat):
+    """One case's loss, xent and every gradient against the reference's."""
     jcfg, cfg, seq = _cfgs(case, remat=remat)
     f32 = precision == "f32"
     jm = JaxF32(jcfg) if f32 else JaxModel(jcfg)

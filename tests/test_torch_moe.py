@@ -194,15 +194,16 @@ def test_moe_module_and_swiglu():
 
 def test_out_of_slice_moe_inputs_raise():
     # moe_impl="sort" is ported (tests/test_torch_train_parts.py); an unknown
-    # dispatch raises, and so does a mesh.
+    # dispatch raises. A mesh is ported too (tests/test_torch_dist_mesh.py):
+    # a DistSpec without one is the one-device run.
+    from repro_torch.dist import DistSpec
+
     _, cfg = _cfg_pair(moe_impl="gather")
     params = init_params(moe.moe_specs(cfg, ()), torch.Generator().manual_seed(0), device="cpu")
     x = torch.zeros((1, 8, cfg.d_model), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="moe_impl"):
         moe.moe_apply(params, x, cfg)
-
-    class Dist:
-        mesh = object()
-
-    with pytest.raises(NotImplementedError, match="mesh"):
-        moe.moe_apply(params, x, dataclasses.replace(cfg, moe_impl="einsum"), Dist())
+    ecfg = dataclasses.replace(cfg, moe_impl="einsum")
+    y, st = moe.moe_apply(params, x, ecfg, DistSpec())
+    y2, st2 = moe.moe_apply(params, x, ecfg, None)
+    assert torch.equal(y, y2) and torch.equal(st["counts"], st2["counts"])

@@ -182,7 +182,7 @@ def _trace_arrays(r=6, k=4):
         lambda device: HotEmbedding(64, 4, 8).init_state(device=device),
         lambda device: create_stats(8, 4, device=device),
         lambda device: list(init_params(
-            {"w": ParamSpec((4, 4), dense_init(4))},
+            {"w": ParamSpec((4, 4), (None, None), dense_init(4))},
             torch.Generator(device=device or ("cuda" if torch.cuda.is_available() else "cpu")),
             device=device).values()),
         lambda device: list(params_from_numpy({"w": np.ones((2, 2), np.float32)}, device=device).values()),

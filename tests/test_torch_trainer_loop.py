@@ -1,7 +1,10 @@
 """The port's training loop on the CPU: ``Trainer.run`` with both
 placement daemons against the JAX reference's, remat, the reference's own
 trainer tests (``tests/test_train_substrate.py``) re-stated for the port,
-and the training driver.
+and the training driver. The re-stated tests that run the loop for many
+steps are in ``tests/test_torch_trainer_runs.py`` and
+``tests/test_torch_trainer_moe_run.py``, so that the three files spread
+over the test workers.
 
 Bars, each with its reason:
 
@@ -20,7 +23,6 @@ import dataclasses
 import os
 import subprocess
 import sys
-import tempfile
 
 import numpy as np
 import pytest
@@ -46,10 +48,8 @@ from repro_torch.core.hot_embedding import embed_with_cache  # noqa: E402
 from repro_torch.data import DataConfig, Pipeline  # noqa: E402
 from repro_torch.dist import embed_lookup  # noqa: E402
 from repro_torch.interop import train_state_from_numpy  # noqa: E402
-from repro_torch.models import build  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.train import (  # noqa: E402
-    ElasticRunner,
     HeartbeatMonitor,
     OptConfig,
     StragglerMonitor,
@@ -182,41 +182,6 @@ def test_each_stacked_leaf_feeds_one_unbind_in_the_step_graph():
 
 # ------------------------------------------------ the reference's tests, re-stated
 
-def _gen():
-    return torch.Generator().manual_seed(0)
-
-
-def test_train_loss_decreases_and_checkpoint_resume():
-    with tempfile.TemporaryDirectory() as d:
-        cfg = reduced(get_config("llama3.2-3b"))
-        tr = Trainer(build(cfg, "cpu"), TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2, total_steps=40),
-                                                    checkpoint_dir=d, checkpoint_every=5, log_every=100))
-        pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4), "cpu")
-        s1, h1 = tr.run(tr.init_state(_gen()), pipe, 10, log=False)
-        assert h1[-1]["loss"] < h1[0]["loss"]
-        # resume from the checkpoint == continue uninterrupted
-        s_rest = tr.restore(torch.Generator().manual_seed(1))
-        assert int(s_rest.opt.step) == 10 and s_rest.data_step == 10
-        for a, b in zip(tree_lib.leaves(s_rest.params), tree_lib.leaves(s1.params)):
-            assert torch.equal(a, b)
-        _, h2 = tr.run(s_rest, pipe, 5, log=False)
-        _, h3 = tr.run(s1, pipe, 5, log=False)
-        np.testing.assert_allclose([x["loss"] for x in h2], [x["loss"] for x in h3], rtol=1e-5)
-
-
-def test_train_with_daemons_and_microbatches():
-    cfg = dataclasses.replace(reduced(get_config("granite-moe-1b-a400m")), sweep_period=4, hot_embed_rows=32)
-    tr = Trainer(build(cfg, "cpu"),
-                 TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2, total_steps=30), microbatches=2,
-                             log_every=100), num_nodes=2)
-    pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4, zipf_a=1.3), "cpu")
-    st, hist = tr.run(tr.init_state(_gen()), pipe, 12, log=False)
-    assert hist[-1]["loss"] < hist[0]["loss"]
-    assert int(st.expert_placement.sweeps) >= 2
-    assert int(st.hot_embed.sweeps) >= 2
-    assert hist[-1]["moe_hot_frac"] > 0
-
-
 def test_heartbeat_and_elastic_width():
     mon = HeartbeatMonitor(["n0", "n1", "n2", "n3"], timeout=10.0)
     assert len(mon.alive()) == 4
@@ -233,31 +198,6 @@ def test_straggler_backup_dispatch():
     fired = sm.observe({"a": 1.0, "b": 1.0, "c": 5.0})
     assert fired and fired[0][0] == "c"
     assert sm.backup_dispatches == fired
-
-
-def test_elastic_restart_recovers_from_failure(tmp_path):
-    """Kill a node mid-run; the runner restores the checkpoint, seeks the
-    data stream, and continues at the reduced width."""
-    root = str(tmp_path)
-    cfg = reduced(get_config("qwen3-1.7b"))
-    model = build(cfg, "cpu")
-
-    def make_trainer(width):
-        tr = Trainer(model, TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2, total_steps=60),
-                                        checkpoint_dir=root, checkpoint_every=5, log_every=1000),
-                     num_nodes=max(width, 1))
-        pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4), "cpu")
-        return tr, tr.init_state(_gen()), pipe
-
-    mon = HeartbeatMonitor(["n0", "n1", "n2", "n3"], timeout=1e9)
-    runner = ElasticRunner(make_trainer, mon)
-    tr, st, pipe = make_trainer(4)
-    st, h1 = tr.run(st, pipe, 10, log=False)  # steps 1-10, a checkpoint at 10
-    mon.kill("n3")
-    h2 = runner.run(total_steps=10, chunk=5)
-    assert runner.restarts == 1
-    assert len(h2) == 10
-    assert h2[0]["step"] == 11  # resumed after the step-10 checkpoint
 
 
 def test_train_driver_runs_on_the_cpu(tmp_path):
