@@ -36,6 +36,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.costmodel import project_capacity
 from repro_torch.core.metadata import MetadataStore
 from repro_torch.core.ownership import (
@@ -520,11 +521,12 @@ def policy_sweep(
     ``decide`` even where the policy supplies its fractions through a
     kernel (the reference engine's route). Returns ``(plan, state, store)``."""
     counts, hosts, live = store.access_counts, store.hosts, store.live
-    if fused and getattr(policy, "supplies_fractions", False):
-        owners, f, state = policy.decide_fused(state, store, now, ctx)
-    else:
-        f = ownership_fraction(counts)
-        owners, state = policy.decide(state, store, f, now, ctx)
+    with obs.span("decide"):
+        if fused and getattr(policy, "supplies_fractions", False):
+            owners, f, state = policy.decide_fused(state, store, now, ctx)
+        else:
+            f = ownership_fraction(counts)
+            owners, state = policy.decide(state, store, f, now, ctx)
 
     expiry = getattr(policy, "expiry", 0)
     if expiry and expiry > 0:
@@ -542,13 +544,17 @@ def policy_sweep(
 
     evicted = None
     if ctx.capacity_bytes is not None:
-        owners, evicted, _ = project_capacity(owners, hosts, f, ctx.object_bytes, ctx.capacity_bytes)
+        with obs.span("capacity_projection"):
+            owners, evicted, _ = project_capacity(owners, hosts, f, ctx.object_bytes,
+                                                  ctx.capacity_bytes)
 
     plan = PlacementPlan(owners=owners, to_add=owners & ~hosts, to_drop=hosts & ~owners,
                          expired=expired, f=f, capacity_evicted=evicted)
     if "decay" in ctx.params:
-        # floor(count * decay) is an identity at decay 1.0 below 2**24.
-        counts = torch.floor(counts.to(torch.float32) * _f32(ctx.params["decay"], f)).to(torch.int32)
+        with obs.span("count_decay"):
+            # floor(count * decay) is an identity at decay 1.0 below 2**24.
+            counts = torch.floor(counts.to(torch.float32)
+                                 * _f32(ctx.params["decay"], f)).to(torch.int32)
     return plan, state, store._replace(hosts=owners, live=live & ~expired, access_counts=counts)
 
 
@@ -568,5 +574,8 @@ def policy_masked_step(
     tick, and an off tick's stats are zero. Returns ``(stats, state, store)``."""
     if not due:
         return _no_moves(store.hosts.device), state, store
-    plan, state, store = policy_sweep(policy, state, store, now, ctx)
-    return _sweep_stats(plan), state, store
+    with obs.span("policy_step"):
+        obs.count("sweeps")
+        plan, state, store = policy_sweep(policy, state, store, now, ctx)
+        with obs.span("sweep_stats"):
+            return _sweep_stats(plan), state, store

@@ -80,6 +80,12 @@ once and each chunk's requests are drawn on the device at chunk start
 exists; the windows equal the materialised trace's slices, so every result
 does too. A streamed run always takes the chunk loop.
 
+Spans (``repro_torch.obs``): while a ``torch.profiler`` session collects,
+``run_scenario`` marks its stages (each chunk and its pre-passes, replay,
+occupancy, ``record_accesses`` and policy step, or the static replay) and
+counts its chunks and sweeps; nothing else changes, and with no session a
+site costs one global read.
+
 ``run_scenario_reference`` replays chunk by chunk with the kernels' plain
 versions on whatever device it is given, the policy through its plain
 ``decide``, and float64 host accumulators; with telemetry its trace carries
@@ -116,6 +122,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.metadata import create_store, record_accesses
 from repro_torch.core.policy import (
     PolicyContext,
@@ -426,6 +433,7 @@ def _capacity(cluster: ClusterConfig, device: torch.device) -> torch.Tensor | No
     return cluster.capacity_vector(device) if cluster.has_finite_capacity else None
 
 
+@obs.scenario()
 def run_scenario(
     workload: WorkloadConfig,
     cluster: ClusterConfig,
@@ -588,29 +596,31 @@ def _simulate(
     if not loop:
         # A frozen map makes the whole request path loop-invariant: one
         # launch over the whole trace.
-        extra = rho = None
-        if contention is not None:
-            extra, rho = contention_extra_ms_chunks_ref(
-                store.hosts, keys, nodes, is_read, rtt, obj,
-                chunk_size=daemon_interval, **contention,
+        with obs.span("static_replay"):
+            obs.count("chunks", num_chunks)
+            extra = rho = None
+            if contention is not None:
+                extra, rho = contention_extra_ms_chunks_ref(
+                    store.hosts, keys, nodes, is_read, rtt, obj,
+                    chunk_size=daemon_interval, **contention,
+                )
+            lat = hit = None
+            if tcfg is not None:
+                lat = torch.empty(r, **f32)
+                hit = torch.empty(r, dtype=torch.bool, device=dev)
+            busy, lat_sum, hits, reads, _, _ = chunk_replay(
+                store.hosts, keys, nodes, is_read,
+                torch.ones(r, dtype=torch.bool, device=dev), rtt,
+                read_mode=read_mode, extra_ms=extra, lat_out=lat, hit_out=hit, **scalars,
             )
-        lat = hit = None
-        if tcfg is not None:
-            lat = torch.empty(r, **f32)
-            hit = torch.empty(r, dtype=torch.bool, device=dev)
-        busy, lat_sum, hits, reads, _, _ = chunk_replay(
-            store.hosts, keys, nodes, is_read,
-            torch.ones(r, dtype=torch.bool, device=dev), rtt,
-            read_mode=read_mode, extra_ms=extra, lat_out=lat, hit_out=hit, **scalars,
-        )
-        if tcfg is not None:
-            series = _static_series(
-                tcfg, lat, hit, nodes, is_read, daemon_interval, num_chunks, n, peak, rho
-            )
-            if acfg is not None or fcfg is not None:
-                series.update(_static_attribution(
-                    store.hosts, keys, nodes, is_read, rtt, read_mode, scalars, extra, acfg, fpos,
-                    daemon_interval, n))
+            if tcfg is not None:
+                series = _static_series(
+                    tcfg, lat, hit, nodes, is_read, daemon_interval, num_chunks, n, peak, rho
+                )
+                if acfg is not None or fcfg is not None:
+                    series.update(_static_attribution(
+                        store.hosts, keys, nodes, is_read, rtt, read_mode, scalars, extra, acfg,
+                        fpos, daemon_interval, n))
     else:
         ctx = PolicyContext(rtt=rtt, object_bytes=obj, capacity_bytes=_capacity(cluster, dev),
                             params=params)
@@ -639,8 +649,9 @@ def _simulate(
             # a multiply by its f32 reciprocal.
             inv_keys = torch.full((), float(np.float32(1.0) / np.float32(real_keys)), **f32)
         per_chunk = []  # dicts of each chunk's device tensors, stacked at the end
-        for c in range(num_chunks):
+        for c in obs.each("chunk", range(num_chunks)):
             lo, hi = c * daemon_interval, min((c + 1) * daemon_interval, r)
+            obs.count("chunks")
             if streamed:
                 # The chunk's window, drawn at chunk start; a final window
                 # past R is cut to its valid rows.
@@ -658,67 +669,80 @@ def _simulate(
             served, hosts_eff, extra = cv, store.hosts, None
             avail_c = cont = detour = fetch = None
             if fault is not None:
-                avail_c = avail_all[c]
-                if crash_np[c].any():
-                    # A crash wipes the crashed nodes' copies at chunk start.
-                    post = store.hosts & ~crash_all[c][None, :]
-                    wiped = wiped | (store.hosts.any(dim=-1) & ~post.any(dim=-1))
-                    store = store._replace(hosts=post)
-                f_extra, unavail, failover = fault_extra_ms_ref(
-                    store.hosts, ck, cn, cr, cv, avail_c, rtt, read_mode=read_mode,
-                    master=scalars["master"], xfer_write_ms=scalars["xfer_write_ms"], wiped=wiped,
-                )
-                served = cv & ~unavail
-                if not avail_np[c].all():
-                    hosts_eff = store.hosts & avail_c[None, :]
+                with obs.span("fault_prepass"):
+                    avail_c = avail_all[c]
+                    if crash_np[c].any():
+                        # A crash wipes the crashed nodes' copies at chunk start.
+                        post = store.hosts & ~crash_all[c][None, :]
+                        wiped = wiped | (store.hosts.any(dim=-1) & ~post.any(dim=-1))
+                        store = store._replace(hosts=post)
+                    f_extra, unavail, failover = fault_extra_ms_ref(
+                        store.hosts, ck, cn, cr, cv, avail_c, rtt, read_mode=read_mode,
+                        master=scalars["master"], xfer_write_ms=scalars["xfer_write_ms"],
+                        wiped=wiped,
+                    )
+                    served = cv & ~unavail
+                    if not avail_np[c].all():
+                        hosts_eff = store.hosts & avail_c[None, :]
             if routing is not None:
-                # Routers price against the published view; true serving is
-                # on the live map, and refused requests consult nothing.
-                pub_hosts, pub_ver = published_view(rstate, store.hosts, c, publish_lag_chunks=lag)
-                rb = router_of(cn, routing["num_routers"])
-                ent_cached, fresh, age = consult_probe(rstate, rb, ck)
-                detour, fetch, consult, fetched, stale, mis = routing_extra_split_ref(
-                    hosts_eff, pub_hosts, ent_cached, fresh, ck, cn, cr, served, rtt,
-                    read_mode=read_mode, home_node=routing["home_node"],
-                )
-                extra = detour + fetch
+                with obs.span("routing_prepass"):
+                    # Routers price against the published view; true serving is
+                    # on the live map, and refused requests consult nothing.
+                    pub_hosts, pub_ver = published_view(rstate, store.hosts, c,
+                                                        publish_lag_chunks=lag)
+                    rb = router_of(cn, routing["num_routers"])
+                    ent_cached, fresh, age = consult_probe(rstate, rb, ck)
+                    detour, fetch, consult, fetched, stale, mis = routing_extra_split_ref(
+                        hosts_eff, pub_hosts, ent_cached, fresh, ck, cn, cr, served, rtt,
+                        read_mode=read_mode, home_node=routing["home_node"],
+                    )
+                    extra = detour + fetch
             rho = None
             if contention is not None:
-                cont, rho = contention_extra_ms_ref(hosts_eff, ck, cn, cr, served, rtt, obj,
-                                                    **contention, group=group)
-                extra = cont if extra is None else extra + cont
+                with obs.span("contention_prepass"):
+                    cont, rho = contention_extra_ms_ref(hosts_eff, ck, cn, cr, served, rtt, obj,
+                                                        **contention, group=group)
+                    extra = cont if extra is None else extra + cont
             if fault is not None:
                 extra = f_extra if extra is None else f_extra + extra
             if acfg is not None or fcfg is not None:
-                comps = chunk_components_ref(
-                    hosts_eff, ck, cn, cr, rtt, read_mode=read_mode, contention_ms=cont,
-                    routing_detour_ms=detour, directory_fetch_ms=fetch, avail=avail_c, **scalars,
+                with obs.span("attribution_components"):
+                    comps = chunk_components_ref(
+                        hosts_eff, ck, cn, cr, rtt, read_mode=read_mode, contention_ms=cont,
+                        routing_detour_ms=detour, directory_fetch_ms=fetch, avail=avail_c,
+                        **scalars,
+                    )
+                    comps = torch.where(served[None, :], comps, torch.zeros((), **f32))
+                    if acfg is not None:
+                        with obs.span("attribution_fold"):
+                            row["attr_hist"] = telemetry_mod.attribution_chunk_hist(
+                                comps, (cn * 2 + cr.to(torch.int32)).to(torch.int32),
+                                served.to(torch.float32), acfg, n)
+                            # f32 after the fold
+                            row["attr_sum"] = comps.sum(dim=1, dtype=torch.float64)
+                    if fcfg is not None:
+                        with obs.span("flight_recorder"):
+                            row["flight_meta"], row["flight_vals"] = _flight_sample(
+                                fpos[c], lo, ck, cn, cr, served, comps,
+                                None if routing is None else rb, key_base=base)
+            with obs.span("chunk_replay"):
+                d_busy, d_lat, d_hits, d_reads, d_count, hist = chunk_replay(
+                    hosts_eff, ck, cn, cr, served, rtt, read_mode=read_mode,
+                    extra_ms=extra, **bins, **scalars,
                 )
-                comps = torch.where(served[None, :], comps, torch.zeros((), **f32))
-                if acfg is not None:
-                    row["attr_hist"] = telemetry_mod.attribution_chunk_hist(
-                        comps, (cn * 2 + cr.to(torch.int32)).to(torch.int32),
-                        served.to(torch.float32), acfg, n)
-                    row["attr_sum"] = comps.sum(dim=1, dtype=torch.float64)  # f32 after the fold
-                if fcfg is not None:
-                    row["flight_meta"], row["flight_vals"] = _flight_sample(
-                        fpos[c], lo, ck, cn, cr, served, comps, None if routing is None else rb,
-                        key_base=base)
-            d_busy, d_lat, d_hits, d_reads, d_count, hist = chunk_replay(
-                hosts_eff, ck, cn, cr, served, rtt, read_mode=read_mode,
-                extra_ms=extra, **bins, **scalars,
-            )
-            busy = busy + d_busy
-            lat_sum = lat_sum + d_lat
-            hits += d_hits
-            reads += d_reads
+                busy = busy + d_busy
+                lat_sum = lat_sum + d_lat
+                hits += d_hits
+                reads += d_reads
             if fault is not None:
-                unreach = (store.hosts.any(dim=-1) & ~hosts_eff.any(dim=-1)) | wiped
-                dark = all_sum(torch.stack([unreach.sum(), wiped.sum()]), group)
-                row["fracs"] = dark.to(torch.float32) * inv_keys
+                with obs.span("fault_counters"):
+                    unreach = (store.hosts.any(dim=-1) & ~hosts_eff.any(dim=-1)) | wiped
+                    dark = all_sum(torch.stack([unreach.sum(), wiped.sum()]), group)
+                    row["fracs"] = dark.to(torch.float32) * inv_keys
             if resample:
-                occ = all_sum(_node_occupancy(store.hosts, obj), group)
-                peak = torch.maximum(peak, occ)
+                with obs.span("occupancy"):
+                    occ = all_sum(_node_occupancy(store.hosts, obj), group)
+                    peak = torch.maximum(peak, occ)
             if routing is not None:
                 row["routing"] = torch.stack([consult.sum(), fetched.sum(), mis.sum(), stale.sum()])
                 row["stale_age_hist"] = stale_age_fold(age, stale)
@@ -728,9 +752,10 @@ def _simulate(
                 )
             stats, d_rep = no_moves, torch.zeros((), **i64)
             if static.is_active:
-                # Users of a down origin are offline and leave no demand.
-                demand = cv if fault is None else cv & avail_c[cn.long()]
-                store = record_accesses(store, ck, cn, now=c, valid=demand)
+                with obs.span("record_accesses"):
+                    # Users of a down origin are offline and leave no demand.
+                    demand = cv if fault is None else cv & avail_c[cn.long()]
+                    store = record_accesses(store, ck, cn, now=c, valid=demand)
                 prev_hosts = store.hosts
                 step_ctx = ctx if fault is None else ctx._replace(avail=avail_c)
                 stats, pstate, store = policy_masked_step(
@@ -739,19 +764,23 @@ def _simulate(
                 stats = torch.stack(stats)
                 moves += stats
                 if fault is not None:
-                    # Copies the sweep made of keys that had lost every live
-                    # copy are repairs; a wiped key heals once a live node
-                    # holds it again.
-                    added = store.hosts & ~prev_hosts
-                    lost_live = prev_hosts.any(dim=-1) & ~(prev_hosts & avail_c[None, :]).any(dim=-1)
-                    d_rep = (added & (wiped | lost_live)[:, None]).sum()
-                    wiped = wiped & ~(store.hosts & avail_c[None, :]).any(dim=-1)
+                    with obs.span("repair_accounting"):
+                        # Copies the sweep made of keys that had lost every live
+                        # copy are repairs; a wiped key heals once a live node
+                        # holds it again.
+                        added = store.hosts & ~prev_hosts
+                        lost_live = (prev_hosts.any(dim=-1)
+                                     & ~(prev_hosts & avail_c[None, :]).any(dim=-1))
+                        d_rep = (added & (wiped | lost_live)[:, None]).sum()
+                        wiped = wiped & ~(store.hosts & avail_c[None, :]).any(dim=-1)
                 if routing is not None:
-                    rstate = publish_commit(
-                        rstate, publish_mask(prev_hosts, store.hosts), store.hosts, c,
-                        publish_lag_chunks=lag,
-                        daemon_up=None if fault is None else bool(avail_np[c, routing["home_node"]]),
-                    )
+                    with obs.span("publish"):
+                        rstate = publish_commit(
+                            rstate, publish_mask(prev_hosts, store.hosts), store.hosts, c,
+                            publish_lag_chunks=lag,
+                            daemon_up=(None if fault is None
+                                       else bool(avail_np[c, routing["home_node"]])),
+                        )
             if fault is not None:
                 row["fault"] = torch.stack([(unavail & cr).sum(), (unavail & ~cr).sum(),
                                             failover.sum(), d_rep])
