@@ -27,8 +27,9 @@ the paper's experiment grid: ``run_experiment`` for Figures 2 and 3 at the
 paper's size (card against the CPU port on the same traces), the policy
 head-to-head of ``benchmarks/policy_matrix.py`` and the budgets of
 ``benchmarks/capacity_sweep.py`` at 1 M keys and 2.5 M requests (held
-against the plain-version engine), with the capacity projection's device
-time a sweep. Phase 10 drives the routing tier and failure injection:
+against the plain-version engine), with the ``capacity_projection``
+kernel held against its plain version bit for bit on a sweep's input and
+an edge-preset one, and timed. Phase 10 drives the routing tier and failure injection:
 ``benchmarks/directory_staleness.py`` and ``availability.py`` at their
 default sizes (card against the CPU port, and the benchmarks' own checks),
 then publish lags, a bounded router cache, a region crash and a partition
@@ -592,18 +593,23 @@ def _plain_versions():
     """Route the engine through the kernels' plain PyTorch versions (on the
     card), the yardstick for a whole run."""
     from repro_torch.kernels.ownership_sweep import ops as sweep_ops  # core/placement.py::sweep imports it per call
+    from repro_torch.kernels.capacity_projection import ops as cp_ops  # core/costmodel.py imports it per call
     import repro_torch.kvsim.simulate as sim_mod
     import repro_torch.kvsim.telemetry as telemetry_mod
+    from repro_torch.kernels.capacity_projection.ref import project_capacity_ref
     from repro_torch.kernels.chunk_replay.ref import chunk_replay_ref
     from repro_torch.kernels.ownership_sweep.ref import sweep_ref
 
-    saved = sim_mod.chunk_replay, sweep_ops.ownership_sweep, telemetry_mod.latency_histogram
+    saved = (sim_mod.chunk_replay, sweep_ops.ownership_sweep, telemetry_mod.latency_histogram,
+             cp_ops.capacity_projection)
     sim_mod.chunk_replay, sweep_ops.ownership_sweep = chunk_replay_ref, sweep_ref
     telemetry_mod.latency_histogram = _plain_histogram
+    cp_ops.capacity_projection = project_capacity_ref
     try:
         yield
     finally:
-        sim_mod.chunk_replay, sweep_ops.ownership_sweep, telemetry_mod.latency_histogram = saved
+        (sim_mod.chunk_replay, sweep_ops.ownership_sweep, telemetry_mod.latency_histogram,
+         cp_ops.capacity_projection) = saved
 
 
 def _profile_window(torch, trace, wl, cl, policy, run_scenario, out_dir,
@@ -1213,10 +1219,14 @@ def _experiment_phase(torch, dev, out_dir) -> dict:
         plain-version engine on the card;
     (c) ``benchmarks/capacity_sweep.py``'s budgets at 1,000 times its keys,
         and the edge-node preset under Redynis and ``costgreedy``, one
-        finite budget held against the plain-version engine.
+        finite budget held against the plain-version engine; then the
+        ``capacity_projection`` kernel against its plain version, bit for
+        bit, at the sweep's shape and on an edge-preset input, and timed.
 
     The kernel counters are zeroed before (a) and read after (c), before
     any plain-version run or profile. Returns the phase's record."""
+    from repro_torch.kernels.capacity_projection.ops import capacity_projection
+    from repro_torch.kernels.capacity_projection.ref import project_capacity_ref
     from repro_torch.kernels.chunk_replay.ops import chunk_replay
     from repro_torch.kernels.latency_histogram.ops import latency_histogram
     from repro_torch.kernels.ownership_sweep.ops import ownership_sweep
@@ -1238,15 +1248,18 @@ def _experiment_phase(torch, dev, out_dir) -> dict:
     )
 
     rec: dict = {}
-    expect = {"chunk_replay": 0, "ownership_sweep": 0, "latency_histogram": 0}
+    expect = {"chunk_replay": 0, "ownership_sweep": 0, "latency_histogram": 0, "capacity_projection": 0}
 
-    def expect_runs(policy, requests: int, interval: int, runs: int, telemetry: bool) -> None:
-        """The launches ``runs`` kernel-path runs of ``policy`` make."""
+    def expect_runs(policy, requests: int, interval: int, runs: int, telemetry: bool,
+                    finite: bool = False) -> None:
+        """The launches ``runs`` kernel-path runs of ``policy`` make; ``finite``:
+        the cluster has a finite budget, projected once a due sweep."""
         chunks = -(-requests // interval)
         if policy.is_active:
             expect["chunk_replay"] += runs * chunks
             if isinstance(policy, RedynisPolicy):  # the one policy on the sweep kernel
                 expect["ownership_sweep"] += runs * -(-chunks // policy.period)
+            expect["capacity_projection"] += runs * finite * -(-chunks // policy.period)
         else:
             expect["chunk_replay"] += runs
             expect["latency_histogram"] += runs * telemetry
@@ -1260,7 +1273,7 @@ def _experiment_phase(torch, dev, out_dir) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()  # what earlier phases still hold
-    for fn in (chunk_replay, ownership_sweep, latency_histogram):
+    for fn in (chunk_replay, ownership_sweep, latency_histogram, capacity_projection):
         fn.launches = 0
 
     # (a) The paper's Figures 2 and 3.
@@ -1349,7 +1362,8 @@ def _experiment_phase(torch, dev, out_dir) -> dict:
         res = run_scenario(w, c, pol, daemon_interval=FULL_INTERVAL, trace=t)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        expect_runs(pol.resolve(c.num_nodes), GRID_REQUESTS, FULL_INTERVAL, 1, False)
+        expect_runs(pol.resolve(c.num_nodes), GRID_REQUESTS, FULL_INTERVAL, 1, False,
+                    finite=c.has_finite_capacity)
         capacity[label] = dict(result=res, wall_s=wall)
         print(f"phase 8 capacity {label}: hit_rate {res.hit_rate:.4f}, capacity_evictions "
               f"{res.capacity_evictions:.0f}, peak occupancy {res.peak_occupancy_bytes.max():.0f} bytes "
@@ -1359,8 +1373,10 @@ def _experiment_phase(torch, dev, out_dir) -> dict:
     assert all(capacity[f"{kib:g} KiB"]["result"].capacity_evictions > 0 for kib in CAPACITY_KIB[1:])
     assert capacity["wan5 edge redynis"]["result"].capacity_evictions > 0
 
+    # The projection runs once a due sweep with a finite budget: in (c) only.
     launches = {"chunk_replay": chunk_replay.launches, "ownership_sweep": ownership_sweep.launches,
-                "latency_histogram": latency_histogram.launches}
+                "latency_histogram": latency_histogram.launches,
+                "capacity_projection": capacity_projection.launches}
     assert launches == expect, (launches, expect)
     assert all(v > 0 for v in launches.values()), launches
     rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
@@ -1392,21 +1408,49 @@ def _experiment_phase(torch, dev, out_dir) -> dict:
           f"(capacity evictions {plain.capacity_evictions:.0f}, exact)")
     del traces_b
 
-    # The projection a sweep, at the capacity run's shape, and the chunk
-    # loop's launches with and without a budget.
+    # The projection a sweep, at the capacity run's shape (the budget of
+    # the held run) and on an edge-preset input (one finite budget among
+    # infinite ones), against its plain version on the same tensors; then
+    # the chunk loop's launches with and without a budget.
     gen = torch.Generator(device=dev).manual_seed(1)
-    counts = torch.randint(0, 4, (FULL_KEYS, 3), device=dev, generator=gen, dtype=torch.int32)
-    f = ownership_fraction(counts)
-    owners = f >= 1 / 3
-    hosts = torch.rand((FULL_KEYS, 3), device=dev, generator=gen) < 0.4
-    cap = ClusterConfig(capacity_bytes=held_kib * 1024.0).capacity_vector(dev)
-    proj = _profile_calls(torch, lambda: project_capacity(owners, hosts, f, trace_c.object_bytes, cap))
-    proj["event_ms"] = _device_ms(lambda: project_capacity(owners, hosts, f, trace_c.object_bytes, cap),
-                                  torch, iters=20)
-    print(f"phase 8 project_capacity ({FULL_KEYS} keys x 3 nodes): device {proj['device_ms']:.4f} ms "
-          f"a sweep by the profiler ({proj['event_ms']:.4f} ms by events), "
-          f"{proj['host_launches']:.1f} kernel launches a sweep")
+    inputs = {}
+    for label, n, cap, sizes in ((f"{FULL_KEYS} keys x 3 nodes, {held}", 3,
+                                  ClusterConfig(capacity_bytes=held_kib * 1024.0).capacity_vector(dev),
+                                  trace_c.object_bytes),
+                                 (f"{FULL_KEYS} keys x 5 nodes, wan5 edge", 5, cl_e.capacity_vector(dev),
+                                  trace_e.object_bytes)):
+        counts = torch.randint(0, 4, (FULL_KEYS, n), device=dev, generator=gen, dtype=torch.int32)
+        f = ownership_fraction(counts)
+        owners = f >= 1 / n
+        hosts = torch.rand((FULL_KEYS, n), device=dev, generator=gen) < 0.4
+        got = project_capacity(owners, hosts, f, sizes, cap)
+        want = project_capacity_ref(owners, hosts, f, sizes, cap)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), f"phase 8 project_capacity {label}"
+        finite = torch.isfinite(cap)
+        # The budgets cut: some owned entries are admitted and some are not.
+        assert bool(got[0][:, finite].any()) and bool((owners & ~got[0])[:, finite].any()), label
+        assert torch.equal(got[0][:, ~finite], owners[:, ~finite]), label
+        inputs[label] = (owners, hosts, f, sizes, cap)
+    print(f"phase 8 project_capacity ok: kernel = plain version bit for bit ({'; '.join(inputs)})")
+    owners, hosts, f, sizes, cap = next(iter(inputs.values()))
+    proj = _profile_calls(torch, lambda: project_capacity(owners, hosts, f, sizes, cap))
+    proj["ms"] = _device_ms(lambda: project_capacity(owners, hosts, f, sizes, cap), torch, iters=20)
+    proj["plain_ms"] = _device_ms(lambda: project_capacity_ref(owners, hosts, f, sizes, cap), torch,
+                                  reps=3, iters=5)
+    # Owners, hosts (1 B), f (4 B) and a key's size (4 B) read once, the two
+    # planes callers read written once.
+    proj["bound_ms"] = (8 * FULL_KEYS * 3 + 4 * FULL_KEYS) / BW_BYTES_PER_S * 1e3
+    proj["kernels_per_call"] = _kernels_per_call(torch, lambda: project_capacity(owners, hosts, f, sizes, cap),
+                                                 capacity_projection)
+    assert proj["kernels_per_call"]["host_launches"] == 9, proj["kernels_per_call"]  # a memset and nine kernels
+    assert proj["kernels_per_call"]["counted"] == 1, proj["kernels_per_call"]
+    proj["checked"] = list(inputs)
+    print(f"phase 8 project_capacity ({FULL_KEYS} keys x 3 nodes): kernel {proj['ms']:.4f} ms by events "
+          f"(device {proj['device_ms']:.4f} ms a sweep by the profiler), plain {proj['plain_ms']:.4f} ms, "
+          f"bound {proj['bound_ms']:.4f} ms ({proj['bound_ms'] / proj['ms']:.3f} of it), "
+          f"{proj['kernels_per_call']['host_launches']:.1f} kernel launches a call")
     rec["projection"] = proj
+    del inputs, got, want
     rec["chunk_profile"] = {}
     for label, kib in (("no_budget", float("inf")), (f"{held_kib:g}_KiB", held_kib)):
         unprofiled = capacity[f"{kib:g} KiB"]["wall_s"] * 1e3 / chunks
@@ -1426,7 +1470,7 @@ def _experiment_phase(torch, dev, out_dir) -> dict:
         throughput_ops_s=c["result"].throughput_ops_s,
         peak_occupancy_bytes=c["result"].peak_occupancy_bytes.tolist())
         for label, c in capacity.items()}
-    del trace_c, trace_e, counts, f, owners, hosts
+    del trace_c, trace_e, counts, f, owners, hosts, sizes, cap
     torch.cuda.empty_cache()
     return rec
 
@@ -4725,6 +4769,7 @@ def main() -> int:
 
     # ---- phase 8: the paper's experiment grid, policies and capacity -----
     record["experiment"] = _experiment_phase(torch, dev, out_dir)
+    ex_launches, proj_rec = record["experiment"]["launches"], record["experiment"]["projection"]
 
     lap("phase 8")
 
@@ -4783,8 +4828,9 @@ def main() -> int:
     # sharded runs (phase 12, summed over the ranks) drive the first three,
     # the ML-state run (phase 6) and training (phases 13 and 15; phase 13's
     # expert sweeps are ownership_sweep's too, phase 15 has none) the next two, the serving drive (phase 7)
-    # the two after, phases 11 and 12 the last (a port-only kernel); phase
-    # 8's launches of the first three are on a line of their own ("phase 8
+    # the two after, phases 11 and 12 the next (a port-only kernel), phase 8
+    # the last (port-only, the capacity sweep's finite budgets); phase 8's
+    # launches of the first three are on a line of their own ("phase 8
     # launches").
     kernels = [
         dict(name="chunk_replay", route="cuda",
@@ -4884,6 +4930,16 @@ def main() -> int:
              bound_by=tw_rec["bound_by"], library_ms=None,
              whole_trace_ms=tw_rec["whole_trace_ms"], whole_trace_bound_ms=tw_rec["whole_trace_bound_ms"],
              kernels_per_call=tw_rec["kernels_per_call"]["host_launches"]),
+        dict(name="capacity_projection", route="cuda",
+             source="src/repro_torch/kernels/capacity_projection/csrc/capacity_projection.cu",
+             replaces="none: port-only (the reference projects with three chained stable sorts in XLA, "
+                      "src/repro/core/costmodel.py:92 project_capacity)",
+             launches=ex_launches["capacity_projection"],
+             launches_by_phase={"8": ex_launches["capacity_projection"]},
+             max_abs_err=0.0,
+             ms=proj_rec["ms"], plain_ms=proj_rec["plain_ms"], bound_ms=proj_rec["bound_ms"],
+             bound_by="bytes", library_ms=None,
+             kernels_per_call=proj_rec["kernels_per_call"]["host_launches"]),
     ]
     mesh_errs = record["mesh"]["kernel_errors"]
     for entry in kernels:

@@ -25,11 +25,17 @@ simulator charges a replica-less read the topology's worst RTT (in the flat
 testbed exactly ``remote_ms``, an ordinary miss).
 
 The reference orders each node's column by three chained stable sorts and
-admits by an f32 prefix sum. Here one stable sort of composite int64 keys
-(node, then the reference's three keys) gives the same order (``-0.0``
-ties ``0.0`` as there), and the prefix sum runs in f64 over the f32 sizes:
-exact for every summation order while a node's sizes span fewer than 53
-bits (1 M keys of lognormal sizes with sigma 0.5 need about 51), so the
+admits by an f32 prefix sum. The port keeps one order rule: owned
+candidates, then ``f`` descending (``-0.0`` ties ``0.0`` as there), held
+before add, key id ascending, and admits while the f64 sum of the f32
+sizes fits. Sizes are never negative, so a node's admitted set is a prefix
+of that order and ends at one cut point. On the CPU the plain version
+(``kernels/capacity_projection/ref.py``) sorts composite int64 keys and
+takes prefix sums; on the card the ``capacity_projection`` kernel selects
+each node's cut point by a weighted radix select over the order value and
+a key-order scan of the tie group it falls in, with no sort. The f64 sums
+are exact for every summation order while a node's sizes span fewer than
+53 bits (1 M keys of lognormal sizes with sigma 0.5 need about 51), so the
 card and the CPU admit the same keys. The reference's f32 prefix sum
 rounds, and can flip ``cum <= budget`` for the one key that sits at the
 budget line.
@@ -80,15 +86,6 @@ def replication_gain(
     return saved * steps_per_sweep - move
 
 
-def _descending_rank_bits(f: torch.Tensor) -> torch.Tensor:
-    """int64 in ``[0, 2**32)`` that orders like ``-f`` (non-NaN f32), with
-    ``-0.0`` equal to ``0.0``."""
-    f = torch.where(f == 0, torch.zeros_like(f), f)
-    bits = f.view(torch.int32).to(torch.int64)
-    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)  # orders like f
-    return (2**31 - 1) - ordered
-
-
 def project_capacity(
     owners: torch.Tensor,  # [K, N] bool post-eligibility replica set
     hosts: torch.Tensor,  # [K, N] bool replica set before this sweep
@@ -100,32 +97,13 @@ def project_capacity(
     evicted, rejected)``, all ``[K, N]`` bool: ``evicted`` are held
     replicas (``owners & hosts``) that no longer fit, ``rejected`` planned
     adds never admitted. An infinite budget is an identity."""
-    k, n = owners.shape
-    dev = owners.device
-    held = owners & hosts
-    budget = torch.as_tensor(capacity_bytes, dtype=torch.float32, device=dev)
-    budget = budget.expand(n).to(torch.float64)
-    # One sort of every node's column, node-major ([N, K] flattened: a 1-D
-    # sort, which the card runs as one radix sort). Within a node, most
-    # significant first: owned candidates, then f descending, then held
-    # before add; the stable sort keeps key ids ascending within a tie.
-    node = torch.arange(n, dtype=torch.int64, device=dev)[:, None]
-    key = (node << 35) | ((~owners.t()).to(torch.int64) << 33) \
-        | (_descending_rank_bits(f.t().to(torch.float32)) << 1) | (~held.t()).to(torch.int64)
-    perm = torch.sort(key.reshape(-1), stable=True).indices  # [N * K], node-major
-    owned_sorted = owners.t().reshape(-1)[perm]
-    obj = object_bytes.to(torch.float32).to(torch.float64)
-    size_sorted = torch.where(owned_sorted, obj[perm % k],
-                              torch.zeros((), dtype=torch.float64, device=dev)).view(n, k)
-    # A prefix sum a node, each over one contiguous row: the card scans a
-    # 1-D tensor in parallel, but runs a scan along the key axis of a
-    # [K, N] tensor one thread a column.
-    cum = torch.empty_like(size_sorted)
-    for j in range(n):
-        torch.cumsum(size_sorted[j], 0, out=cum[j])
-    admit_sorted = owned_sorted & (cum <= budget[:, None]).view(-1)
-    admit = torch.empty_like(admit_sorted).scatter_(0, perm, admit_sorted).view(n, k).t()
-    return owners & admit, held & ~admit, (owners & ~hosts) & ~admit
+    # Imported here: the kernels' plain versions import ``repro_torch.core``,
+    # whose package module imports this one.
+    from repro_torch.kernels.capacity_projection.ops import capacity_projection
+
+    return capacity_projection(owners.contiguous(), hosts.contiguous(),
+                               f.to(torch.float32).contiguous(),
+                               object_bytes.to(torch.float32).contiguous(), capacity_bytes)
 
 
 def budget_plan(plan, counts: torch.Tensor, object_bytes: torch.Tensor, node_budget_bytes):

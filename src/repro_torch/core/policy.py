@@ -519,7 +519,9 @@ def policy_sweep(
     the post-sweep count decay where the policy has one. ``policy`` is a
     static key from :func:`split_policy`. ``fused=False`` takes the plain
     ``decide`` even where the policy supplies its fractions through a
-    kernel (the reference engine's route). Returns ``(plan, state, store)``."""
+    kernel, and the plain capacity projection on the card too (the
+    reference engine's route, which runs no kernel of its own). Returns
+    ``(plan, state, store)``."""
     counts, hosts, live = store.access_counts, store.hosts, store.live
     with obs.span("decide"):
         if fused and getattr(policy, "supplies_fractions", False):
@@ -545,8 +547,15 @@ def policy_sweep(
     evicted = None
     if ctx.capacity_bytes is not None:
         with obs.span("capacity_projection"):
-            owners, evicted, _ = project_capacity(owners, hosts, f, ctx.object_bytes,
-                                                  ctx.capacity_bytes)
+            if fused:
+                owners, evicted, _ = project_capacity(owners, hosts, f, ctx.object_bytes,
+                                                      ctx.capacity_bytes)
+            else:
+                # Imported here, as ``core/costmodel.py`` imports the kernel.
+                from repro_torch.kernels.capacity_projection.ref import project_capacity_ref
+
+                owners, evicted, _ = project_capacity_ref(owners, hosts, f, ctx.object_bytes,
+                                                          ctx.capacity_bytes)
 
     plan = PlacementPlan(owners=owners, to_add=owners & ~hosts, to_drop=hosts & ~owners,
                          expired=expired, f=f, capacity_evicted=evicted)

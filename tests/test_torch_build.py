@@ -18,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.capacity_projection import ops as cp_ops  # noqa: E402
 from repro_torch.kernels.chunk_replay import ops as cr_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
@@ -26,7 +27,7 @@ from repro_torch.kernels.moe_router import ops as mr_ops  # noqa: E402
 from repro_torch.kernels.trace_window import ops as tw_ops  # noqa: E402
 
 BIT_EXACT = ("chunk_replay", "ownership_sweep", "latency_histogram", "moe_router", "hot_gather",
-             "flash_decode", "trace_window")
+             "flash_decode", "trace_window", "capacity_projection")
 
 
 @pytest.mark.parametrize("name", BIT_EXACT)
@@ -293,6 +294,7 @@ def _c_params(source: str, fn: str) -> list:
     ("latency_histogram", "latency_histogram_thresholds_launch", lh_ops._THRESHOLD_ARGTYPES),
     ("latency_histogram", "latency_histogram_check_launch", lh_ops._CHECK_ARGTYPES),
     ("trace_window", "trace_window_launch", tw_ops._ARGTYPES),
+    ("capacity_projection", "capacity_projection_launch", cp_ops._ARGTYPES),
 ])
 def test_ctypes_argument_lists_match_the_c_launch_functions(kernel, fn, argtypes):
     """A pointer passed where the C side reads an int (or the reverse)

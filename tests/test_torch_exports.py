@@ -52,10 +52,12 @@ PORT_ONLY = {
         "policy_repr": "the policy label of run_experiment's rows, public for the grid's callers",
     },
     "kvsim": {},
-    "kernels": {"trace_window": "a port-only kernel: the reference draws traces in XLA"},
+    "kernels": {"trace_window": "a port-only kernel: the reference draws traces in XLA",
+                "capacity_projection": "a port-only kernel: the reference projects budgets "
+                                       "with sorts in XLA"},
 }
 KERNELS = ("chunk_replay", "ownership_sweep", "latency_histogram", "moe_router", "hot_gather",
-           "flash_attention", "flash_decode", "trace_window")
+           "flash_attention", "flash_decode", "trace_window", "capacity_projection")
 
 
 def _torch_warm():

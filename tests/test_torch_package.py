@@ -78,6 +78,8 @@ MODULES = [
     "repro_torch.kernels._build",
     "repro_torch.kernels.trace_window.ops",
     "repro_torch.kernels.trace_window.ref",
+    "repro_torch.kernels.capacity_projection.ops",
+    "repro_torch.kernels.capacity_projection.ref",
     "repro_torch.kernels.chunk_replay.ops",
     "repro_torch.kernels.chunk_replay.ref",
     "repro_torch.kernels.latency_histogram.ops",
